@@ -1,0 +1,175 @@
+"""GPU-only tests: each CUDA kernel of the port against its plain PyTorch
+version, and the wrapper's argument checks. They skip without a GPU (a
+CUDA kernel has no CPU mode). This file imports no JAX, so it also runs on
+a GPU machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(``--noconftest`` skips tests/conftest.py, which sets up JAX.)
+"""
+import numpy as np
+import pytest
+import torch
+
+from torch_helpers import bf16_ulp_distance, within_reorder_bound
+from viquae_torch.models import bert as tbert
+from viquae_torch.models import convert
+from viquae_torch.models import dpr as tdpr
+from viquae_torch.models import layers as TL
+from viquae_torch.ops import mips as tm
+from viquae_torch.ops import mips_fused as tmf
+from viquae_torch.ops import packing
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _int_inputs(dev, q_count, n, dim, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-4, 5, (q_count, dim), generator=gen, device=dev)
+    kb = torch.randint(-4, 5, (n, dim), generator=gen, device=dev)
+    return q.to(torch.bfloat16), kb.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("q_count,n,dim,valid", [
+    (77, 1024, 64, 1000), (77, 1024, 64, 0), (1, 128, 8, 128),
+    (130, 512, 40, 300), (64, 256, 768, 256),
+])
+def test_kernel_bit_identical_on_integers(cuda, q_count, n, dim, valid):
+    """Integer inputs in [-4, 4]: every f32 sum is exact (d <= 768 keeps
+    them below 2^24), so kernel and plain version agree bit for bit —
+    ragged query edge, d not a multiple of the depth step, and a
+    valid_rows that cuts a segment included."""
+    q, kb = _int_inputs(cuda, q_count, n, dim, seed=q_count + n)
+    before = tmf.fused_score_segmax.launches
+    s, m = tmf.fused_score_segmax(q, kb, valid)
+    torch.cuda.synchronize()
+    assert tmf.fused_score_segmax.launches == before + 1
+    ps, pm = tmf.fused_score_segmax_plain(q, kb, valid)
+    assert torch.equal(s.view(torch.int16), ps.view(torch.int16))
+    assert torch.equal(m.view(torch.int16), pm.view(torch.int16))
+
+
+def test_kernel_within_reorder_bound_on_gaussian(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((300, 768), generator=gen, device=cuda).to(torch.bfloat16)
+    kb = torch.randn((8192, 768), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    s, m = tmf.fused_score_segmax(q, kb, 8000)
+    ps, _ = tmf.fused_score_segmax_plain(q, kb, 8000)
+    a, b = s.float().cpu().numpy(), ps.float().cpu().numpy()
+    # near-zero scores come from cancellation: there the two summation
+    # orders may differ by many ulps of the tiny result, so the criterion
+    # is the float32 reordering bound plus one bf16 ulp
+    assert within_reorder_bound(q.float().cpu().numpy(),
+                                kb.float().cpu().numpy(), a, b).all()
+    assert (bf16_ulp_distance(a, b) == 0).mean() >= 0.999
+    own = s.view(300, -1, 128).amax(-1)
+    assert torch.equal(m.view(torch.int16), own.view(torch.int16))
+
+
+def test_topk_fused_on_gpu_matches_plain_selection(cuda):
+    q, kb = _int_inputs(cuda, 50, 2048, 64, seed=3)
+    for chunks in (1, 2):
+        s, i = tmf.topk_fused(q, kb, 30, valid_rows=2000, chunks=chunks)
+        ps, pi = tmf.segment_topk(*tmf.fused_score_segmax_plain(q, kb, 2000),
+                                  30)
+        assert i.max().item() < 2000
+        np.testing.assert_array_equal(s.cpu().numpy(), ps.cpu().numpy())
+        if chunks == 1:
+            np.testing.assert_array_equal(i.cpu().numpy(), pi.cpu().numpy())
+
+
+def test_dense_index_on_gpu_matches_cpu(cuda):
+    rng = np.random.default_rng(0)
+    kb = rng.integers(-4, 5, (1000, 32)).astype(np.float32)
+    q = rng.integers(-4, 5, (20, 32)).astype(np.float32)
+    gpu = tm.DenseIndex(kb, device=cuda).search_batch(q, k=10)
+    cpu = tm.DenseIndex(kb, device="cpu").search_batch(q, k=10)
+    np.testing.assert_array_equal(gpu[0], cpu[0])
+    np.testing.assert_array_equal(gpu[1], cpu[1])
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, kb = _int_inputs(cuda, 8, 256, 64, seed=1)
+    with pytest.raises(TypeError):
+        tmf.fused_score_segmax(q.float(), kb, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmf.fused_score_segmax(q.t().contiguous().t(), kb, 256)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tmf.fused_score_segmax(q, kb[:200], 200)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tmf.fused_score_segmax(q[:, :60].contiguous(),
+                               kb[:, :60].contiguous(), 256)
+    with pytest.raises(ValueError, match="valid_rows"):
+        tmf.fused_score_segmax(q, kb, 257)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tmf.fused_score_segmax(q.cpu(), kb, 256)
+    # contiguous, but 2 bytes past a 16-byte boundary
+    shifted = torch.empty(256 * 64 + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(256, 64)
+    shifted.copy_(kb)
+    with pytest.raises(ValueError, match="16-byte"):
+        tmf.fused_score_segmax(q, shifted, 256)
+
+
+def test_bf16_gemm_dense_matches_f32_upcast(cuda):
+    """On the card ``dense`` takes bf16 operands to a tensor-core GEMM with
+    an f32 result; the CPU takes the f32 product of the upcast operands.
+    The products are exact in f32 either way, so the two differ only in
+    how the f32 sums are taken. Each is within g_d(v) sum_i |x_i w_i| of
+    the exact sum, with v = 2^-24 for round-to-nearest adds and 2^-23 for
+    tensor-core adds that truncate, so they differ by at most the sum of
+    the two."""
+    torch.manual_seed(0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lin = torch.nn.Linear(768, 3072, device=cuda, dtype=torch.bfloat16)
+    x = torch.randn((640, 768), generator=gen, device=cuda).to(torch.bfloat16)
+    got = TL.dense(lin, x, torch.bfloat16)
+    ref = TL._dot_f32_upcast(x, lin.weight) + lin.bias
+
+    def gamma(v, d=768):
+        return d * v / (1 - d * v)
+
+    assert got.dtype == ref.dtype == torch.float32
+    bound = (gamma(2.0 ** -24) + gamma(2.0 ** -23)) * (
+        x.float().abs() @ lin.weight.float().abs().t())
+    assert ((got - ref).abs() <= bound).all()
+
+
+def test_bf16_gemm_encoder_matches_f32_upcast(cuda, monkeypatch):
+    """The packed DPR encoder with bf16 weights and compute, its dense
+    layers on the bf16 GEMM, against the same forward with every dense
+    product taken on the upcast operands. Each dense output is cast to bf16
+    again before the next product, and the attention probabilities are
+    rounded to bf16, so the last-place differences of the f32 sums can
+    flip a rounding: the CLS outputs agree to within bf16 resolution,
+    rtol = atol = 2e-2 (as test_torch_bert holds the port to JAX)."""
+    cfg = tdpr.DPRConfig(bert=tbert.BertConfig(
+        vocab_size=3000, hidden_size=256, num_hidden_layers=4,
+        num_attention_heads=4, intermediate_size=1024,
+        max_position_embeddings=64, add_pooler=False))
+    model = convert.params_from_jax(convert.init_tree(cfg, seed=0), cfg,
+                                    device=cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    seqs = [rng.integers(1000, 3000, n).astype(np.int32)
+            for n in rng.integers(8, 40, 200)]
+    p = packing.pack_token_sequences(seqs, 64, pad_rows_to=32, n_cls=256)
+    canvas = [torch.from_numpy(a).to(cuda) for a in (
+        p.input_ids, p.segment_ids, p.position_ids, p.cls_rows, p.cls_cols)]
+    with torch.no_grad():
+        got = tdpr.apply_packed(model, cfg, *canvas,
+                                compute_dtype=torch.bfloat16)[:200]
+        monkeypatch.setattr(TL, "_dot_f32", TL._dot_f32_upcast)
+        ref = tdpr.apply_packed(model, cfg, *canvas,
+                                compute_dtype=torch.bfloat16)[:200]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)

@@ -1,0 +1,34 @@
+"""Shared helpers for the tests of the PyTorch port (imports no JAX, so the
+GPU-only tests can use it on a machine without JAX)."""
+import numpy as np
+
+
+def bf16_ulp_distance(a, b) -> np.ndarray:
+    """Elementwise distance in bf16 ulps between two arrays whose values
+    are bf16-representable (given as float32 or float64). Equal infinities
+    are 0 apart; +0 and -0 are 0 apart."""
+    def ordered(x):
+        bits = (np.asarray(x, np.float32).view(np.uint32) >> 16).astype(
+            np.int64)
+        mag = bits & 0x7FFF
+        return np.where(bits & 0x8000, -mag, mag)
+
+    return np.abs(ordered(a) - ordered(b))
+
+
+def within_reorder_bound(q, kb, a, b) -> np.ndarray:
+    """Whether two bf16 score matrices a, b of q @ kb.T (all as float32
+    numpy) agree within what summation order allows: two float32 sums of
+    the same d products differ by at most 2 g_d sum_i |q_i kb_i|
+    (g_d = d u / (1 - d u), u = 2^-24), and rounding each to bf16 adds at
+    most one bf16 ulp of the larger value. -inf must match -inf."""
+    d = q.shape[1]
+    gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+    finite = np.isfinite(b)
+    same_mask = finite == np.isfinite(a)
+    a, b = np.where(finite, a, 0.0), np.where(finite, b, 0.0)
+    diff = np.abs(a - b)
+    mag = np.maximum(np.abs(a), np.abs(b))
+    ulp = np.ldexp(1.0, np.frexp(mag)[1] - 8)
+    bound = 2 * gamma * (np.abs(q) @ np.abs(kb).T) + ulp
+    return same_mask & (diff <= bound)

@@ -1,0 +1,124 @@
+"""JAX param trees -> the port's weights.
+
+The JAX package stores BERT params as a nested dict (``bert.init``,
+viquae_tpu/models/bert.py:66-114) with dense kernels laid out (in, out).
+:func:`params_from_jax` takes that tree with numpy leaves (any float dtype,
+bf16 included) and returns a :class:`viquae_torch.models.bert.Bert` whose
+``nn.Linear`` weights are (out, in). :func:`init_tree` draws a tree of the
+same layout with numpy from a seed, for runs that need full-width weights
+and no checkpoint.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from viquae_torch.core.device import resolve_device
+from viquae_torch.models.bert import Bert, BertConfig
+
+
+def _bert_cfg(cfg) -> BertConfig:
+    return cfg.bert if hasattr(cfg, "bert") else cfg
+
+
+def _state_dict_from_tree(tree: Dict[str, Any], cfg: BertConfig
+                          ) -> Dict[str, np.ndarray]:
+    def f32(a):
+        return np.asarray(a, dtype=np.float32)
+
+    emb = tree["embeddings"]
+    sd = {
+        "embeddings.word.weight": f32(emb["word"]),
+        "embeddings.position.weight": f32(emb["position"]),
+        "embeddings.token_type.weight": f32(emb["token_type"]),
+        "embeddings.ln.weight": f32(emb["ln"]["scale"]),
+        "embeddings.ln.bias": f32(emb["ln"]["bias"]),
+    }
+
+    def lin(prefix, p):
+        sd[f"{prefix}.weight"] = f32(p["kernel"]).T
+        sd[f"{prefix}.bias"] = f32(p["bias"])
+
+    def ln(prefix, p):
+        sd[f"{prefix}.weight"] = f32(p["scale"])
+        sd[f"{prefix}.bias"] = f32(p["bias"])
+
+    if len(tree["layers"]) != cfg.num_hidden_layers:
+        raise ValueError(f"tree has {len(tree['layers'])} layers, config "
+                         f"{cfg.num_hidden_layers}")
+    for i, layer in enumerate(tree["layers"]):
+        if "mlp" not in layer:
+            raise NotImplementedError(
+                "MoE layers are not ported yet (see ROADMAP.md)")
+        for name in ("q", "k", "v", "o"):
+            lin(f"layers.{i}.attention.{name}", layer["attention"][name])
+        ln(f"layers.{i}.attention_ln", layer["attention_ln"])
+        lin(f"layers.{i}.mlp.in", layer["mlp"]["in"])
+        lin(f"layers.{i}.mlp.out", layer["mlp"]["out"])
+        ln(f"layers.{i}.output_ln", layer["output_ln"])
+    if cfg.add_pooler and "pooler" in tree:
+        lin("pooler", tree["pooler"])
+    return sd
+
+
+def params_from_jax(tree: Dict[str, Any], cfg, device=None,
+                    dtype: torch.dtype = torch.float32) -> Bert:
+    """The JAX BERT/DPR param tree (numpy leaves) -> a :class:`Bert` on
+    ``device`` (default: the GPU) with every weight in ``dtype``. ``cfg`` is
+    a BertConfig or a DPRConfig. The weights do not require grad."""
+    cfg = _bert_cfg(cfg)
+    device = resolve_device(device)
+    sd = _state_dict_from_tree(tree, cfg)
+    with torch.device("meta"):
+        model = Bert(cfg)
+    if model.pooler is not None and "pooler.weight" not in sd:
+        model.pooler = None
+    model.load_state_dict(
+        {name: torch.from_numpy(np.array(a, order="C")).to(
+            device=device, dtype=dtype) for name, a in sd.items()},
+        strict=True, assign=True)
+    return model.requires_grad_(False).eval()
+
+
+def init_tree(cfg, seed: int = 0, stddev: float = 0.02) -> Dict[str, Any]:
+    """A random param tree in the JAX layout, drawn with numpy: dense and
+    embedding matrices ~ N(0, stddev) clipped to +-2 stddev (as the JAX
+    package's truncated-normal init), zero biases, unit LayerNorm scales."""
+    cfg = _bert_cfg(cfg)
+    rng = np.random.default_rng(seed)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+
+    def mat(*shape):
+        x = rng.standard_normal(shape, dtype=np.float32) * stddev
+        return np.clip(x, -2 * stddev, 2 * stddev)
+
+    def dense(d_in, d_out):
+        return {"kernel": mat(d_in, d_out),
+                "bias": np.zeros((d_out,), np.float32)}
+
+    def ln():
+        return {"scale": np.ones((h,), np.float32),
+                "bias": np.zeros((h,), np.float32)}
+
+    tree: Dict[str, Any] = {
+        "embeddings": {
+            "word": mat(cfg.vocab_size, h),
+            "position": mat(cfg.max_position_embeddings, h),
+            "token_type": mat(cfg.type_vocab_size, h),
+            "ln": ln(),
+        },
+        "layers": [
+            {
+                "attention": {n: dense(h, h) for n in ("q", "k", "v", "o")},
+                "attention_ln": ln(),
+                "mlp": {"in": dense(h, inter), "out": dense(inter, h)},
+                "output_ln": ln(),
+            }
+            for _ in range(cfg.num_hidden_layers)
+        ],
+    }
+    if cfg.add_pooler:
+        tree["pooler"] = dense(h, h)
+    return tree
