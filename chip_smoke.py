@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's exact retrieval path on one NVIDIA GPU and hold
-every kernel on it against its plain PyTorch version.
+"""Drive the PyTorch port's retrieval paths on one NVIDIA GPU and hold
+every kernel on them against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -9,18 +9,43 @@ raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA source, one nvcc each, started together;
-3. kernel vs plain: (a) integer-valued inputs at awkward shapes must be
+3. kernel B1 vs plain: (a) integer-valued inputs at awkward shapes must be
    bit-identical, (b) gaussian inputs at Q=1,280, d=768, N=262,144 must be
    >= 99.9 % bitwise equal and every score within the float32 reordering
    bound plus one bf16 ulp (see kernel_error);
-4. the main path at full width: DPR BERT-base (random weights from a seed,
+4. kernel B2 (kb-major) vs plain, in bf16 and f32: (a) integer-valued
+   inputs (Q=77, d=64, N=1,024) bit-identical in scores_t and segmax_t,
+   (b) gaussian inputs at Q=1,280, d=768, N=262,144: every score within
+   the f32 reordering bound (plus one ulp and >= 99.9 % bitwise in bf16),
+   every segment max within the bound (see kbmajor_error);
+5. the main path at full width: DPR BERT-base (random weights from a seed,
    bf16), 1,257 lognormal-length questions packed into 64-token rows,
    FusedRetrievalPipeline over a DenseIndex(mode="fused") of 1.5M x 768
    bf16 rows, k=100; the native packer loaded, kernel launch counts, id
    range, >= 99.9 % id agreement with the same embeddings searched by the
    plain version, and the encoder's bf16 GEMMs within rtol = atol = 2e-2
    of the same forward on f32 products of the upcast operands;
-5. the kernel table: one JSON line with each kernel's launches on the main
+6. B1 at the main path's shapes against its plain version and one library
+   call;
+7. topk_pallas (B2) on the main path's embeddings against the 1.5M fused
+   index's matrix: one launch, and against the fused path's results
+   scores within one bf16 ulp at every position and ids equal on
+   >= 99.9 % of the positions above the k-th score's ties (see
+   tie_aware_agreement); B2 at those shapes, and in f32 at 262,144 rows
+   through topk_pallas against a full stable sort of the f32 scores;
+8. serving in "global" mode as the JAX CLI builds it: FusedRetrievalPipeline
+   .run over DenseIndex(mode="global") of 1.5M x 768 f32 rows; a Run of
+   1,257 queries x 100 docs whose first 64 rows equal a full stable sort of
+   the f32 scores on >= 99.9 % of positions;
+9. StreamingDenseIndex over the fused KB in pinned bf16 chunks of 262,144
+   rows: against the fused path's results as in phase 7, ms per batch and
+   host->device GB/s;
+10. late fusion at full width, dpr+arcface+clip+imagenet.json's four
+   indexes (DPR fused 768, ImageNet-RN50 2048, CLIP-RN50 1024, ArcFace 512,
+   1.5M rows each, bf16, L2norm for the image and face ones), weights
+   [0.3, 0.2, 0.2, 0.2], gzmuv, 10 % faceless queries: one B1 launch per
+   batch, and ids equal to fuse_topk over each index's search_device;
+11. the kernel table: one JSON line with each kernel's launches on its
    path, error against the plain version, its time, the plain version's
    and one library call's, and the least time the card could take.
 
@@ -39,14 +64,18 @@ import numpy as np
 import torch
 
 from viquae_torch.ir.embedding import PackedTextEmbedder
-from viquae_torch.ir.serving import FusedRetrievalPipeline
+from viquae_torch.ir.serving import (FusedRetrievalPipeline,
+                                     MultiIndexRetrievalPipeline)
 from viquae_torch.kernels import build as kbuild
 from viquae_torch.models import convert, dpr, layers
 from viquae_torch.native.build import load_packer
 from viquae_torch.ops import mips, mips_fused
+from viquae_torch.ops.fusion import fuse_topk
 
-# H100 SXM data-sheet peaks (dense bf16 tensor cores; HBM3), at 700 W
+# H100 SXM data-sheet peaks (dense bf16 tensor cores; non-tensor FP32;
+# HBM3), at 700 W
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
 N_KB = 1_500_000
@@ -56,6 +85,13 @@ N_QUERIES = 1257
 BATCH = 1280
 ROW_LEN = 64
 K = 100
+STREAM_ROWS = 262_144
+# dpr+arcface+clip+imagenet.json, in run-registration order: the text
+# index, then the image and face indexes at their towers' widths
+# (models/resnet.py, clip.py:199, arcface.py:27 of the JAX package)
+FUSION_WIDTHS = {"imagenet-RN50": 2048, "clip-RN50": 1024, "arcface": 512}
+FUSION_WEIGHTS = {"dpr": 0.3, "imagenet-RN50": 0.2, "clip-RN50": 0.2,
+                  "arcface": 0.2}
 
 
 def emit(obj):
@@ -74,6 +110,31 @@ def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.where(bits < 0, -(bits & 0x7FFF), bits)
 
     return (ordered(a) - ordered(b)).abs()
+
+
+def tie_aware_agreement(ids, scores, ref_ids, ref_scores) -> dict:
+    """Two exact top-k results (host arrays, bf16-exact scores) against
+    each other. At 1.5M bf16 scores a row's k-th value is often shared by
+    several rows of the KB, and two exact selections may keep different
+    duplicates of it (B1 ranks segments by their rounded maxima, B2 by the
+    unrounded ones, a streamed merge by chunk): so positionwise scores must
+    agree within one bf16 ulp everywhere, and ids wherever the reference
+    score lies more than one ulp above the row's k-th score."""
+    as_bf16 = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
+    ulps = ulp_distance(as_bf16(scores), as_bf16(ref_scores))
+    kth = np.broadcast_to(ref_scores[:, -1:], ref_scores.shape)
+    above = (ulp_distance(as_bf16(ref_scores), as_bf16(kth)) > 1).numpy()
+    agree = ids == ref_ids
+    return {"id_agreement": float(agree.mean()),
+            "id_agreement_above_kth_tie": float(agree[above].mean()),
+            "positions_above_kth_tie": float(above.mean()),
+            "max_ulp_positionwise": int(ulps.max())}
+
+
+def tie_aware_ok(agreement: dict) -> bool:
+    return (agreement["id_agreement_above_kth_tie"] >= 0.999
+            and agreement["max_ulp_positionwise"] <= 1)
 
 
 def kernel_error(s, ps, q, kb, rows: int = 256) -> dict:
@@ -106,6 +167,79 @@ def kernel_error(s, ps, q, kb, rows: int = 256) -> dict:
                                  int(ulp_distance(a, b).max()))
         same += int((a.view(torch.int16) == b.view(torch.int16)).sum())
     out["bitwise_fraction"] = same / s.numel()
+    return out
+
+
+def kbmajor_error(s, m, ps, pm, q, kb, rows: int = 16384) -> dict:
+    """Kernel B2's scores_t (N, Q) and segmax_t (N/128, Q) against the
+    plain version's, in chunks of KB rows.
+
+    As in kernel_error, two f32 sums of the same d products differ by at
+    most 2 g_d sum_i |q_i kb_i|; bf16 scores may add one bf16 ulp of the
+    larger value by their rounding, f32 scores add nothing. The maxima are
+    of the unrounded sums, so each lies within the largest bound of its
+    segment."""
+    d = q.shape[1]
+    gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+    q_abs = q.float().abs()
+    bf16 = s.dtype == torch.bfloat16
+    bits = torch.int16 if bf16 else torch.int32
+    out = {"max_abs_err": 0.0, "segmax_max_abs_err": 0.0,
+           "bitwise_fraction": 0.0, "segmax_bitwise_fraction": 0.0,
+           "within_bound": True, "segmax_within_bound": True}
+    same = seg_same = 0
+    for i in range(0, kb.shape[0], rows):
+        a, b = s[i: i + rows].float(), ps[i: i + rows].float()
+        bound = 2 * gamma * (kb[i: i + rows].float().abs() @ q_abs.T)
+        diff = (a - b).abs()
+        slack = 0.0
+        if bf16:
+            mag = torch.maximum(a.abs(), b.abs())
+            slack = torch.ldexp(torch.ones_like(mag),
+                                torch.frexp(mag).exponent - 8)
+        out["within_bound"] &= bool((diff <= bound + slack).all())
+        out["max_abs_err"] = max(out["max_abs_err"], float(diff.max()))
+        seg = slice(i // 128, (i + a.shape[0]) // 128)
+        seg_diff = (m[seg] - pm[seg]).abs()
+        seg_bound = bound.view(-1, 128, bound.shape[1]).amax(dim=1)
+        out["segmax_within_bound"] &= bool((seg_diff <= seg_bound).all())
+        out["segmax_max_abs_err"] = max(out["segmax_max_abs_err"],
+                                        float(seg_diff.max()))
+        same += int((s[i: i + rows].view(bits)
+                     == ps[i: i + rows].view(bits)).sum())
+        seg_same += int((m[seg].view(torch.int32)
+                         == pm[seg].view(torch.int32)).sum())
+    out["bitwise_fraction"] = same / s.numel()
+    out["segmax_bitwise_fraction"] = seg_same / m.numel()
+    return out
+
+
+def kbmajor_ok(err: dict, bf16: bool) -> bool:
+    return (err["within_bound"] and err["segmax_within_bound"]
+            and (err["bitwise_fraction"] >= 0.999 or not bf16))
+
+
+def bound_ms(q_count, dim, n, itemsize, peak_flops, out_bytes) -> dict:
+    """The least time the card could take: operations over the peak rate
+    of their type, or each input read once and each output written once
+    over the memory rate, whichever is larger."""
+    flops = 2 * q_count * dim * n
+    moved = (q_count + n) * dim * itemsize + out_bytes
+    ops_ms = flops / peak_flops * 1e3
+    bytes_ms = moved / PEAK_HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": moved}
+
+
+def gaussian(dev, rows, dim, dtype, seed, scale=1.0, block=1 << 18):
+    """(rows, dim) gaussian values times ``scale`` in ``dtype``, drawn in
+    f32 from ``seed`` in row blocks (no f32 copy of a wide bf16 KB)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = torch.empty((rows, dim), dtype=dtype, device=dev)
+    for lo in range(0, rows, block):
+        part = out[lo: lo + block]
+        part.copy_(torch.randn(part.shape, generator=gen, device=dev) * scale)
     return out
 
 
@@ -174,8 +308,8 @@ def phase_kernel_vs_plain(dev):
     kb = torch.randint(-4, 5, (1024, 64), generator=gen, device=dev).to(
         torch.bfloat16)
     for valid in (1000, 0, 1024):
-        s, m = mips_fused.fused_score_segmax(q, kb, valid)
-        ps, pm = mips_fused.fused_score_segmax_plain(q, kb, valid)
+        s, m = mips_fused.fused_score_segmax_qmajor(q, kb, valid)
+        ps, pm = mips_fused.fused_score_segmax_qmajor_plain(q, kb, valid)
         _, ids = mips_fused.topk_fused(q, kb, 50, valid_rows=valid)
         _, pids = mips_fused.segment_topk(ps, pm, 50)
         torch.cuda.synchronize()
@@ -191,8 +325,8 @@ def phase_kernel_vs_plain(dev):
         torch.bfloat16)
     kb = (torch.randn((N_GAUSS, DIM), generator=gen, device=dev)
           / math.sqrt(DIM)).to(torch.bfloat16)
-    s, m = mips_fused.fused_score_segmax(q, kb, N_GAUSS - 77)
-    ps, pm = mips_fused.fused_score_segmax_plain(q, kb, N_GAUSS - 77)
+    s, m = mips_fused.fused_score_segmax_qmajor(q, kb, N_GAUSS - 77)
+    ps, pm = mips_fused.fused_score_segmax_qmajor_plain(q, kb, N_GAUSS - 77)
     err = kernel_error(s, ps, q, kb)
     own_max = s.view(BATCH, -1, 128).amax(-1)
     segmax_own = torch.equal(m.view(torch.int16), own_max.view(torch.int16))
@@ -202,6 +336,44 @@ def phase_kernel_vs_plain(dev):
     check(err["mask_equal"] and err["within_bound"]
           and err["bitwise_fraction"] >= 0.999 and segmax_own,
           "gaussian inputs")
+
+
+def phase_kbmajor_vs_plain(dev):
+    """Kernel B2 against its plain version in both dtypes; returns the f32
+    error at the gaussian shapes (the f32 row of the kernel table)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q_int = torch.randint(-4, 5, (77, 64), generator=gen, device=dev)
+    kb_int = torch.randint(-4, 5, (1024, 64), generator=gen, device=dev)
+    errors = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        # (a) integer values in [-4, 4], d = 64: every f32 sum is exact
+        q, kb = q_int.to(dtype), kb_int.to(dtype)
+        s, m = mips_fused.fused_score_segmax(q, kb)
+        ps, pm = mips_fused.fused_score_segmax_plain(q, kb)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        same = (torch.equal(s.view(bits), ps.view(bits)),
+                torch.equal(m.view(torch.int32), pm.view(torch.int32)))
+        emit({"phase": "kbmajor_vs_plain_integer", "dtype": name,
+              "shape": [77, 64, 1024], "scores_t_bitwise": same[0],
+              "segmax_t_bitwise": same[1]})
+        check(all(same), f"B2 integer inputs, {name}")
+        # (b) gaussian at a wide shape
+        q = gaussian(dev, BATCH, DIM, dtype, seed=9)
+        kb = gaussian(dev, N_GAUSS, DIM, dtype, seed=10,
+                      scale=DIM ** -0.5)
+        s, m = mips_fused.fused_score_segmax(q, kb)
+        ps, pm = mips_fused.fused_score_segmax_plain(q, kb)
+        err = kbmajor_error(s, m, ps, pm, q, kb)
+        emit({"phase": "kbmajor_vs_plain_gaussian", "dtype": name,
+              "shape": [BATCH, DIM, N_GAUSS], **err})
+        check(kbmajor_ok(err, dtype == torch.bfloat16),
+              f"B2 gaussian inputs, {name}")
+        errors[name] = err
+        del s, m, ps, pm, q, kb
+        torch.cuda.empty_cache()
+    return errors["float32"]
 
 
 def phase_main_path(dev, cfg=dpr.DPRConfig()):
@@ -232,11 +404,11 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
     pipe.run_arrays(queries)  # warm-up: cuBLAS handles, allocator pools
     n_batches = -(-N_QUERIES // BATCH)
 
-    mips_fused.fused_score_segmax.launches = 0
+    mips_fused.fused_score_segmax_qmajor.launches = 0
     t0 = time.perf_counter()
     scores, ids = pipe.run_arrays(queries)
     first_s = time.perf_counter() - t0
-    launches = mips_fused.fused_score_segmax.launches
+    launches = mips_fused.fused_score_segmax_qmajor.launches
     check(launches == n_batches,
           f"score_segmax launched {launches} times for {n_batches} batches")
     walls = [first_s]
@@ -260,7 +432,8 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
     qb = q.to(torch.bfloat16)
     _, k_i = mips_fused.topk_fused(qb, index.matrix, K, valid_rows=index.n)
     p_s, p_i = mips_fused.segment_topk(
-        *mips_fused.fused_score_segmax_plain(qb, index.matrix, index.n), K)
+        *mips_fused.fused_score_segmax_qmajor_plain(qb, index.matrix,
+                                                    index.n), K)
     same_as_pipeline = bool(np.array_equal(k_i.cpu().numpy(), ids))
     agree = (p_i.cpu().numpy() == ids)
     differ = ~agree
@@ -311,7 +484,8 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
           "allclose": close})
     check(close, "encoder bf16 GEMMs against the f32 upcast")
     del got, ref, diff
-    scored = mips_fused.fused_score_segmax(q_full, index.matrix, index.n)
+    scored = mips_fused.fused_score_segmax_qmajor(q_full, index.matrix,
+                                                  index.n)
     emit({"phase": "main_path_breakdown", "queries": len(first),
           "pack_host_ms": float(np.median(pack_ms)),
           "upload_ms": time_ms(lambda: embedder.upload(packed), reps=3),
@@ -333,14 +507,17 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
           "device_ms": sum(e.device_time_total for e in events) / 1e3,
           "top": [{"kernel": e.key[:90], "calls": e.count,
                    "ms": e.device_time_total / 1e3} for e in events[:8]]})
-    return index, q_full, launches
+    return {"index": index, "q": q_full, "launches": launches,
+            "embedder": embedder, "queries": queries, "scores": scores,
+            "ids": ids}
 
 
 def phase_kernel_table(index, q, launches):
+    """B1 at the main path's shapes: its kernel-table entry."""
     kb, nv = index.matrix, index.n
     q_count, n = q.shape[0], kb.shape[0]
-    s, m = mips_fused.fused_score_segmax(q, kb, nv)
-    ps, pm = mips_fused.fused_score_segmax_plain(q, kb, nv)
+    s, m = mips_fused.fused_score_segmax_qmajor(q, kb, nv)
+    ps, pm = mips_fused.fused_score_segmax_qmajor_plain(q, kb, nv)
     err = kernel_error(s, ps, q, kb)
     emit({"phase": "kernel_vs_plain_main_shapes", **err})
     check(err["mask_equal"] and err["within_bound"]
@@ -349,21 +526,21 @@ def phase_kernel_table(index, q, launches):
     del s, m, ps, pm
     torch.cuda.empty_cache()
 
-    kernel_ms = time_ms(lambda: mips_fused.fused_score_segmax(q, kb, nv),
-                        reps=10, warmup=2)
+    kernel_ms = time_ms(
+        lambda: mips_fused.fused_score_segmax_qmajor(q, kb, nv),
+        reps=10, warmup=2)
     plain_ms = time_ms(
-        lambda: mips_fused.fused_score_segmax_plain(q, kb, nv), reps=3)
+        lambda: mips_fused.fused_score_segmax_qmajor_plain(q, kb, nv),
+        reps=3)
 
     def library():
         scores = torch.matmul(q, kb.T)
         return scores.view(q_count, n // 128, 128).amax(-1)
 
     library_ms = time_ms(library, reps=5)
-    flops = 2 * q_count * q.shape[1] * n
-    moved = (q.numel() + kb.numel() + q_count * n + q_count * (n // 128)) * 2
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bytes_ms = moved / PEAK_HBM_BYTES_PER_S * 1e3
-    emit({"kernels": [{
+    bound = bound_ms(q_count, q.shape[1], n, 2, PEAK_BF16_FLOPS,
+                     (q_count * n + q_count * (n // 128)) * 2)
+    return {
         "name": "score_segmax",
         "route": "cuda",
         "source": "viquae_torch/csrc/score_segmax.cu",
@@ -374,13 +551,269 @@ def phase_kernel_table(index, q, launches):
         "bitwise_fraction": err["bitwise_fraction"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
         "library_ms": library_ms,
         "shape": [q_count, q.shape[1], n],
-        "flops": flops,
-        "bytes": moved,
-    }]})
+        "flops": bound["flops"],
+        "bytes": bound["bytes"],
+    }
+
+
+def kbmajor_entry(q, kb, launches, err, path) -> dict:
+    """Kernel B2's kernel-table entry at these shapes: its time, the plain
+    version's, and one library call's (torch.matmul in the same dtype plus
+    the 128-row amax)."""
+    q_count, n = q.shape[0], kb.shape[0]
+    kernel_ms = time_ms(lambda: mips_fused.fused_score_segmax(q, kb), reps=5)
+    plain_ms = time_ms(lambda: mips_fused.fused_score_segmax_plain(q, kb),
+                       reps=3)
+
+    def library():
+        scores_t = torch.matmul(kb, q.T)
+        return scores_t, scores_t.view(n // 128, 128, q_count).amax(1)
+
+    library_ms = time_ms(library, reps=5)
+    bf16 = q.dtype == torch.bfloat16
+    itemsize = q.element_size()
+    bound = bound_ms(q_count, q.shape[1], n, itemsize,
+                     PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
+                     n * q_count * itemsize + (n // 128) * q_count * 4)
+    return {
+        "name": "score_segmax_kbmajor",
+        "route": "cuda",
+        "source": "viquae_torch/csrc/score_segmax_kbmajor.cu",
+        "replaces": "viquae_tpu/ops/mips_pallas.py:258",
+        "dtype": str(q.dtype).removeprefix("torch."),
+        "path": path,
+        "launches": launches,
+        "max_abs_err": err["max_abs_err"],
+        "segmax_max_abs_err": err["segmax_max_abs_err"],
+        "bitwise_fraction": err["bitwise_fraction"],
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
+        "library_ms": library_ms,
+        "shape": [q_count, q.shape[1], n],
+        "flops": bound["flops"],
+        "bytes": bound["bytes"],
+    }
+
+
+def phase_topk_pallas(dev, main, err_f32):
+    """topk_pallas (B2) on the main path's embeddings, then B2's two
+    kernel-table entries."""
+    index, q = main["index"], main["q"]
+    kb, nv, n_q = index.matrix, index.n, N_QUERIES
+    mips_fused.fused_score_segmax.launches = 0
+    s, i = mips_fused.topk_pallas(q, kb, K, valid_rows=nv)
+    torch.cuda.synchronize()
+    launches = mips_fused.fused_score_segmax.launches
+    check(launches == 1, f"topk_pallas launched B2 {launches} times")
+    agreement = tie_aware_agreement(i[:n_q].cpu().numpy(),
+                                    s[:n_q].cpu().numpy(), main["ids"],
+                                    main["scores"])
+    del s, i
+    torch.cuda.empty_cache()
+    search_ms = time_ms(
+        lambda: mips_fused.topk_pallas(q, kb, K, valid_rows=nv), reps=3)
+    emit({"phase": "topk_pallas_main_path", "queries": n_q,
+          "kb_rows": nv, "launches": launches, "search_ms": search_ms,
+          "vs_fused_path": agreement})
+    check(tie_aware_ok(agreement), "topk_pallas against the fused path")
+
+    # B2 at the main path's shapes, against its plain version
+    st, mt = mips_fused.fused_score_segmax(q, kb)
+    pst, pmt = mips_fused.fused_score_segmax_plain(q, kb)
+    err_bf16 = kbmajor_error(st, mt, pst, pmt, q, kb)
+    emit({"phase": "kbmajor_vs_plain_main_shapes", **err_bf16})
+    check(kbmajor_ok(err_bf16, True), "B2 vs plain at the main shapes")
+    del st, mt, pst, pmt
+    torch.cuda.empty_cache()
+    entries = [kbmajor_entry(q, kb, launches, err_bf16,
+                             "topk_pallas, main path (bf16)")]
+    torch.cuda.empty_cache()
+
+    # f32 through topk_pallas at the gaussian shapes of phase 4
+    q32 = gaussian(dev, BATCH, DIM, torch.float32, seed=9)
+    kb32 = gaussian(dev, N_GAUSS, DIM, torch.float32, seed=10,
+                    scale=DIM ** -0.5)
+    mips_fused.fused_score_segmax.launches = 0
+    _, i32 = mips_fused.topk_pallas(q32, kb32, K)
+    torch.cuda.synchronize()
+    launches32 = mips_fused.fused_score_segmax.launches
+    check(launches32 == 1, f"f32 topk_pallas launched B2 {launches32} times")
+    ref32 = mips.top_k(torch.matmul(q32, kb32.T), K)[1]
+    agree32 = float((i32.long() == ref32).float().mean())
+    emit({"phase": "topk_pallas_f32", "shape": [BATCH, DIM, N_GAUSS],
+          "launches": launches32, "exact_sort_id_agreement": agree32})
+    check(agree32 >= 0.999, "f32 topk_pallas ids against a full sort")
+    del i32, ref32
+    torch.cuda.empty_cache()
+    entries.append(kbmajor_entry(q32, kb32, launches32, err_f32,
+                                 "topk_pallas, f32 at 262,144 rows"))
+    del q32, kb32
+    torch.cuda.empty_cache()
+    return entries
+
+
+def batch_walls(fn, n_batches, reps=3):
+    """Median wall ms per batch of ``fn()`` (after one warm-up run)."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    batch_ms = float(np.median(walls)) / n_batches * 1e3
+    return batch_ms, N_QUERIES / (batch_ms / 1e3 * n_batches), walls
+
+
+def phase_global_serve(dev, main):
+    """FusedRetrievalPipeline.run over an f32 'global' index, the mode the
+    JAX serving CLI builds."""
+    embedder, queries = main["embedder"], main["queries"]
+    n_batches = -(-N_QUERIES // BATCH)
+    index = mips.DenseIndex(gaussian(dev, N_KB, DIM, torch.float32, seed=2,
+                                     scale=DIM ** -0.5),
+                            mode="global", device=dev)
+    pipe = FusedRetrievalPipeline(embedder, index, batch_size=BATCH, k=K)
+    qids = [f"q{j}" for j in range(N_QUERIES)]
+    batch_ms, qps, walls = batch_walls(lambda: pipe.run(qids, queries),
+                                       n_batches)
+    arrays_ms = batch_walls(lambda: pipe.run_arrays(queries), n_batches)[0]
+    run = pipe.run(qids, queries)
+    check(len(run) == N_QUERIES and all(len(run[q]) == K for q in qids),
+          "the global-mode Run's shape")
+    first = [int(d) for d in run["q0"]]
+    _, ids = pipe.run_arrays(queries)
+    check(first == ids[0].tolist(), "the Run's order")
+    q = embedder.forward(*embedder.upload(embedder.pack(queries[:BATCH])))
+    ref = mips.top_k(torch.matmul(q[:64], index.matrix[: index.n].T), K)[1]
+    agree = float((ids[:64] == ref.cpu().numpy()).mean())
+    del ref
+    # where the search's time goes: the whole single pass, the f32 GEMM
+    search_ms = time_ms(lambda: index.search_device(q, *index.snapshot(), K),
+                        reps=3)
+    gemm_ms = time_ms(lambda: torch.matmul(q, index.matrix.T), reps=3)
+    emit({"phase": "global_f32_serve", "kb_rows": index.n,
+          "kb_dtype": "float32", "queries": N_QUERIES,
+          "run_queries": len(run), "docs_per_query": K,
+          "batch_ms": batch_ms, "qps": qps, "run_walls_s": walls,
+          "run_arrays_batch_ms": arrays_ms, "search_ms": search_ms,
+          "f32_gemm_ms": gemm_ms,
+          "first64_exact_sort_id_agreement": agree})
+    check(agree >= 0.999, "global-mode ids against a full stable sort")
+    del index, pipe, q
+    torch.cuda.empty_cache()
+
+
+def phase_streaming(dev, main):
+    """StreamingDenseIndex over the fused KB, pinned bf16 chunks."""
+    index, q = main["index"], main["q"]
+    t0 = time.perf_counter()
+    stream = mips.StreamingDenseIndex(index.matrix[: index.n],
+                                      chunk_rows=STREAM_ROWS,
+                                      dtype=torch.bfloat16, device=dev)
+    build_s = time.perf_counter() - t0
+    check(all(c.is_pinned() for c in stream._chunks), "unpinned chunks")
+    s, i = stream.search_batch(q, k=K)
+    agreement = tie_aware_agreement(i[:N_QUERIES], s[:N_QUERIES],
+                                    main["ids"], main["scores"])
+    search_ms = time_ms(lambda: stream.search_batch(q, k=K, sync=False),
+                        reps=3)
+    moved = sum(c.numel() * c.element_size() for c in stream._chunks)
+    buf = torch.empty_like(stream._chunks[0], device=dev)
+
+    def upload_all():
+        for c in stream._chunks:
+            buf.copy_(c, non_blocking=True)
+
+    upload_ms = time_ms(upload_all, reps=3)
+    emit({"phase": "streaming_index", "kb_rows": stream.n,
+          "chunk_rows": STREAM_ROWS, "chunks": len(stream._chunks),
+          "host_bytes": moved, "build_s": build_s, "batch_ms": search_ms,
+          "search_h2d_gb_per_s": moved / (search_ms / 1e3) / 1e9,
+          "upload_only_ms": upload_ms,
+          "upload_only_gb_per_s": moved / (upload_ms / 1e3) / 1e9,
+          "vs_fused_path": agreement})
+    check(tie_aware_ok(agreement), "streaming against the fused path")
+    del stream, buf
+    torch.cuda.empty_cache()
+
+
+def phase_late_fusion(dev, main):
+    """MultiIndexRetrievalPipeline with the four indexes of
+    dpr+arcface+clip+imagenet.json at full width."""
+    embedder, queries = main["embedder"], main["queries"]
+    n_batches = -(-N_QUERIES // BATCH)
+    indexes = {"dpr": main["index"]}
+    rng = np.random.default_rng(3)
+    feats = {}
+    for j, (name, width) in enumerate(FUSION_WIDTHS.items()):
+        indexes[name] = mips.DenseIndex(
+            gaussian(dev, N_KB, width, torch.bfloat16, seed=20 + j),
+            do_l2norm=True, mode="global", dtype=torch.bfloat16, device=dev)
+        feats[name] = rng.standard_normal((N_QUERIES, width)).astype(
+            np.float32)
+    faceless = rng.random(N_QUERIES) < 0.1
+    feats["arcface"][faceless] = np.nan
+    pipe = MultiIndexRetrievalPipeline(embedder, indexes, FUSION_WEIGHTS,
+                                       text_index="dpr", batch_size=BATCH,
+                                       k=K, norm="gzmuv")
+    pipe.run_arrays(queries, feats)  # warm-up
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    scores, ids = pipe.run_arrays(queries, feats)
+    launches = mips_fused.fused_score_segmax_qmajor.launches
+    check(launches == n_batches, f"B1 launched {launches} times for "
+          f"{n_batches} batches")
+    batch_ms, qps, walls = batch_walls(
+        lambda: pipe.run_arrays(queries, feats), n_batches)
+
+    # the same batch through each index's search_device, then fuse_topk
+    q_text = embedder.forward(*embedder.upload(embedder.pack(
+        queries[:BATCH])))
+    s_list, i_list, search_ms = [], [], {}
+    for name, index in indexes.items():
+        q, ok = q_text, None
+        if name != "dpr":
+            rows = np.zeros((BATCH, index.d), np.float32)
+            rows[:N_QUERIES] = feats[name]
+            q = torch.from_numpy(rows).to(dev).to(torch.bfloat16)
+            ok = torch.isfinite(q).all(dim=1, keepdim=True)
+            q = torch.where(ok, q, 0.0)
+        s, i = index.search_device(q, *index.snapshot(), K)
+        search_ms[name] = time_ms(
+            lambda: index.search_device(q, *index.snapshot(), K), reps=3)
+        if ok is not None:
+            s = torch.where(ok, s, mips.NEG_INF)
+            i = torch.where(ok, i, mips.INT32_MAX)
+        s_list.append(s)
+        i_list.append(i)
+    weights = tuple(FUSION_WEIGHTS.values())
+    ref_s, ref_i = fuse_topk(s_list, i_list, weights, K, norm="gzmuv",
+                             valid_queries=N_QUERIES)
+    search_ms["fuse_topk"] = time_ms(lambda: fuse_topk(
+        s_list, i_list, weights, K, norm="gzmuv", valid_queries=N_QUERIES),
+        reps=3)
+    ids_equal = bool(np.array_equal(ref_i[:N_QUERIES].cpu().numpy(), ids))
+    ulps = ulp_distance(ref_s[:N_QUERIES].to(torch.bfloat16),
+                        torch.from_numpy(scores).to(dev).to(torch.bfloat16))
+    emit({"phase": "late_fusion", "indexes": {
+              n: [ix.n, ix.d, str(ix.dtype).removeprefix("torch."), ix.mode,
+                  ix.do_l2norm] for n, ix in indexes.items()},
+          "weights": FUSION_WEIGHTS, "norm": "gzmuv",
+          "faceless_queries": int(faceless.sum()), "b1_launches": launches,
+          "batch_ms": batch_ms, "qps": qps, "run_walls_s": walls,
+          "stage_ms": search_ms, "ids_equal_fuse_topk": ids_equal,
+          "max_ulp_vs_fuse_topk": int(ulps.max())})
+    check(ids_equal, "late fusion ids against fuse_topk")
+    check(int(ulps.max()) <= 1, "late fusion scores against fuse_topk")
+    check(np.isfinite(scores).all() and ids.max() < N_KB,
+          "late fusion outputs")
+    del indexes, pipe, s_list, i_list
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -391,8 +824,15 @@ def main() -> int:
     phase_build()
     dev = torch.device("cuda")
     phase_kernel_vs_plain(dev)
-    index, q, launches = phase_main_path(dev)
-    phase_kernel_table(index, q, launches)
+    err_f32 = phase_kbmajor_vs_plain(dev)
+    main_path = phase_main_path(dev)
+    kernels = [phase_kernel_table(main_path["index"], main_path["q"],
+                                  main_path["launches"])]
+    kernels += phase_topk_pallas(dev, main_path, err_f32)
+    phase_global_serve(dev, main_path)
+    phase_streaming(dev, main_path)
+    phase_late_fusion(dev, main_path)
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

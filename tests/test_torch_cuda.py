@@ -49,11 +49,11 @@ def test_kernel_bit_identical_on_integers(cuda, q_count, n, dim, valid):
     ragged query edge, d not a multiple of the depth step, and a
     valid_rows that cuts a segment included."""
     q, kb = _int_inputs(cuda, q_count, n, dim, seed=q_count + n)
-    before = tmf.fused_score_segmax.launches
-    s, m = tmf.fused_score_segmax(q, kb, valid)
+    before = tmf.fused_score_segmax_qmajor.launches
+    s, m = tmf.fused_score_segmax_qmajor(q, kb, valid)
     torch.cuda.synchronize()
-    assert tmf.fused_score_segmax.launches == before + 1
-    ps, pm = tmf.fused_score_segmax_plain(q, kb, valid)
+    assert tmf.fused_score_segmax_qmajor.launches == before + 1
+    ps, pm = tmf.fused_score_segmax_qmajor_plain(q, kb, valid)
     assert torch.equal(s.view(torch.int16), ps.view(torch.int16))
     assert torch.equal(m.view(torch.int16), pm.view(torch.int16))
 
@@ -63,8 +63,8 @@ def test_kernel_within_reorder_bound_on_gaussian(cuda):
     q = torch.randn((300, 768), generator=gen, device=cuda).to(torch.bfloat16)
     kb = torch.randn((8192, 768), generator=gen, device=cuda).to(
         torch.bfloat16)
-    s, m = tmf.fused_score_segmax(q, kb, 8000)
-    ps, _ = tmf.fused_score_segmax_plain(q, kb, 8000)
+    s, m = tmf.fused_score_segmax_qmajor(q, kb, 8000)
+    ps, _ = tmf.fused_score_segmax_qmajor_plain(q, kb, 8000)
     a, b = s.float().cpu().numpy(), ps.float().cpu().numpy()
     # near-zero scores come from cancellation: there the two summation
     # orders may differ by many ulps of the tiny result, so the criterion
@@ -80,8 +80,8 @@ def test_topk_fused_on_gpu_matches_plain_selection(cuda):
     q, kb = _int_inputs(cuda, 50, 2048, 64, seed=3)
     for chunks in (1, 2):
         s, i = tmf.topk_fused(q, kb, 30, valid_rows=2000, chunks=chunks)
-        ps, pi = tmf.segment_topk(*tmf.fused_score_segmax_plain(q, kb, 2000),
-                                  30)
+        ps, pi = tmf.segment_topk(
+            *tmf.fused_score_segmax_qmajor_plain(q, kb, 2000), 30)
         assert i.max().item() < 2000
         np.testing.assert_array_equal(s.cpu().numpy(), ps.cpu().numpy())
         if chunks == 1:
@@ -92,8 +92,8 @@ def test_dense_index_on_gpu_matches_cpu(cuda):
     rng = np.random.default_rng(0)
     kb = rng.integers(-4, 5, (1000, 32)).astype(np.float32)
     q = rng.integers(-4, 5, (20, 32)).astype(np.float32)
-    gpu = tm.DenseIndex(kb, device=cuda).search_batch(q, k=10)
-    cpu = tm.DenseIndex(kb, device="cpu").search_batch(q, k=10)
+    gpu = tm.DenseIndex(kb, mode="fused", device=cuda).search_batch(q, k=10)
+    cpu = tm.DenseIndex(kb, mode="fused", device="cpu").search_batch(q, k=10)
     np.testing.assert_array_equal(gpu[0], cpu[0])
     np.testing.assert_array_equal(gpu[1], cpu[1])
 
@@ -101,24 +101,24 @@ def test_dense_index_on_gpu_matches_cpu(cuda):
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, kb = _int_inputs(cuda, 8, 256, 64, seed=1)
     with pytest.raises(TypeError):
-        tmf.fused_score_segmax(q.float(), kb, 256)
+        tmf.fused_score_segmax_qmajor(q.float(), kb, 256)
     with pytest.raises(ValueError, match="contiguous"):
-        tmf.fused_score_segmax(q.t().contiguous().t(), kb, 256)
+        tmf.fused_score_segmax_qmajor(q.t().contiguous().t(), kb, 256)
     with pytest.raises(ValueError, match="multiple of 128"):
-        tmf.fused_score_segmax(q, kb[:200], 200)
+        tmf.fused_score_segmax_qmajor(q, kb[:200], 200)
     with pytest.raises(ValueError, match="multiple of 8"):
-        tmf.fused_score_segmax(q[:, :60].contiguous(),
+        tmf.fused_score_segmax_qmajor(q[:, :60].contiguous(),
                                kb[:, :60].contiguous(), 256)
     with pytest.raises(ValueError, match="valid_rows"):
-        tmf.fused_score_segmax(q, kb, 257)
+        tmf.fused_score_segmax_qmajor(q, kb, 257)
     with pytest.raises(ValueError, match="CUDA device"):
-        tmf.fused_score_segmax(q.cpu(), kb, 256)
+        tmf.fused_score_segmax_qmajor(q.cpu(), kb, 256)
     # contiguous, but 2 bytes past a 16-byte boundary
     shifted = torch.empty(256 * 64 + 1, dtype=torch.bfloat16,
                           device=cuda)[1:].view(256, 64)
     shifted.copy_(kb)
     with pytest.raises(ValueError, match="16-byte"):
-        tmf.fused_score_segmax(q, shifted, 256)
+        tmf.fused_score_segmax_qmajor(q, shifted, 256)
 
 
 def test_bf16_gemm_dense_matches_f32_upcast(cuda):
@@ -173,3 +173,119 @@ def test_bf16_gemm_encoder_matches_f32_upcast(cuda, monkeypatch):
                                 compute_dtype=torch.bfloat16)[:200]
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+
+
+# ---- kernel B2 (kb-major) ------------------------------------------------
+def _b2_equal(a, b):
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("q_count,n,dim", [
+    (77, 1024, 64), (1, 128, 8), (130, 512, 40), (64, 256, 768),
+    (200, 384, 24),
+])
+def test_b2_bit_identical_on_integers(cuda, dtype, q_count, n, dim):
+    """Integer inputs in [-4, 4]: every f32 sum is exact, so the kb-major
+    kernel and its plain version agree bit for bit in scores_t and
+    segmax_t — ragged query edge and d not a multiple of the depth step
+    included."""
+    q, kb = _int_inputs(cuda, q_count, n, dim, seed=q_count + n)
+    q, kb = q.to(dtype), kb.to(dtype)
+    before = tmf.fused_score_segmax.launches
+    s, m = tmf.fused_score_segmax(q, kb)
+    torch.cuda.synchronize()
+    assert tmf.fused_score_segmax.launches == before + 1
+    assert s.shape == (n, q_count) and s.dtype == dtype
+    assert m.shape == (n // 128, q_count) and m.dtype == torch.float32
+    ps, pm = tmf.fused_score_segmax_plain(q, kb)
+    assert _b2_equal(s, ps) and _b2_equal(m, pm)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_b2_within_reorder_bound_on_gaussian(cuda, dtype):
+    """Gaussian inputs: each f32 sum lies within the float32 reordering
+    bound of the plain version's (plus one bf16 ulp for the rounded bf16
+    scores); the maxima are of unrounded sums, so within the bound alone."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((300, 768), generator=gen, device=cuda).to(dtype)
+    kb = torch.randn((4096, 768), generator=gen, device=cuda).to(dtype)
+    s, m = tmf.fused_score_segmax(q, kb)
+    ps, pm = tmf.fused_score_segmax_plain(q, kb)
+    qn, kbn = q.float().cpu().numpy(), kb.float().cpu().numpy()
+    a, b = s.float().cpu().numpy().T, ps.float().cpu().numpy().T
+    if dtype == torch.bfloat16:
+        assert within_reorder_bound(qn, kbn, a, b).all()
+        assert (bf16_ulp_distance(a, b) == 0).mean() >= 0.999
+    d = qn.shape[1]
+    bound = 2 * d * 2.0 ** -24 / (1 - d * 2.0 ** -24) * (
+        np.abs(kbn) @ np.abs(qn).T)
+    if dtype == torch.float32:
+        assert (np.abs(a.T - b.T) <= bound).all()
+    seg_bound = bound.reshape(-1, 128, 300).max(1)
+    assert (np.abs(m.cpu().numpy() - pm.cpu().numpy()) <= seg_bound).all()
+
+
+def test_b2_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, kb = _int_inputs(cuda, 8, 256, 64, seed=2)
+    with pytest.raises(TypeError, match="one dtype"):
+        tmf.fused_score_segmax(q.float(), kb)
+    with pytest.raises(TypeError, match="one dtype"):
+        tmf.fused_score_segmax(q.half(), kb.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tmf.fused_score_segmax(q.t().contiguous().t(), kb)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tmf.fused_score_segmax(q, kb[:200])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tmf.fused_score_segmax(q[:, :62].float().contiguous(),
+                               kb[:, :62].float().contiguous())
+    with pytest.raises(ValueError, match="CUDA device"):
+        tmf.fused_score_segmax(q.cpu(), kb)
+    shifted = torch.empty(256 * 64 + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(256, 64)
+    shifted.copy_(kb)
+    with pytest.raises(ValueError, match="16-byte"):
+        tmf.fused_score_segmax(q, shifted)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_topk_pallas_on_gpu_matches_cpu(cuda, dtype):
+    """Integer inputs past bf16's mantissa: the same sums on the card and
+    the CPU, so the same ids and scores, boundary segment included."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randint(-30, 31, (50, 16), generator=gen, device=cuda).to(dtype)
+    kb = torch.randint(-30, 31, (2000, 16), generator=gen,
+                       device=cuda).to(dtype)
+    for valid in (None, 1900, 1792):
+        s, i = tmf.topk_pallas(q, kb, 30, valid_rows=valid)
+        cs, ci = tmf.topk_pallas(q.cpu(), kb.cpu(), 30, valid_rows=valid)
+        np.testing.assert_array_equal(i.cpu().numpy(), ci.numpy())
+        np.testing.assert_array_equal(s.cpu().numpy(), cs.numpy())
+
+
+def test_single_pass_and_streaming_on_gpu_match_cpu(cuda):
+    """topk_global (bf16 and f32) and the streamed index (pinned chunks,
+    side-stream uploads) give the CPU's results on integer inputs."""
+    rng = np.random.default_rng(5)
+    kb = rng.integers(-4, 5, (3000, 32)).astype(np.float32)
+    q = rng.integers(-4, 5, (40, 32)).astype(np.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        for mode in ("global", "approx"):
+            gpu = tm.DenseIndex(kb, mode=mode, dtype=dtype,
+                                device=cuda).search_batch(q, k=25)
+            cpu = tm.DenseIndex(kb, mode=mode, dtype=dtype,
+                                device="cpu").search_batch(q, k=25)
+            np.testing.assert_array_equal(gpu[1], cpu[1])
+            np.testing.assert_array_equal(gpu[0], cpu[0])
+        stream = tm.StreamingDenseIndex(kb, chunk_rows=512, dtype=dtype,
+                                        device=cuda)
+        assert stream._chunks[0].is_pinned()
+        gpu = stream.search_batch(q, k=25)
+        cpu = tm.StreamingDenseIndex(kb, chunk_rows=512, dtype=dtype,
+                                     device="cpu").search_batch(q, k=25)
+        np.testing.assert_array_equal(gpu[1], cpu[1])
+        np.testing.assert_array_equal(gpu[0], cpu[0])

@@ -34,7 +34,7 @@ def test_plain_score_segmax_is_bit_identical_on_integers(valid_rows):
     rng = np.random.default_rng(valid_rows)
     q = rng.integers(-4, 5, (37, 64)).astype(np.float32)
     kb = rng.integers(-4, 5, (1024, 64)).astype(np.float32)
-    s, m = tmf.fused_score_segmax_plain(_t(q), _t(kb), valid_rows)
+    s, m = tmf.fused_score_segmax_qmajor_plain(_t(q), _t(kb), valid_rows)
     assert s.dtype == m.dtype == torch.bfloat16
     assert m.shape == (37, 1024 // 128)
     ref_s, ref_m = _jax_score_segmax(q, kb, valid_rows)
@@ -49,7 +49,7 @@ def test_plain_score_segmax_within_one_ulp_on_gaussian():
     rng = np.random.default_rng(0)
     q = rng.normal(size=(20, 96)).astype(np.float32)
     kb = rng.normal(size=(2048, 96)).astype(np.float32)
-    s, m = tmf.fused_score_segmax_plain(_t(q), _t(kb), 2000)
+    s, m = tmf.fused_score_segmax_qmajor_plain(_t(q), _t(kb), 2000)
     ref_s, ref_m = _jax_score_segmax(q, kb, 2000)
     assert bf16_ulp_distance(s.float().numpy(), ref_s).max() <= 1
     assert bf16_ulp_distance(m.float().numpy(), ref_m).max() <= 1
@@ -228,18 +228,21 @@ def test_dense_index_fused_matches_jax(do_l2norm):
 
 
 def test_dense_index_clamps_k_and_rejects_unported_modes():
+    """Every mode clamps k to the row count; an unknown mode is refused."""
     kb = np.random.default_rng(0).normal(size=(7, 16)).astype(np.float32)
-    s, i = tm.DenseIndex(kb, device="cpu").search_batch(kb[:3], k=100)
-    assert s.shape == (3, 7)
-    np.testing.assert_array_equal(i[:, 0], [0, 1, 2])  # self-hit
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.DenseIndex(kb, mode="global", device="cpu")
+    for mode in ("fused", "fast", "exact", "global", "approx"):
+        s, i = tm.DenseIndex(kb, mode=mode, device="cpu").search_batch(
+            kb[:3], k=100)
+        assert s.shape == i.shape == (3, 7), mode
+        np.testing.assert_array_equal(i[:, 0], [0, 1, 2])  # self-hit
+    with pytest.raises(ValueError, match="unknown top-k mode"):
+        tm.DenseIndex(kb, mode="streaming", device="cpu")
 
 
 def test_wrapper_uses_plain_version_for_cpu_tensors_only():
     q, kb = _t(np.ones((2, 8))), _t(np.ones((128, 8)))
-    before = tmf.fused_score_segmax.launches
-    s, m = tmf.fused_score_segmax(q, kb, 100)
-    ref_s, ref_m = tmf.fused_score_segmax_plain(q, kb, 100)
+    before = tmf.fused_score_segmax_qmajor.launches
+    s, m = tmf.fused_score_segmax_qmajor(q, kb, 100)
+    ref_s, ref_m = tmf.fused_score_segmax_qmajor_plain(q, kb, 100)
     assert torch.equal(s, ref_s) and torch.equal(m, ref_m)
-    assert tmf.fused_score_segmax.launches == before  # no kernel ran
+    assert tmf.fused_score_segmax_qmajor.launches == before  # no kernel ran

@@ -37,6 +37,15 @@ _SIGNATURES = {
             ctypes.c_int),
         "score_segmax_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "score_segmax_kbmajor": {
+        "score_segmax_kbmajor_launch": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+        "score_segmax_kbmajor_error_string": ([ctypes.c_int],
+                                              ctypes.c_char_p),
+    },
 }
 
 

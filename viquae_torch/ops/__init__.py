@@ -1,1 +1,1 @@
-"""Packing, exact MIPS and the fused score+segmax kernel wrapper."""
+"""Packing, MIPS engines, the kernel wrappers and late fusion."""
