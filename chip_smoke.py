@@ -8,13 +8,15 @@ first use) and this checkout; no network, no JAX. Phases, each of which
 raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA source, one nvcc each, started together;
-3. kernel B1 vs plain: (a) integer-valued inputs at awkward shapes must be
-   bit-identical, (b) gaussian inputs at Q=1,280, d=768, N=262,144 must be
-   >= 99.9 % bitwise equal and every score within the float32 reordering
-   bound plus one bf16 ulp (see kernel_error);
+2. build: every CUDA source, one nvcc each, started together; fails if
+   ptxas -v reports register spills or an ignored setmaxnreg;
+3. kernel B1 vs plain: (a) integer-valued inputs at awkward shapes
+   (INTEGER_SHAPES) must be bit-identical, (b) gaussian inputs at
+   Q=1,280, d=768, N=262,144 must be >= 99.9 % bitwise equal and every
+   score within the float32 reordering bound plus one bf16 ulp (see
+   kernel_error);
 4. kernel B2 (kb-major) vs plain, in bf16 and f32: (a) integer-valued
-   inputs (Q=77, d=64, N=1,024) bit-identical in scores_t and segmax_t,
+   inputs (INTEGER_SHAPES) bit-identical in scores_t and segmax_t,
    (b) gaussian inputs at Q=1,280, d=768, N=262,144: every score within
    the f32 reordering bound (plus one ulp and >= 99.9 % bitwise in bf16),
    every segment max within the bound (see kbmajor_error);
@@ -47,7 +49,8 @@ raises on failure:
    batch, and ids equal to fuse_topk over each index's search_device;
 11. the kernel table: one JSON line with each kernel's launches on its
    path, error against the plain version, its time, the plain version's
-   and one library call's, and the least time the card could take.
+   and one library call's, the least time the card could take, its
+   design, its TFLOP/s and its fraction of the bound (bound_ms / ms).
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -55,6 +58,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -78,6 +82,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
+# the design of B1 and B2's bf16 path (viquae_torch/csrc/score_segmax_sm90.cuh)
+DESIGN_SM90 = ("sm90 persistent, TMA ring 3 x (128+256) x 64, 1 producer + "
+               "2 wgmma.m64n256k16 consumer warpgroups, 128 x 256 tiles")
+
+# (Q, d, N) of the integer kernel-vs-plain checks
+INTEGER_SHAPES = [(77, 64, 1024), (1257, 24, 1408)]
 N_KB = 1_500_000
 N_GAUSS = 262_144  # KB rows of the gaussian kernel-vs-plain check
 DIM = 768
@@ -232,6 +242,12 @@ def bound_ms(q_count, dim, n, itemsize, peak_flops, out_bytes) -> dict:
             "flops": flops, "bytes": moved}
 
 
+def achieved(bound: dict, kernel_ms: float) -> dict:
+    """The kernel's rate and its share of the least time: bound_ms / ms."""
+    return {"tflops": bound["flops"] / (kernel_ms / 1e3) / 1e12,
+            "fraction_of_bound": bound["bound_ms"] / kernel_ms}
+
+
 def gaussian(dev, rows, dim, dtype, seed, scale=1.0, block=1 << 18):
     """(rows, dim) gaussian values times ``scale`` in ``dtype``, drawn in
     f32 from ``seed`` in row blocks (no f32 copy of a wide bf16 KB)."""
@@ -289,37 +305,59 @@ def phase_device():
     return smi
 
 
+def ptxas_faults(log: str) -> list:
+    """What ptxas -v reports that the kernels must not have: register
+    spills, and a setmaxnreg it ignored (the warp-role split of the Hopper
+    mainloop would then run with the launch bound's registers)."""
+    faults = [ln.strip() for ln in log.splitlines()
+              if "setmaxnreg ignored" in ln]
+    for stores, loads in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log):
+        if int(stores) or int(loads):
+            faults.append(f"{stores} bytes spill stores, {loads} bytes "
+                          f"spill loads")
+    return faults
+
+
 def phase_build():
     start = time.perf_counter()
     logs = kbuild.build_all(force=True, verbose=True)
     seconds = time.perf_counter() - start
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "warning" in ln]
              for name, log in logs.items()}
+    faults = {name: ptxas_faults(log) for name, log in logs.items()}
     emit({"phase": "build", "seconds": round(seconds, 3),
-          "kernels": sorted(logs), "ptxas": ptxas})
+          "kernels": sorted(logs), "ptxas": ptxas, "faults": faults})
+    check(not any(faults.values()), f"ptxas reported {faults}")
 
 
 def phase_kernel_vs_plain(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
-    # (a) integer values in [-4, 4], d = 64: every f32 sum is exact
-    q = torch.randint(-4, 5, (77, 64), generator=gen, device=dev).to(
-        torch.bfloat16)
-    kb = torch.randint(-4, 5, (1024, 64), generator=gen, device=dev).to(
-        torch.bfloat16)
-    for valid in (1000, 0, 1024):
-        s, m = mips_fused.fused_score_segmax_qmajor(q, kb, valid)
-        ps, pm = mips_fused.fused_score_segmax_qmajor_plain(q, kb, valid)
-        _, ids = mips_fused.topk_fused(q, kb, 50, valid_rows=valid)
-        _, pids = mips_fused.segment_topk(ps, pm, 50)
-        torch.cuda.synchronize()
-        same = (torch.equal(s.view(torch.int16), ps.view(torch.int16)),
-                torch.equal(m.view(torch.int16), pm.view(torch.int16)),
-                torch.equal(ids, pids))
-        emit({"phase": "kernel_vs_plain_integer", "shape": [77, 64, 1024],
-              "valid_rows": valid, "scores_bitwise": same[0],
-              "segmax_bitwise": same[1], "topk_ids_equal": same[2]})
-        check(all(same), f"integer inputs, valid_rows={valid}")
+    # (a) integer values in [-4, 4]: every f32 sum is exact; the second
+    # shape has a ragged query edge against both tile widths, d below one
+    # 64-deep stage and N = 5.5 tiles of 256 (the last one half empty)
+    for q_count, dim, n in INTEGER_SHAPES:
+        q = torch.randint(-4, 5, (q_count, dim), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        kb = torch.randint(-4, 5, (n, dim), generator=gen, device=dev).to(
+            torch.bfloat16)
+        for valid in (n - 24, 0, n):
+            s, m = mips_fused.fused_score_segmax_qmajor(q, kb, valid)
+            ps, pm = mips_fused.fused_score_segmax_qmajor_plain(q, kb, valid)
+            _, ids = mips_fused.topk_fused(q, kb, 50, valid_rows=valid)
+            _, pids = mips_fused.segment_topk(ps, pm, 50)
+            torch.cuda.synchronize()
+            same = (torch.equal(s.view(torch.int16), ps.view(torch.int16)),
+                    torch.equal(m.view(torch.int16), pm.view(torch.int16)),
+                    torch.equal(ids, pids))
+            emit({"phase": "kernel_vs_plain_integer",
+                  "shape": [q_count, dim, n], "valid_rows": valid,
+                  "scores_bitwise": same[0], "segmax_bitwise": same[1],
+                  "topk_ids_equal": same[2]})
+            check(all(same), f"integer inputs {[q_count, dim, n]}, "
+                  f"valid_rows={valid}")
     # (b) gaussian at a wide shape
     q = torch.randn((BATCH, DIM), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -342,23 +380,26 @@ def phase_kbmajor_vs_plain(dev):
     """Kernel B2 against its plain version in both dtypes; returns the f32
     error at the gaussian shapes (the f32 row of the kernel table)."""
     gen = torch.Generator(device=dev).manual_seed(8)
-    q_int = torch.randint(-4, 5, (77, 64), generator=gen, device=dev)
-    kb_int = torch.randint(-4, 5, (1024, 64), generator=gen, device=dev)
+    ints = [(torch.randint(-4, 5, (q_count, dim), generator=gen, device=dev),
+             torch.randint(-4, 5, (n, dim), generator=gen, device=dev))
+            for q_count, dim, n in INTEGER_SHAPES]
     errors = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
-        # (a) integer values in [-4, 4], d = 64: every f32 sum is exact
-        q, kb = q_int.to(dtype), kb_int.to(dtype)
-        s, m = mips_fused.fused_score_segmax(q, kb)
-        ps, pm = mips_fused.fused_score_segmax_plain(q, kb)
-        torch.cuda.synchronize()
-        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        same = (torch.equal(s.view(bits), ps.view(bits)),
-                torch.equal(m.view(torch.int32), pm.view(torch.int32)))
-        emit({"phase": "kbmajor_vs_plain_integer", "dtype": name,
-              "shape": [77, 64, 1024], "scores_t_bitwise": same[0],
-              "segmax_t_bitwise": same[1]})
-        check(all(same), f"B2 integer inputs, {name}")
+        # (a) integer values in [-4, 4]: every f32 sum is exact
+        for q_int, kb_int in ints:
+            q, kb = q_int.to(dtype), kb_int.to(dtype)
+            s, m = mips_fused.fused_score_segmax(q, kb)
+            ps, pm = mips_fused.fused_score_segmax_plain(q, kb)
+            torch.cuda.synchronize()
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            same = (torch.equal(s.view(bits), ps.view(bits)),
+                    torch.equal(m.view(torch.int32), pm.view(torch.int32)))
+            shape = [q.shape[0], q.shape[1], kb.shape[0]]
+            emit({"phase": "kbmajor_vs_plain_integer", "dtype": name,
+                  "shape": shape, "scores_t_bitwise": same[0],
+                  "segmax_t_bitwise": same[1]})
+            check(all(same), f"B2 integer inputs {shape}, {name}")
         # (b) gaussian at a wide shape
         q = gaussian(dev, BATCH, DIM, dtype, seed=9)
         kb = gaussian(dev, N_GAUSS, DIM, dtype, seed=10,
@@ -545,6 +586,7 @@ def phase_kernel_table(index, q, launches):
         "route": "cuda",
         "source": "viquae_torch/csrc/score_segmax.cu",
         "replaces": "viquae_tpu/ops/mips_pallas.py:89",
+        "design": DESIGN_SM90,
         "launches": launches,
         "max_abs_err": err["max_abs_err"],
         "max_ulp_err": err["max_ulp_err"],
@@ -557,6 +599,7 @@ def phase_kernel_table(index, q, launches):
         "shape": [q_count, q.shape[1], n],
         "flops": bound["flops"],
         "bytes": bound["bytes"],
+        **achieved(bound, kernel_ms),
     }
 
 
@@ -584,6 +627,7 @@ def kbmajor_entry(q, kb, launches, err, path) -> dict:
         "route": "cuda",
         "source": "viquae_torch/csrc/score_segmax_kbmajor.cu",
         "replaces": "viquae_tpu/ops/mips_pallas.py:258",
+        "design": DESIGN_SM90 if bf16 else "FFMA, 128 x 64 tiles, no TF32",
         "dtype": str(q.dtype).removeprefix("torch."),
         "path": path,
         "launches": launches,
@@ -598,6 +642,7 @@ def kbmajor_entry(q, kb, launches, err, path) -> dict:
         "shape": [q_count, q.shape[1], n],
         "flops": bound["flops"],
         "bytes": bound["bytes"],
+        **achieved(bound, kernel_ms),
     }
 
 

@@ -267,6 +267,98 @@ def test_topk_pallas_on_gpu_matches_cpu(cuda, dtype):
         np.testing.assert_array_equal(s.cpu().numpy(), cs.numpy())
 
 
+# ---- the shared Hopper mainloop (128 x 256 tiles, persistent) -----------
+# Shapes that stress the tiling of B1 and B2's bf16 path: N not a multiple
+# of the 256-column tile (the last B1 tile half empty), more tiles than SMs
+# (the persistent loop wraps), a ragged query edge against the 128- and
+# 256-query tiles, d below, between and at multiples of the 64-deep stage.
+_TILING_SHAPES = [
+    (77, 384, 64), (130, 640, 40), (1257, 1408, 24), (1, 1408, 8),
+    (1, 384, 768), (1280, 65664, 768),
+]
+
+
+@pytest.mark.parametrize("q_count,n,dim", _TILING_SHAPES)
+def test_b1_tiling_bit_identical_on_integers(cuda, q_count, n, dim):
+    """valid_rows = 0, one that cuts the last (half-empty) 256-column tile
+    and N: scores and maxima bit for bit against the plain version."""
+    q, kb = _int_inputs(cuda, q_count, n, dim, seed=q_count * 7 + n + dim)
+    for valid in (0, n - 64, n):
+        s, m = tmf.fused_score_segmax_qmajor(q, kb, valid)
+        ps, pm = tmf.fused_score_segmax_qmajor_plain(q, kb, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(s.view(torch.int16), ps.view(torch.int16)), valid
+        assert torch.equal(m.view(torch.int16), pm.view(torch.int16)), valid
+
+
+@pytest.mark.parametrize("q_count,n,dim", _TILING_SHAPES)
+def test_b2_bf16_tiling_bit_identical_on_integers(cuda, q_count, n, dim):
+    q, kb = _int_inputs(cuda, q_count, n, dim, seed=q_count * 5 + n + dim)
+    s, m = tmf.fused_score_segmax(q, kb)
+    ps, pm = tmf.fused_score_segmax_plain(q, kb)
+    torch.cuda.synchronize()
+    assert _b2_equal(s, ps) and _b2_equal(m, pm)
+
+
+def test_topk_fused_chunks_start_mid_kb(cuda):
+    """chunks=3 scores slabs that start mid-KB (new tensor maps over
+    offset pointers): the card's results equal the CPU's."""
+    q, kb = _int_inputs(cuda, 130, 1408, 40, seed=11)
+    s, i = tmf.topk_fused(q, kb, 40, valid_rows=1300, chunks=3)
+    cs, ci = tmf.topk_fused(q.cpu(), kb.cpu(), 40, valid_rows=1300, chunks=3)
+    np.testing.assert_array_equal(s.cpu().numpy(), cs.numpy())
+    np.testing.assert_array_equal(i.cpu().numpy(), ci.numpy())
+
+
+def test_back_to_back_calls_rebuild_descriptors(cuda):
+    """Two shapes launched back to back, checked only after both: each
+    call encodes its own tensor maps."""
+    qa, kba = _int_inputs(cuda, 77, 640, 24, seed=12)
+    qb, kbb = _int_inputs(cuda, 1257, 1408, 768, seed=13)
+    b1 = [tmf.fused_score_segmax_qmajor(qa, kba, 600),
+          tmf.fused_score_segmax_qmajor(qb, kbb, 1408)]
+    b2 = [tmf.fused_score_segmax(qa, kba), tmf.fused_score_segmax(qb, kbb)]
+    torch.cuda.synchronize()
+    for (s, m), (q, kb, valid) in zip(b1, [(qa, kba, 600), (qb, kbb, 1408)]):
+        ps, pm = tmf.fused_score_segmax_qmajor_plain(q, kb, valid)
+        assert torch.equal(s.view(torch.int16), ps.view(torch.int16))
+        assert torch.equal(m.view(torch.int16), pm.view(torch.int16))
+    for (s, m), (q, kb) in zip(b2, [(qa, kba), (qb, kbb)]):
+        ps, pm = tmf.fused_score_segmax_plain(q, kb)
+        assert _b2_equal(s, ps) and _b2_equal(m, pm)
+
+
+def test_tiling_within_reorder_bound_on_gaussian(cuda):
+    """Gaussian inputs at Q = 1,280, N = 65,664 (the persistent loop wraps
+    several times): B1's and B2's scores within the float32 reordering
+    bound plus one bf16 ulp and >= 99.9 % bitwise; B1's maxima are those of
+    its own scores, B2's within the bound of their segment."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q = torch.randn((1280, 768), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    kb = (torch.randn((65664, 768), generator=gen, device=cuda)
+          / 768 ** 0.5).to(torch.bfloat16)
+    qn, kbn = q.float().cpu().numpy(), kb.float().cpu().numpy()
+    s, m = tmf.fused_score_segmax_qmajor(q, kb, 65600)
+    ps, _ = tmf.fused_score_segmax_qmajor_plain(q, kb, 65600)
+    a, b = s.float().cpu().numpy(), ps.float().cpu().numpy()
+    assert within_reorder_bound(qn, kbn, a, b).all()
+    assert (bf16_ulp_distance(a, b) == 0).mean() >= 0.999
+    own = s.view(1280, -1, 128).amax(-1)
+    assert torch.equal(m.view(torch.int16), own.view(torch.int16))
+    del s, m, ps
+    st, mt = tmf.fused_score_segmax(q, kb)
+    pst, pmt = tmf.fused_score_segmax_plain(q, kb)
+    a, b = st.float().cpu().numpy().T, pst.float().cpu().numpy().T
+    assert within_reorder_bound(qn, kbn, a, b).all()
+    assert (bf16_ulp_distance(a, b) == 0).mean() >= 0.999
+    d = qn.shape[1]
+    bound = 2 * d * 2.0 ** -24 / (1 - d * 2.0 ** -24) * (
+        np.abs(kbn) @ np.abs(qn).T)
+    seg_bound = bound.reshape(-1, 128, 1280).max(1)
+    assert (np.abs(mt.cpu().numpy() - pmt.cpu().numpy()) <= seg_bound).all()
+
+
 def test_single_pass_and_streaming_on_gpu_match_cpu(cuda):
     """topk_global (bf16 and f32) and the streamed index (pinned chunks,
     side-stream uploads) give the CPU's results on integer inputs."""

@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "viquae_tpu", "transformers", "ml_dtypes",
 
 def _port_sources():
     return sorted((ROOT / "viquae_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "kernel_probe.py"]
 
 
 def test_importing_every_port_module_loads_no_forbidden_package():
@@ -33,7 +33,7 @@ names = [m.name for m in pkgutil.walk_packages(viquae_torch.__path__,
          if not m.name.rsplit(".", 1)[-1].startswith("_")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, kernel_probe
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r})
 print(json.dumps({{"modules": names, "forbidden": bad}}))

@@ -7,8 +7,9 @@ first use, for Hopper only:
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
          -Xcompiler -fPIC -o lib<name>.so <name>.cu
 
-A library is rebuilt when its source is newer. :func:`build_all` starts one
-nvcc per source, all at once, and waits for them together. Nothing here runs
+The ``.cu`` files share headers (``csrc/*.cuh``): a library is rebuilt
+when its source or any header is newer. :func:`build_all` starts one nvcc
+per source, all at once, and waits for them together. Nothing here runs
 at import time; the CPU paths of the port never reach this module.
 """
 from __future__ import annotations
@@ -62,9 +63,13 @@ def _library(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Whether lib<name>.so is missing or older than its .cu or any
+    shared header."""
     lib = _library(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def _start(name: str, verbose: bool):
