@@ -85,6 +85,10 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 # the design of B1 and B2's bf16 path (viquae_torch/csrc/score_segmax_sm90.cuh)
 DESIGN_SM90 = ("sm90 persistent, TMA ring 3 x (128+256) x 64, 1 producer + "
                "2 wgmma.m64n256k16 consumer warpgroups, 128 x 256 tiles")
+# the design of B2's f32 path (viquae_torch/csrc/score_segmax_kbmajor.cu)
+DESIGN_F32 = ("sm90 persistent FFMA (no TF32), TMA ring 4 x (128+128) x 32 "
+              "K-major, 1 producer warpgroup + 8 consumer warps, 128 x 128 "
+              "tiles, 8 x 8 a thread by LDS.128 along the depth")
 
 # (Q, d, N) of the integer kernel-vs-plain checks
 INTEGER_SHAPES = [(77, 64, 1024), (1257, 24, 1408)]
@@ -627,7 +631,7 @@ def kbmajor_entry(q, kb, launches, err, path) -> dict:
         "route": "cuda",
         "source": "viquae_torch/csrc/score_segmax_kbmajor.cu",
         "replaces": "viquae_tpu/ops/mips_pallas.py:258",
-        "design": DESIGN_SM90 if bf16 else "FFMA, 128 x 64 tiles, no TF32",
+        "design": DESIGN_SM90 if bf16 else DESIGN_F32,
         "dtype": str(q.dtype).removeprefix("torch."),
         "path": path,
         "launches": launches,
@@ -691,11 +695,14 @@ def phase_topk_pallas(dev, main, err_f32):
     check(launches32 == 1, f"f32 topk_pallas launched B2 {launches32} times")
     ref32 = mips.top_k(torch.matmul(q32, kb32.T), K)[1]
     agree32 = float((i32.long() == ref32).float().mean())
-    emit({"phase": "topk_pallas_f32", "shape": [BATCH, DIM, N_GAUSS],
-          "launches": launches32, "exact_sort_id_agreement": agree32})
-    check(agree32 >= 0.999, "f32 topk_pallas ids against a full sort")
     del i32, ref32
     torch.cuda.empty_cache()
+    search32_ms = time_ms(lambda: mips_fused.topk_pallas(q32, kb32, K),
+                          reps=3)
+    emit({"phase": "topk_pallas_f32", "shape": [BATCH, DIM, N_GAUSS],
+          "launches": launches32, "search_ms": search32_ms,
+          "exact_sort_id_agreement": agree32})
+    check(agree32 >= 0.999, "f32 topk_pallas ids against a full sort")
     entries.append(kbmajor_entry(q32, kb32, launches32, err_f32,
                                  "topk_pallas, f32 at 262,144 rows"))
     del q32, kb32

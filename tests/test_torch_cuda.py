@@ -268,7 +268,7 @@ def test_topk_pallas_on_gpu_matches_cpu(cuda, dtype):
 
 
 # ---- the shared Hopper mainloop (128 x 256 tiles, persistent) -----------
-# Shapes that stress the tiling of B1 and B2's bf16 path: N not a multiple
+# Shapes that stress the tiling of B1 and B2 (both dtypes): N not a multiple
 # of the 256-column tile (the last B1 tile half empty), more tiles than SMs
 # (the persistent loop wraps), a ragged query edge against the 128- and
 # 256-query tiles, d below, between and at multiples of the 64-deep stage.
@@ -298,6 +298,45 @@ def test_b2_bf16_tiling_bit_identical_on_integers(cuda, q_count, n, dim):
     ps, pm = tmf.fused_score_segmax_plain(q, kb)
     torch.cuda.synchronize()
     assert _b2_equal(s, ps) and _b2_equal(m, pm)
+
+
+# B2's f32 path (128 x 128 tiles, 32-deep stages, persistent): a ragged
+# query edge against the 128-query tile (1, 77, 130, 1257), d below, between
+# and at multiples of the stage depth (8, 24, 40, 768), a single segment,
+# more tiles than SMs (the persistent loop wraps, the ring and the two
+# maxima buffers are reused), Q % 8 != 0 and Q % 4 != 0 (score rows that
+# start off a sector or a 16-byte boundary).
+_F32_TILING_SHAPES = _TILING_SHAPES + [
+    (130, 128, 32), (1257, 4096, 768), (129, 640, 36), (1280, 128, 768),
+]
+
+
+@pytest.mark.parametrize("q_count,n,dim", _F32_TILING_SHAPES)
+def test_b2_f32_tiling_bit_identical_on_integers(cuda, q_count, n, dim):
+    q, kb = _int_inputs(cuda, q_count, n, dim, seed=q_count * 3 + n + dim)
+    q, kb = q.float(), kb.float()
+    s, m = tmf.fused_score_segmax(q, kb)
+    ps, pm = tmf.fused_score_segmax_plain(q, kb)
+    torch.cuda.synchronize()
+    assert _b2_equal(s, ps) and _b2_equal(m, pm)
+
+
+def test_b2_f32_tiling_within_reorder_bound_on_gaussian(cuda):
+    """Gaussian f32 inputs at Q = 1,257, N = 32,768 (the persistent loop
+    wraps, the last query tile is ragged): every sum and every segment max
+    within the float32 reordering bound of the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    q = torch.randn((1257, 768), generator=gen, device=cuda)
+    kb = torch.randn((32768, 768), generator=gen, device=cuda) / 768 ** 0.5
+    s, m = tmf.fused_score_segmax(q, kb)
+    ps, pm = tmf.fused_score_segmax_plain(q, kb)
+    d = q.shape[1]
+    bound = 2 * d * 2.0 ** -24 / (1 - d * 2.0 ** -24) * (kb.abs() @ q.abs().T)
+    assert bool(((s - ps).abs() <= bound).all())
+    seg_bound = bound.view(-1, 128, 1257).amax(1)
+    assert bool(((m - pm).abs() <= seg_bound).all())
+    own = s.view(-1, 128, 1257).amax(1)
+    assert torch.equal(m, own)
 
 
 def test_topk_fused_chunks_start_mid_kb(cuda):

@@ -386,21 +386,26 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// A row-major bf16 (rows, cols) matrix read or written in boxes of
-// box_rows x box_cols (box_cols * 2 == 128 bytes: one swizzle row).
+// A row-major (rows, cols) matrix of bf16 or f32 read or written in boxes of
+// box_rows x box_cols (box_cols elements == 128 bytes: one swizzle row).
 inline bool make_map(CUtensorMap* map, const void* ptr, int64_t rows,
-                     int64_t cols, int box_rows, int box_cols) {
+                     int64_t cols, int box_rows, int box_cols,
+                     CUtensorMapDataType type =
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
     const EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return false;
+    const cuuint64_t elem_bytes =
+        type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                                 static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) *
+                                   elem_bytes};
     const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                                static_cast<cuuint32_t>(box_rows)};
     const cuuint32_t elem[2] = {1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<void*>(ptr), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+    return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                  elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

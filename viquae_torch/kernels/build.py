@@ -26,6 +26,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "kernels" / "_build"
 
+# every kernel library is built with these: Hopper only, a plain C interface
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 # argtypes/restype of each library's C entry points
@@ -78,9 +82,7 @@ def _start(name: str, verbose: bool):
     fd, tmp = tempfile.mkstemp(suffix=".so", prefix=f".lib{name}-",
                                dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-           "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-           *(["-Xptxas", "-v"] if verbose else []),
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
            "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
