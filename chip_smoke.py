@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's retrieval paths on one NVIDIA GPU and hold
-every kernel on them against its plain PyTorch version.
+"""Drive the PyTorch port's retrieval and answer paths on one NVIDIA GPU and
+hold every kernel on them against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -50,12 +50,28 @@ raises on failure:
 11. the kernel table: one JSON line with each kernel's launches on its
    path, error against the plain version, its time, the plain version's
    and one library call's, the least time the card could take, its
-   design, its TFLOP/s and its fraction of the bound (bound_ms / ms).
+   design, its TFLOP/s and its fraction of the bound (bound_ms / ms);
+   printed after phase 13;
+12. the reader step at full width: Multi-passage BERT at BERT-base (random
+   weights from a seed), 16 questions x 24 passages x 256 tokens, once
+   padded and once packed at the pairs' real lengths; ms and samples/s of
+   each, the packed canvas and its density; padded and packed spans agree
+   in f32 and in bf16 (see span_agreement), and the bf16 logits are within
+   rtol = atol = 2e-2 of the same forward on f32 products of the upcast
+   operands;
+13. the answer path: AnswerPipeline over phase 5's FusedRetrievalPipeline
+   (1.5M x 768 bf16 KB, kernel B1, k=100) and a KB of pre-tokenized
+   100-token passages, 256 questions, padded and packed (canvas pinned at
+   the p99 row count): questions/s, the StageTimer report, one B1 launch
+   per retrieval batch, passage ids equal to the retrieval's first 24,
+   every answer the decoded span of one of its own rows, padded and packed
+   answers agreeing by the span criterion; peak device memory.
 
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -67,13 +83,15 @@ from unittest import mock
 import numpy as np
 import torch
 
+from viquae_torch.core.profiling import StageTimer
 from viquae_torch.ir.embedding import PackedTextEmbedder
+from viquae_torch.ir.qa_serving import AnswerPipeline, span_probabilities
 from viquae_torch.ir.serving import (FusedRetrievalPipeline,
                                      MultiIndexRetrievalPipeline)
 from viquae_torch.kernels import build as kbuild
-from viquae_torch.models import convert, dpr, layers
+from viquae_torch.models import convert, dpr, layers, qa
 from viquae_torch.native.build import load_packer
-from viquae_torch.ops import mips, mips_fused
+from viquae_torch.ops import mips, mips_fused, packing
 from viquae_torch.ops.fusion import fuse_topk
 
 # H100 SXM data-sheet peaks (dense bf16 tensor cores; non-tensor FP32;
@@ -106,6 +124,17 @@ STREAM_ROWS = 262_144
 FUSION_WIDTHS = {"imagenet-RN50": 2048, "clip-RN50": 1024, "arcface": 512}
 FUSION_WEIGHTS = {"dpr": 0.3, "imagenet-RN50": 0.2, "clip-RN50": 0.2,
                   "arcface": 0.2}
+# the reader's step: M passages a question, pair rows of READER_SEQ tokens,
+# READER_QUESTIONS questions a step, passages of PASSAGE_TOKENS tokens
+READER_M = 24
+READER_SEQ = 256
+READER_QUESTIONS = 16
+PASSAGE_TOKENS = 100
+N_ANSWER_QUERIES = 256
+# two paths' spans agree when each one's span has, under the other's
+# probabilities, a joint probability within this relative distance of the
+# other's maximum (see span_agreement)
+SPAN_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
 def emit(obj):
@@ -281,16 +310,55 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 class WhitespaceTokenizer:
     """Minimal tokenizer with the HF call contract: words "w<j>" map to id
-    j, wrapped in [CLS]=101 ... [SEP]=102, truncated to max_length."""
+    j, wrapped in [CLS]=101 ... [SEP]=102 unless ``add_special_tokens`` is
+    off, truncated to max_length; ``decode`` maps ids back to words."""
 
-    def __call__(self, texts, truncation=True, max_length=512):
+    cls_token_id, sep_token_id = 101, 102
+    special_ids = frozenset((0, 101, 102))
+
+    def __call__(self, texts, truncation=True, max_length=512,
+                 add_special_tokens=True):
+        room = max_length - 2 if add_special_tokens else max_length
         out = []
         for text in texts:
             ids = [int(w[1:]) for w in text.split()]
             if truncation:
-                ids = ids[: max_length - 2]
-            out.append([101] + ids + [102])
+                ids = ids[:room]
+            if add_special_tokens:
+                ids = [self.cls_token_id] + ids + [self.sep_token_id]
+            out.append(ids)
         return {"input_ids": out}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(
+            f"w{int(i)}" for i in ids
+            if not (skip_special_tokens and int(i) in self.special_ids))
+
+
+class SyntheticPassages:
+    """A KB of ``n`` pre-tokenized passages that holds none of them: row
+    ``i`` is ``{"passage_tokens": PASSAGE_TOKENS ids}`` drawn from
+    ``(seed, i)`` when it is asked for."""
+
+    def __init__(self, n: int, seed: int, length: int = PASSAGE_TOKENS,
+                 vocab=(1000, 30_000)):
+        self.n, self.seed, self.length, self.vocab = n, seed, length, vocab
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i: int) -> dict:
+        rng = np.random.default_rng((self.seed, int(i)))
+        return {"passage_tokens": rng.integers(*self.vocab, self.length)}
+
+
+def lognormal_questions(rng, n, lo=8, hi=ROW_LEN, special=2):
+    """``n`` questions "w<j> ..." whose token counts, ``special`` tokens
+    included, are lognormal(ln 18, 0.35) clipped to [lo, hi]."""
+    lengths = np.clip(np.round(rng.lognormal(np.log(18.0), 0.35, n)),
+                      lo, hi).astype(int)
+    return [" ".join(f"w{j}" for j in rng.integers(1000, 10_000, m - special))
+            for m in lengths]
 
 
 def phase_device():
@@ -430,10 +498,7 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
     model = convert.params_from_jax(convert.init_tree(cfg, seed=0), cfg,
                                     device=dev, dtype=torch.bfloat16)
     rng = np.random.default_rng(0)
-    lengths = np.clip(np.round(rng.lognormal(np.log(18.0), 0.35, N_QUERIES)),
-                      8, ROW_LEN).astype(int)
-    queries = [" ".join(f"w{j}" for j in rng.integers(1000, 10_000, n - 2))
-               for n in lengths]
+    queries = lognormal_questions(rng, N_QUERIES)
     gen = torch.Generator(device=dev).manual_seed(1)
     kb = torch.randn((N_KB, DIM), generator=gen, device=dev,
                      dtype=torch.bfloat16) / math.sqrt(DIM)
@@ -868,6 +933,320 @@ def phase_late_fusion(dev, main):
     torch.cuda.empty_cache()
 
 
+def span_agreement(spans_a, probs_a, spans_b, probs_b, rtol) -> dict:
+    """Two paths' best spans, each (passage, start, end-exclusive) of (n,)
+    tensors, with the (n, M, L) start and end probabilities they were
+    chosen under. The paths agree on a question when they pick the same
+    span, or when each one's span has, under the other's probabilities, a
+    joint probability within ``rtol`` relative of the other's maximum:
+    with random weights near-ties are common, and the two paths round
+    differently."""
+    def joint(probs, spans):
+        passage, start, end = spans
+        rows = torch.arange(len(passage), device=passage.device)
+        return (probs[0][rows, passage, start]
+                * probs[1][rows, passage, end - 1])
+
+    same = torch.stack([a == b for a, b in zip(spans_a, spans_b)]).all(0)
+    shortfall = torch.maximum(
+        1 - joint(probs_a, spans_b) / joint(probs_a, spans_a),
+        1 - joint(probs_b, spans_a) / joint(probs_b, spans_b))
+    agree = same | (shortfall <= rtol)
+    return {"questions": len(same), "exact_share": float(same.float().mean()),
+            "agree_share": float(agree.float().mean()),
+            "max_relative_shortfall": float(shortfall.max()), "rtol": rtol}
+
+
+def reader_probs_and_spans(pipe, ids, mask, tt, packed: bool):
+    """One reader step of ``pipe`` on a padded pair batch (host arrays),
+    through the padded or the packed forward: the (n, M, L) start and end
+    probabilities and the best spans chosen under them."""
+    with torch.no_grad():
+        if packed:
+            *canvas, mask_t = pipe.upload(*pipe.pack_pairs(ids, mask, tt),
+                                          mask)
+            out = qa.reader_apply_packed(
+                pipe.reader_params, pipe.reader_cfg, *canvas,
+                m_passages=pipe.M, compute_dtype=pipe.compute_dtype)
+        else:
+            ids_t, mask_t, tt_t = pipe.upload(ids, mask, tt)
+            out = qa.reader_apply(
+                pipe.reader_params, pipe.reader_cfg, ids_t,
+                attention_mask=mask_t, token_type_ids=tt_t,
+                m_passages=pipe.M, compute_dtype=pipe.compute_dtype)
+        probs = span_probabilities(out.start_logits, out.end_logits, mask_t,
+                                   pipe.M)
+        return probs, qa.get_best_spans(*probs), out
+
+
+def p99_packed_rows(rng, samples: int = 200) -> int:
+    """The 99th percentile of the packed canvas height over ``samples``
+    reader steps of READER_QUESTIONS lognormal questions, each paired with
+    READER_M passages ([CLS] q [SEP] p [SEP])."""
+    rows = []
+    for _ in range(samples):
+        q_len = np.clip(np.round(rng.lognormal(
+            np.log(18.0), 0.35, READER_QUESTIONS)), 8, ROW_LEN).astype(int)
+        seqs = [np.ones(n + PASSAGE_TOKENS + 3, np.int32)
+                for n in np.repeat(q_len, READER_M)]
+        rows.append(packing.pack_token_sequences(
+            seqs, row_len=READER_SEQ, pad_rows_to=16).rows)
+    return int(np.percentile(rows, 99, method="higher"))
+
+
+def answer_pipeline(dev, main, reader, kb, **kwargs) -> AnswerPipeline:
+    """AnswerPipeline over the main path's embedder and fused index."""
+    retrieval = FusedRetrievalPipeline(main["embedder"], main["index"],
+                                       batch_size=BATCH, k=K)
+    dtype = next(reader.parameters()).dtype
+    return AnswerPipeline(
+        retrieval, kb, reader.cfg, reader, WhitespaceTokenizer(),
+        m_passages=READER_M, reader_seq=READER_SEQ,
+        passage_tokens_key="passage_tokens",
+        questions_per_step=READER_QUESTIONS, compute_dtype=dtype,
+        device=dev, **kwargs)
+
+
+def phase_reader_step(dev, main, rcfg=qa.ReaderConfig()):
+    """One reader step at full width, padded and packed. ``rcfg`` defaults
+    to BERT-base without a pooler. Returns what phase 13 shares."""
+    t0 = time.perf_counter()
+    tree = convert.init_reader_tree(rcfg, seed=1)
+    readers = {dtype: convert.reader_from_jax(tree, rcfg, device=dev,
+                                              dtype=dtype)
+               for dtype in (torch.bfloat16, torch.float32)}
+    del tree
+    kb = SyntheticPassages(main["index"].n, seed=4)
+    rng = np.random.default_rng(5)
+    # question tokens without specials: lognormal(ln 18, 0.35) in [8, 64]
+    questions = lognormal_questions(rng, READER_QUESTIONS, special=0)
+    indices = rng.integers(0, len(kb), (READER_QUESTIONS, READER_M))
+    packed_rows = p99_packed_rows(np.random.default_rng(6))
+    setup_s = time.perf_counter() - t0
+
+    agreements = {}
+    for dtype, reader in readers.items():
+        name = str(dtype).removeprefix("torch.")
+        pipe = answer_pipeline(dev, main, reader, kb)
+        (_, n_real, ids, mask, tt), = pipe.reader_batches(questions, indices)
+        check(n_real == READER_QUESTIONS and ids.shape == (
+            READER_QUESTIONS * READER_M, READER_SEQ), "the reader batch")
+        probs_pad, spans_pad, out_pad = reader_probs_and_spans(
+            pipe, ids, mask, tt, packed=False)
+        probs_pack, spans_pack, _ = reader_probs_and_spans(
+            pipe, ids, mask, tt, packed=True)
+        for probs in (*probs_pad, *probs_pack):
+            check(bool(torch.isfinite(probs).all()), f"{name} probabilities")
+        agreements[name] = span_agreement(spans_pad, probs_pad, spans_pack,
+                                          probs_pack, SPAN_RTOL[dtype])
+        check(agreements[name]["agree_share"] == 1.0,
+              f"padded and packed spans, {name}: {agreements[name]}")
+        # the spans the pipeline's own step returns are these spans
+        step = pipe.read(*pipe.upload(ids, mask, tt), None)
+        check(all(torch.equal(a, b) for a, b in zip(step, spans_pad)),
+              f"read() against reader_apply + get_best_spans, {name}")
+        if dtype == torch.bfloat16:
+            bf16_pad = out_pad
+        del probs_pad, probs_pack, out_pad
+        torch.cuda.empty_cache()
+
+    # the bf16 reader's GEMMs (f32 results) against the same forward with
+    # every dense product taken in f32 on the upcast operands (no TF32)
+    pipe = answer_pipeline(dev, main, readers[torch.bfloat16], kb)
+    uploaded = pipe.upload(ids, mask, tt)
+    with mock.patch.object(layers, "_dot_f32", layers._dot_f32_upcast), \
+            torch.no_grad():
+        ref = qa.reader_apply(pipe.reader_params, rcfg, uploaded[0],
+                              attention_mask=uploaded[1],
+                              token_type_ids=uploaded[2], m_passages=READER_M,
+                              compute_dtype=torch.bfloat16)
+    real = uploaded[1] > 0
+    got = torch.stack([bf16_pad.start_logits[real], bf16_pad.end_logits[real]])
+    want = torch.stack([ref.start_logits[real], ref.end_logits[real]])
+    diff = (got - want).abs()
+    close = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=2e-2, atol=2e-2)
+    emit({"phase": "reader_bf16_gemm_vs_upcast", "real_tokens": int(real.sum()),
+          "max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean()),
+          "logit_std": float(want.std()), "rtol_atol": 2e-2,
+          "allclose": close})
+    check(close, "reader bf16 GEMMs against the f32 upcast")
+    del ref, got, want, diff, bf16_pad, readers[torch.float32]
+    torch.cuda.empty_cache()
+
+    # one step's time: the device work alone (CUDA events), then the host
+    # assembly that feeds it (host clock)
+    canvas = pipe.pack_pairs(ids, mask, tt)
+    rows = canvas[0].shape[0]
+    density = float(mask.sum()) / (rows * READER_SEQ)
+    packed_uploaded = pipe.upload(*canvas, mask)
+    padded_ms = time_ms(lambda: pipe.read(*uploaded, None), reps=5, warmup=2)
+    packed_ms = time_ms(lambda: pipe.read_packed(*packed_uploaded, None),
+                        reps=5, warmup=2)
+    host = {}
+    for name, fn in (
+            ("assemble_ms", lambda: list(pipe.reader_batches(questions,
+                                                             indices))),
+            ("pack_pairs_ms", lambda: pipe.pack_pairs(ids, mask, tt)),
+            ("upload_padded_ms", lambda: (pipe.upload(ids, mask, tt),
+                                          torch.cuda.synchronize())),
+            ("upload_packed_ms", lambda: (pipe.upload(*canvas, mask),
+                                          torch.cuda.synchronize()))):
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        host[name] = float(np.median(walls))
+    pairs = READER_QUESTIONS * READER_M
+    emit({"phase": "reader_step", "model": {
+              "hidden": rcfg.bert.hidden_size,
+              "layers": rcfg.bert.num_hidden_layers,
+              "heads": rcfg.bert.num_attention_heads,
+              "ffn": rcfg.bert.intermediate_size,
+              "vocab": rcfg.bert.vocab_size, "weights": "bf16"},
+          "questions": READER_QUESTIONS, "m_passages": READER_M,
+          "reader_seq": READER_SEQ, "pairs": pairs,
+          "real_tokens": int(mask.sum()),
+          "mean_pair_tokens": float(mask.sum()) / pairs,
+          "setup_s": round(setup_s, 3),
+          "padded_ms": padded_ms, "padded_samples_per_s":
+          READER_QUESTIONS / (padded_ms / 1e3),
+          "packed_ms": packed_ms, "packed_samples_per_s":
+          READER_QUESTIONS / (packed_ms / 1e3),
+          "packed_canvas": [rows, READER_SEQ], "packed_density": density,
+          "packed_rows_p99": packed_rows, "host": host,
+          "padded_vs_packed_spans": agreements})
+    return {"reader": readers[torch.bfloat16], "kb": kb,
+            "packed_rows": packed_rows}
+
+
+class TimelineTimer(StageTimer):
+    """A StageTimer that also keeps every stage's (name, start, end) in
+    seconds on the host clock, to lay one run's stages on a timeline."""
+
+    def __init__(self, name):
+        super().__init__(name)
+        self.spans = []
+
+    @contextlib.contextmanager
+    def stage(self, stage_name, sync_output=None):
+        start = time.perf_counter()
+        with super().stage(stage_name, sync_output) as holder:
+            yield holder
+        self.spans.append((stage_name, start, time.perf_counter()))
+
+    def timeline(self, run_start, run_end) -> dict:
+        """Milliseconds from the run's start: where each stage's first call
+        began and its last call ended, each call's length, and the run's
+        end."""
+        out = {"run_ms": (run_end - run_start) * 1e3}
+        for name in dict.fromkeys(n for n, _, _ in self.spans):
+            calls = [(a, b) for n, a, b in self.spans if n == name]
+            out[name] = {
+                "first_start_ms": (calls[0][0] - run_start) * 1e3,
+                "last_end_ms": (calls[-1][1] - run_start) * 1e3,
+                "calls_ms": [round((b - a) * 1e3, 2) for a, b in calls]}
+        return out
+
+
+def answers_of_own_rows(pipe, queries, indices, out) -> dict:
+    """The pipeline's answers against the reader steps run again, batch by
+    batch, on the ids it retrieved: the share of answers equal to the
+    decoded ids[passage, start:end] of the recomputed span, and whether
+    every answer is a run of tokens of one of its question's own rows.
+    Returns these with the probabilities and spans of every step."""
+    tok = pipe.tokenizer
+    equal, contained, probs_all, spans_all = 0, 0, [], []
+    for start, n_real, ids, mask, tt in pipe.reader_batches(queries, indices):
+        probs, spans, _ = reader_probs_and_spans(pipe, ids, mask, tt,
+                                                 packed=pipe.packed_reader)
+        passage, s_idx, e_idx = (t.cpu().numpy() for t in spans)
+        ids3 = ids.reshape(pipe.n_q, pipe.M, pipe.reader_seq)
+        for i in range(n_real):
+            answer = out[start + i]["answer"]
+            span = ids3[i, passage[i], s_idx[i]: e_idx[i]]
+            equal += answer == tok.decode(span, skip_special_tokens=True)
+            # decode drops the special tokens inside a span, so look for
+            # the answer in the rows with their specials dropped too
+            contained += not answer or any(
+                f" {answer} " in f" {tok.decode(row)} " for row in ids3[i])
+        probs_all.append(tuple(p[:n_real] for p in probs))
+        spans_all.append(tuple(t[:n_real] for t in spans))
+    cat = lambda parts: tuple(torch.cat(x) for x in zip(*parts))  # noqa: E731
+    return {"equal_share": equal / len(queries),
+            "contained_share": contained / len(queries),
+            "probs": cat(probs_all), "spans": cat(spans_all)}
+
+
+def phase_answer_path(dev, main, shared):
+    """AnswerPipeline at full width, padded and packed."""
+    reader, kb = shared["reader"], shared["kb"]
+    queries = lognormal_questions(np.random.default_rng(7), N_ANSWER_QUERIES)
+    n_batches = -(-N_ANSWER_QUERIES // BATCH)
+    n_steps = -(-N_ANSWER_QUERIES // READER_QUESTIONS)
+    results, launches_by_path = {}, {}
+    for label, kwargs in (("padded", {}), ("packed", dict(
+            packed_reader=True, packed_rows=shared["packed_rows"]))):
+        pipe = answer_pipeline(dev, main, reader, kb, **kwargs)
+        pipe.run(queries)  # warm-up
+        pipe.timer = TimelineTimer("qa-serving")
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        t0 = time.perf_counter()
+        out = pipe.run(queries)
+        t1 = time.perf_counter()
+        walls = [t1 - t0]
+        timeline = pipe.timer.timeline(t0, t1)
+        launches = mips_fused.fused_score_segmax_qmajor.launches
+        report = pipe.report()
+        check(launches == n_batches, f"B1 launched {launches} times for "
+              f"{n_batches} retrieval batches ({label})")
+        t0 = time.perf_counter()
+        pipe.run(queries)
+        walls.append(time.perf_counter() - t0)
+        wall_s = float(np.mean(walls))
+
+        ref_scores, ref_ids = pipe.retrieval.run_arrays(queries)
+        check(len(out) == N_ANSWER_QUERIES and all(
+            isinstance(o["answer"], str) for o in out), "the answers")
+        check(all(o["passage_ids"] == ref_ids[i, :READER_M].tolist()
+                  for i, o in enumerate(out)),
+              f"passage ids against run_arrays ({label})")
+        check(np.isfinite(ref_scores).all() and all(
+            o["scores"] == ref_scores[i, :READER_M].tolist()
+            for i, o in enumerate(out)), f"passage scores ({label})")
+        own = answers_of_own_rows(pipe, queries, ref_ids, out)
+        results[label] = own
+        launches_by_path[f"answer_path_{label}"] = launches
+        emit({"phase": "answer_path", "reader": label,
+              "queries": N_ANSWER_QUERIES, "retrieval_batches": n_batches,
+              "reader_steps": n_steps, "kb_rows": main["index"].n, "k": K,
+              "m_passages": READER_M, "reader_seq": READER_SEQ,
+              "packed_rows": kwargs.get("packed_rows"),
+              "b1_launches": launches, "wall_ms": wall_s * 1e3,
+              "questions_per_s": N_ANSWER_QUERIES / wall_s,
+              "run_walls_s": walls, "stages": report,
+              "timeline": timeline,
+              "empty_answers": sum(not o["answer"] for o in out),
+              "answers_equal_recomputed_span": own["equal_share"],
+              "answers_within_own_rows": own["contained_share"]})
+        check(report.keys() == {"retrieve", "reader_dispatch", "decode"}
+              and report["reader_dispatch"]["count"] == n_steps,
+              f"the StageTimer report ({label})")
+        check(own["equal_share"] >= 0.99, "answers against the decoded "
+              f"ids[passage, start:end] of the recomputed spans ({label})")
+        check(own["contained_share"] == 1.0,
+              f"an answer that is no span of its own rows ({label})")
+    agreement = span_agreement(
+        results["padded"]["spans"], results["padded"]["probs"],
+        results["packed"]["spans"], results["packed"]["probs"],
+        SPAN_RTOL[torch.bfloat16])
+    emit({"phase": "answer_path_padded_vs_packed", **agreement})
+    check(agreement["agree_share"] == 1.0,
+          f"padded and packed answers: {agreement}")
+    return launches_by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -884,6 +1263,16 @@ def main() -> int:
     phase_global_serve(dev, main_path)
     phase_streaming(dev, main_path)
     phase_late_fusion(dev, main_path)
+    before_reader = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    shared = phase_reader_step(dev, main_path)
+    kernels[0]["launches_by_path"] = {
+        "exact_retrieval": main_path["launches"],
+        **phase_answer_path(dev, main_path, shared)}
+    reader_peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "device_memory",
+          "max_memory_allocated_reader_phases": reader_peak,
+          "max_memory_allocated": max(before_reader, reader_peak)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

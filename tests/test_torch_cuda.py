@@ -420,3 +420,182 @@ def test_single_pass_and_streaming_on_gpu_match_cpu(cuda):
                                      device="cpu").search_batch(q, k=25)
         np.testing.assert_array_equal(gpu[1], cpu[1])
         np.testing.assert_array_equal(gpu[0], cpu[0])
+
+
+# ---- the reader and the answer path ----------------------------------------
+class _WordTokenizer:
+    """``w<i>`` -> id 5 + i, with what the embedder and the answer pipeline
+    call (the GPU machine need not have the ``transformers`` package)."""
+
+    cls_token_id, sep_token_id = 2, 3
+
+    def __call__(self, texts, truncation=True, max_length=None,
+                 add_special_tokens=True):
+        single = isinstance(texts, str)
+        out = []
+        for text in ([texts] if single else texts):
+            ids = [5 + int(w[1:]) for w in text.split()]
+            if add_special_tokens:
+                ids = ([self.cls_token_id] + ids[: max_length - 2]
+                       + [self.sep_token_id])
+            out.append(ids[:max_length])
+        return {"input_ids": out[0] if single else out}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"w{int(i) - 5}" for i in ids
+                        if not (skip_special_tokens and int(i) < 5))
+
+
+def _reader_batch(cfg, n, m, seq, seed):
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((n * m, seq), np.int32)
+    mask = np.zeros((n * m, seq), np.int32)
+    tt = np.zeros((n * m, seq), np.int32)
+    for r, ln in enumerate(rng.integers(seq // 3, seq + 1, n * m)):
+        ids[r, :ln] = rng.integers(5, cfg.bert.vocab_size, ln)
+        mask[r, :ln] = 1
+        tt[r, ln // 4: ln] = 1
+    return ids, mask, tt
+
+
+def test_reader_step_bf16_matches_f32_upcast(cuda, monkeypatch):
+    """A 4-layer reader step in bf16 on the tensor-core GEMM against the
+    same forward with every dense product taken on the upcast operands:
+    logits on real tokens within bf16 resolution, rtol = atol = 2e-2."""
+    from viquae_torch.models import qa as tqa
+
+    cfg = tqa.ReaderConfig(bert=tbert.BertConfig(
+        vocab_size=3000, hidden_size=256, num_hidden_layers=4,
+        num_attention_heads=4, intermediate_size=1024,
+        max_position_embeddings=128, add_pooler=False), fuse_ir_score=True)
+    model = convert.reader_from_jax(convert.init_reader_tree(cfg, seed=0),
+                                    cfg, device=cuda, dtype=torch.bfloat16)
+    ids, mask, tt = _reader_batch(cfg, 4, 6, 128, seed=0)
+    args = [torch.from_numpy(a).to(cuda) for a in (ids, mask, tt)]
+    scores = torch.linspace(-2, 2, len(ids), device=cuda)
+
+    def forward():
+        with torch.no_grad():
+            return tqa.reader_apply(
+                model, cfg, args[0], attention_mask=args[1],
+                token_type_ids=args[2], passage_scores=scores, m_passages=6,
+                compute_dtype=torch.bfloat16)
+
+    got = forward()
+    monkeypatch.setattr(TL, "_dot_f32", TL._dot_f32_upcast)
+    ref = forward()
+    real = args[1] > 0
+    assert got.start_logits.dtype == torch.float32
+    assert torch.isfinite(got.start_logits).all()
+    torch.testing.assert_close(got.start_logits[real], ref.start_logits[real],
+                               rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got.end_logits[real], ref.end_logits[real],
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_get_best_spans_on_gpu_equals_cpu(cuda):
+    from viquae_torch.models import qa as tqa
+
+    gen = torch.Generator().manual_seed(0)
+    start = torch.rand((8, 6, 64), generator=gen)
+    end = torch.rand((8, 6, 64), generator=gen)
+    start[0], end[0] = 1.0 / 384, 1.0 / 384          # every entry ties
+    start[1, 3], end[1, 3] = start[1, 1], end[1, 1]  # two passages tie
+    weights = 1 + torch.rand((8, 6), generator=gen)
+    for w in (None, weights, weights - 3):
+        for first in (True, False):
+            cpu = tqa.get_best_spans(start, end, weights=w,
+                                     cannot_be_first_token=first)
+            gpu = tqa.get_best_spans(
+                start.to(cuda), end.to(cuda),
+                weights=None if w is None else w.to(cuda),
+                cannot_be_first_token=first)
+            for a, b in zip(cpu, gpu):
+                assert b.is_cuda and torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["padded", "packed"])
+def test_answer_pipeline_on_gpu_equals_cpu(cuda, packed):
+    """The whole answer path in f32 at a tiny size: the card gives the
+    CPU's passage ids and answers (scores within 1e-4: the two encoders
+    sum in different orders)."""
+    from viquae_torch.ir.embedding import PackedTextEmbedder
+    from viquae_torch.ir.qa_serving import AnswerPipeline
+    from viquae_torch.ir.serving import FusedRetrievalPipeline
+    from viquae_torch.models import qa as tqa
+
+    bcfg = tbert.BertConfig(
+        vocab_size=300, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=64,
+        max_position_embeddings=64, add_pooler=False)
+    dcfg = tdpr.DPRConfig(bert=bcfg)
+    rcfg = tqa.ReaderConfig(bert=bcfg, fuse_ir_score=True)
+    d_tree = convert.init_tree(dcfg, seed=0, stddev=0.2)
+    r_tree = convert.init_reader_tree(rcfg, seed=1, stddev=0.2)
+    rng = np.random.default_rng(0)
+    tok = _WordTokenizer()
+    kb_rows = [{"passage_tokens": tok(" ".join(
+        f"w{j}" for j in rng.integers(0, 200, rng.integers(8, 20))),
+        add_special_tokens=False)["input_ids"]} for _ in range(60)]
+    kb_mat = rng.normal(size=(60, 32)).astype(np.float32)
+    queries = [" ".join(f"w{j}" for j in rng.integers(
+        0, 200, rng.integers(4, 9))) for _ in range(13)]
+
+    def run(device):
+        emb = PackedTextEmbedder(
+            tdpr.make_packed_apply(dcfg),
+            convert.params_from_jax(d_tree, dcfg, device=device), tok,
+            row_len=24, batch_size=8, compute_dtype=torch.float32,
+            device=device)
+        index = tm.DenseIndex(kb_mat, mode="global", dtype=torch.float32,
+                              device=device)
+        pipe = AnswerPipeline(
+            FusedRetrievalPipeline(emb, index, batch_size=8, k=5), kb_rows,
+            rcfg, convert.reader_from_jax(r_tree, rcfg, device=device), tok,
+            m_passages=3, reader_seq=48, questions_per_step=4,
+            passage_tokens_key="passage_tokens", packed_reader=packed,
+            compute_dtype=torch.float32, device=device)
+        return pipe.run(queries)
+
+    on_gpu, on_cpu = run(cuda), run("cpu")
+    for a, b in zip(on_gpu, on_cpu):
+        assert a["passage_ids"] == b["passage_ids"]
+        assert a["answer"] == b["answer"]
+        np.testing.assert_allclose(a["scores"], b["scores"], atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_reader_step_enqueues_without_waiting_for_the_device(cuda):
+    """``read`` and ``read_packed`` on uploaded tensors only enqueue work.
+    An op that waits for the stream inside them (a scalar tensor copied
+    from the host, an ``.item()``) makes the serving loop's prefetch thread
+    wait for the step it has just enqueued, so the next batch's host
+    assembly no longer overlaps the device. torch's sync debug mode raises
+    on such a wait."""
+    from viquae_torch.ir.qa_serving import AnswerPipeline
+    from viquae_torch.models import qa as tqa
+
+    cfg = tqa.ReaderConfig(bert=tbert.BertConfig(
+        vocab_size=300, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=64,
+        max_position_embeddings=64, add_pooler=False), fuse_ir_score=True)
+    reader = convert.reader_from_jax(convert.init_reader_tree(cfg, seed=0),
+                                     cfg, device=cuda, dtype=torch.bfloat16)
+    pipe = AnswerPipeline(None, [], cfg, reader, _WordTokenizer(),
+                          m_passages=3, reader_seq=48, questions_per_step=4,
+                          device=cuda)
+    ids, mask, tt = _reader_batch(cfg, 4, 3, 48, seed=1)
+    padded = pipe.upload(ids, mask, tt)
+    packed = pipe.upload(*pipe.pack_pairs(ids, mask, tt), mask)
+    scores = torch.linspace(-1, 1, len(ids), device=cuda)
+    pipe.read(*padded, scores)         # warm-up: library handles, pools
+    pipe.read_packed(*packed, scores)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spans = pipe.read(*padded, scores)
+        spans_packed = pipe.read_packed(*packed, scores)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(spans, spans_packed):
+        assert a.shape == b.shape == (4,)

@@ -87,3 +87,73 @@ def test_pad_packed_rows_and_efficiency():
         tpack.pad_packed_rows(p, p.rows - 1)
     assert tpack.packing_efficiency(grown) == pytest.approx(
         jpack.packing_efficiency(ref))
+
+
+@pytest.mark.parametrize("seed,n,kwargs", [
+    (0, 50, dict(row_len=32)),
+    (1, 90, dict(row_len=64, pad_rows_to=16, n_cls=96)),
+    (2, 17, dict(row_len=48, n_rows=24, n_cls=20)),
+])
+def test_pack_parallel_and_gather_indices_match_jax(seed, n, kwargs):
+    seqs = _random_seqs(seed, n, max_len=kwargs["row_len"])
+    rng = np.random.default_rng(seed)
+    feats = [rng.integers(0, 2, size=len(s)).astype(np.int32) for s in seqs]
+    p = tpack.pack_token_sequences(seqs, **kwargs)
+    ref = jpack.pack_token_sequences(seqs, **kwargs)
+    for pad_value in (0, 7):
+        ours = tpack.pack_parallel(p, feats, pad_value=pad_value)
+        theirs = jpack.pack_parallel(ref, feats, pad_value=pad_value)
+        np.testing.assert_array_equal(ours, theirs)
+        assert ours.dtype == theirs.dtype
+    # the features land where their tokens did
+    canvas = tpack.pack_parallel(p, seqs)
+    np.testing.assert_array_equal(canvas[p.segment_ids > 0],
+                                  p.input_ids[p.segment_ids > 0])
+    for out_len in (kwargs["row_len"], 8):   # 8 cuts the longer sequences
+        idx, mask = tpack.gather_indices(p, out_len)
+        ref_idx, ref_mask = jpack.gather_indices(ref, out_len)
+        np.testing.assert_array_equal(idx, ref_idx)
+        np.testing.assert_array_equal(mask, ref_mask)
+        assert idx.dtype == ref_idx.dtype == np.int32
+        assert mask.dtype == ref_mask.dtype == np.bool_
+        assert idx.shape == (len(p.cls_rows), out_len)
+        flat = p.input_ids.reshape(-1)[idx]
+        for i, s in enumerate(seqs):
+            ln = min(len(s), out_len)
+            np.testing.assert_array_equal(flat[i, :ln], s[:ln])
+            assert mask[i, :ln].all() and not mask[i, ln:].any()
+        # entries past n_seqs are unmasked and point at position 0
+        assert not mask[n:].any() and not idx[n:].any()
+
+
+@pytest.mark.parametrize("seed,n,n_reserved,kwargs", [
+    (0, 40, 3, dict(row_len=32)),
+    (1, 25, 5, dict(row_len=24, n_cls=32, pad_rows_to=8)),
+    (2, 9, 1, dict(row_len=16, n_rows=16, n_cls=12, pad_token_id=4)),
+])
+def test_pack_with_reserved_matches_jax(seed, n, n_reserved, kwargs):
+    """Sequences longer than row_len - n_reserved are cut; reserved slots
+    of entries past n_seqs point out of bounds, at (rows, 0)."""
+    seqs = _random_seqs(seed, n, max_len=40)
+    p, rows, cols = tpack.pack_with_reserved(seqs, n_reserved, **kwargs)
+    ref, ref_rows, ref_cols = jpack.pack_with_reserved(seqs, n_reserved,
+                                                       **kwargs)
+    _assert_same(p, ref)
+    np.testing.assert_array_equal(rows, ref_rows)
+    np.testing.assert_array_equal(cols, ref_cols)
+    assert rows.dtype == ref_rows.dtype == np.int32
+    assert cols.dtype == ref_cols.dtype == np.int32
+    n_cls = len(p.cls_rows)
+    assert rows.shape == cols.shape == (n_cls, n_reserved)
+    assert (rows[:n] < p.rows).all() and (cols[:n] < p.row_len).all()
+    assert (rows[n:] == p.rows).all() and (cols[n:] == 0).all()
+    # a reserved slot lies inside its own sequence's segment
+    seg = p.segment_ids
+    for i in range(n):
+        own = seg[p.cls_rows[i], p.cls_cols[i]]
+        assert (seg[rows[i], cols[i]] == own).all()
+
+
+def test_pack_with_reserved_refuses_a_row_of_reserved_slots_only():
+    with pytest.raises(AssertionError):
+        tpack.pack_with_reserved(_random_seqs(0, 3), 8, row_len=8)

@@ -30,6 +30,19 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     add_pooler: bool = True
 
+    @classmethod
+    def from_hf(cls, hf_config, add_pooler: bool = True) -> "BertConfig":
+        """From an HF BERT config: the dict of a ``config.json`` or an
+        object with the same attributes."""
+        get = (hf_config.__getitem__ if isinstance(hf_config, dict)
+               else lambda name: getattr(hf_config, name))
+        names = ("vocab_size", "hidden_size", "num_hidden_layers",
+                 "num_attention_heads", "intermediate_size",
+                 "max_position_embeddings", "type_vocab_size", "hidden_act",
+                 "layer_norm_eps")
+        return cls(**{name: get(name) for name in names},
+                   add_pooler=add_pooler)
+
 
 class Bert(nn.Module):
     """BERT weights in the JAX param-tree layout; ``forward`` is
@@ -103,10 +116,12 @@ def encode(
     attention_mask: Optional[torch.Tensor] = None,
     compute_dtype=torch.float32,
     segment_ids: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    output_hidden_states: bool = False,
+):
     """Encoder stack over (B, L, D) hidden states. ``segment_ids`` (B, L),
     0 = padding: packed-canvas mode — attention is block-diagonal per
-    segment, overriding ``attention_mask``."""
+    segment, overriding ``attention_mask``. With ``output_hidden_states``
+    returns (final, [embedding_out, layer1_out, ...])."""
     b, l = hidden.shape[:2]
     if segment_ids is not None:
         bias = L.attention_bias_from_segments(segment_ids)
@@ -115,9 +130,12 @@ def encode(
             attention_mask = torch.ones((b, l), device=hidden.device)
         bias = L.attention_bias_from_mask(attention_mask)
     x = hidden
+    all_hidden = [x]
     for layer in params.layers:
         x = _layer_forward(layer, x, bias, cfg, compute_dtype)
-    return x
+        if output_hidden_states:
+            all_hidden.append(x)
+    return (x, all_hidden) if output_hidden_states else x
 
 
 def apply(
@@ -129,18 +147,64 @@ def apply(
     position_ids: Optional[torch.Tensor] = None,
     compute_dtype=torch.float32,
     segment_ids: Optional[torch.Tensor] = None,
+    output_hidden_states: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """embed -> encode -> optional tanh pooler.
 
-    Returns {"last_hidden_state": (B, L, D) f32, "pooler_output": (B, D)?}.
+    Returns {"last_hidden_state": (B, L, D) f32, "pooler_output": (B, D)?}
+    and, with ``output_hidden_states``, "hidden_states": [embedding_out,
+    layer1_out, ...] (the per-layer seam of ``TextEmbedder(layers=...)``).
     With ``segment_ids`` pass the packer's ``position_ids`` too, so
     positions restart per segment.
     """
     x = embed(params, cfg, input_ids, token_type_ids=token_type_ids,
               position_ids=position_ids)
     x = encode(params, cfg, x, attention_mask, compute_dtype=compute_dtype,
-               segment_ids=segment_ids)
+               segment_ids=segment_ids,
+               output_hidden_states=output_hidden_states)
+    hidden_states = None
+    if output_hidden_states:
+        x, hidden_states = x
     out = {"last_hidden_state": x}
+    if hidden_states is not None:
+        out["hidden_states"] = hidden_states
     if cfg.add_pooler and params.pooler is not None:
         out["pooler_output"] = torch.tanh(L.dense(params.pooler, x[:, 0]))
+    return out
+
+
+def state_dict_from_hf(state_dict, cfg: BertConfig, prefix: str = ""
+                       ) -> Dict[str, torch.Tensor]:
+    """A torch ``BertModel`` state_dict under :class:`Bert`'s names
+    (counterpart of the JAX package's ``bert.params_from_hf``; both sides
+    keep dense weights (out, in), so only the names change). ``prefix``
+    strips a wrapper path (e.g. "bert.")."""
+    def get(name):
+        return torch.as_tensor(state_dict[prefix + name]).detach()
+
+    out = {
+        "embeddings.word.weight": get("embeddings.word_embeddings.weight"),
+        "embeddings.position.weight":
+            get("embeddings.position_embeddings.weight"),
+        "embeddings.token_type.weight":
+            get("embeddings.token_type_embeddings.weight"),
+    }
+
+    def both(ours, theirs):
+        out[f"{ours}.weight"] = get(f"{theirs}.weight")
+        out[f"{ours}.bias"] = get(f"{theirs}.bias")
+
+    both("embeddings.ln", "embeddings.LayerNorm")
+    for i in range(cfg.num_hidden_layers):
+        base, layer = f"encoder.layer.{i}", f"layers.{i}"
+        both(f"{layer}.attention.q", f"{base}.attention.self.query")
+        both(f"{layer}.attention.k", f"{base}.attention.self.key")
+        both(f"{layer}.attention.v", f"{base}.attention.self.value")
+        both(f"{layer}.attention.o", f"{base}.attention.output.dense")
+        both(f"{layer}.attention_ln", f"{base}.attention.output.LayerNorm")
+        both(f"{layer}.mlp.in", f"{base}.intermediate.dense")
+        both(f"{layer}.mlp.out", f"{base}.output.dense")
+        both(f"{layer}.output_ln", f"{base}.output.LayerNorm")
+    if cfg.add_pooler and (prefix + "pooler.dense.weight") in state_dict:
+        both("pooler", "pooler.dense")
     return out

@@ -6,7 +6,9 @@ viquae_tpu/models/bert.py:66-114) with dense kernels laid out (in, out).
 bf16 included) and returns a :class:`viquae_torch.models.bert.Bert` whose
 ``nn.Linear`` weights are (out, in). :func:`init_tree` draws a tree of the
 same layout with numpy from a seed, for runs that need full-width weights
-and no checkpoint.
+and no checkpoint. :func:`reader_from_jax` and :func:`init_reader_tree` do
+the same for the reader tree (``bert``, ``qa_outputs``, ``score_proj_w/b``)
+and :class:`viquae_torch.models.qa.Reader`.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from viquae_torch.core.device import resolve_device
+from viquae_torch.models import qa
 from viquae_torch.models.bert import Bert, BertConfig
 
 
@@ -121,4 +124,42 @@ def init_tree(cfg, seed: int = 0, stddev: float = 0.02) -> Dict[str, Any]:
     }
     if cfg.add_pooler:
         tree["pooler"] = dense(h, h)
+    return tree
+
+
+def reader_from_jax(tree: Dict[str, Any], cfg: qa.ReaderConfig, device=None,
+                    dtype: torch.dtype = torch.float32) -> qa.Reader:
+    """The JAX reader tree (``bert``, ``qa_outputs`` and, with
+    ``fuse_ir_score``, ``score_proj_w`` (1, 1) / ``score_proj_b`` (1,);
+    numpy leaves) -> a :class:`qa.Reader` on ``device`` (default: the GPU)
+    with every weight in ``dtype``."""
+    tensors = {f"bert.{name}": a for name, a in
+               _state_dict_from_tree(tree["bert"], cfg.bert).items()}
+    head = tree["qa_outputs"]
+    tensors["qa_outputs.weight"] = np.asarray(head["kernel"], np.float32).T
+    tensors["qa_outputs.bias"] = np.asarray(head["bias"], np.float32)
+    if cfg.fuse_ir_score:
+        for name in ("score_proj_w", "score_proj_b"):
+            tensors[name] = np.asarray(tree[name], np.float32)
+    return qa.load_reader(
+        cfg, {name: torch.from_numpy(np.array(a, order="C"))
+              for name, a in tensors.items()}, device, dtype)
+
+
+def init_reader_tree(cfg: qa.ReaderConfig, seed: int = 0,
+                     stddev: float = 0.02) -> Dict[str, Any]:
+    """A random reader tree in the JAX layout (as ``qa.init`` of the JAX
+    package): :func:`init_tree` for ``bert``, a clipped-normal span head
+    and the identity ``score_proj_w/b``."""
+    rng = np.random.default_rng(seed + 1)
+    h = cfg.bert.hidden_size
+    kernel = rng.standard_normal((h, 2), dtype=np.float32) * stddev
+    tree: Dict[str, Any] = {
+        "bert": init_tree(cfg.bert, seed=seed, stddev=stddev),
+        "qa_outputs": {"kernel": np.clip(kernel, -2 * stddev, 2 * stddev),
+                       "bias": np.zeros((2,), np.float32)},
+    }
+    if cfg.fuse_ir_score:
+        tree["score_proj_w"] = np.ones((1, 1), np.float32)
+        tree["score_proj_b"] = np.zeros((1,), np.float32)
     return tree

@@ -10,7 +10,7 @@ via segment ids, position ids restart per segment, and each question's
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -217,3 +217,82 @@ def pad_packed_rows(packed: PackedBatch, n_rows: int,
         cls_cols=packed.cls_cols,
         n_seqs=packed.n_seqs,
     )
+
+
+def pack_parallel(packed: PackedBatch, seqs: Sequence[np.ndarray],
+                  pad_value: int = 0) -> np.ndarray:
+    """Lay a parallel per-token feature (e.g. token_type_ids) onto an
+    existing canvas: seqs[i] must align with the input_ids sequence i was
+    packed from."""
+    out = np.full_like(packed.input_ids, pad_value)
+    row_len = packed.row_len
+    for i in range(packed.n_seqs):
+        r, c = int(packed.cls_rows[i]), int(packed.cls_cols[i])
+        li = int((packed.segment_ids[r] == packed.segment_ids[r, c]).sum())
+        out[r, c: c + li] = np.asarray(seqs[i][:li], out.dtype)
+    return out
+
+
+def gather_indices(packed: PackedBatch, out_len: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Flat canvas indices to UNPACK per-sequence token features.
+
+    Returns (idx, mask), both (n_cls, out_len): idx[i, t] is the flat
+    (row * row_len + col) position of sequence i's t-th token; mask marks
+    real tokens (False entries point at (0, 0) — mask before use). The
+    packed reader uses this to lift canvas logits back to the reference's
+    (N*M, L) layout (models/qa.reader_apply_packed)."""
+    n_cls = len(packed.cls_rows)
+    row_len = packed.row_len
+    idx = np.zeros((n_cls, out_len), np.int32)
+    mask = np.zeros((n_cls, out_len), bool)
+    for i in range(packed.n_seqs):
+        r, c = int(packed.cls_rows[i]), int(packed.cls_cols[i])
+        li = min(int((packed.segment_ids[r] == packed.segment_ids[r, c]).sum()),
+                 out_len)
+        idx[i, :li] = r * row_len + c + np.arange(li, dtype=np.int32)
+        mask[i, :li] = True
+    return idx, mask
+
+
+def pack_with_reserved(
+    seqs: Sequence[np.ndarray],
+    n_reserved: int,
+    row_len: int,
+    n_rows: Optional[int] = None,
+    n_cls: Optional[int] = None,
+    pad_rows_to: int = 8,
+    pad_token_id: int = 0,
+) -> Tuple[PackedBatch, np.ndarray, np.ndarray]:
+    """Pack sequences with ``n_reserved`` extra canvas slots per sequence.
+
+    The reserved slots sit right after each sequence's tokens inside its
+    segment — the multimodal (ECA) packed path scatters face/image tokens
+    there (models/mm.eca_apply_packed). Returns (packed, res_rows,
+    res_cols) with the reserved positions as (n_cls, n_reserved) int32 in
+    ORIGINAL input order; entries past ``n_seqs`` point OUT OF BOUNDS
+    (rows, 0) so a scatter that drops out-of-range entries ignores them.
+
+    Sequences longer than row_len - n_reserved are truncated so the
+    reserved slots always fit.
+    """
+    max_text = row_len - n_reserved
+    assert max_text > 0, (row_len, n_reserved)
+    trimmed = [s[:max_text] for s in seqs]
+    ext = [
+        np.concatenate([s, np.full(n_reserved, pad_token_id, s.dtype)])
+        for s in trimmed
+    ]
+    p = pack_token_sequences(
+        ext, row_len, n_rows=n_rows, n_cls=n_cls,
+        pad_rows_to=pad_rows_to, pad_token_id=pad_token_id,
+    )
+    n_out = len(p.cls_rows)
+    res_rows = np.full((n_out, n_reserved), p.rows, np.int32)  # OOB default
+    res_cols = np.zeros((n_out, n_reserved), np.int32)
+    lens = np.array([len(s) for s in trimmed], np.int32)
+    offs = np.arange(n_reserved, dtype=np.int32)[None, :]
+    k = p.n_seqs
+    res_rows[:k] = p.cls_rows[:k, None]
+    res_cols[:k] = p.cls_cols[:k, None] + lens[:k, None] + offs
+    return p, res_rows, res_cols
