@@ -65,33 +65,69 @@ raises on failure:
    the p99 row count): questions/s, the StageTimer report, one B1 launch
    per retrieval batch, passage ids equal to the retrieval's first 24,
    every answer the decoded span of one of its own rows, padded and packed
-   answers agreeing by the span criterion; peak device memory.
+   answers agreeing by the span criterion; peak device memory;
+14. BM25 alone at full size: a Zipf corpus of 1.5M documents over 400k
+   terms (the host index's own synthesis, its unique and sorts done on the
+   card), 1,257 queries of 8 Zipf terms, k=100: the host MaxScore scorer's
+   queries/s, DeviceBM25's build seconds, queries/s at q_block 512 and
+   128, overflow count and device bytes; one block by stage (head product,
+   gather, scatter-add in three forms, selection) and the host planning
+   time; device results against the exact f32 score vector on a sample,
+   the lists against the device rows, an overflow row against the host
+   scorer;
+15. hybrid serving: HybridRetrievalPipeline over phase 5's encoder and
+   fused index (kernel B1 once a batch) and that BM25 corpus, weights
+   (0.7, 0.3), gzmuv, once with the host scorer and once with DeviceBM25,
+   then a stream of 4 batches on the device branch; the fused scores
+   against fuse_topk of the two legs run apart, device against host, and a
+   raw + stats run against its closed form;
+16. the server: make_http_server on 127.0.0.1 over a BatchedRetrievalService
+   (the hybrid pipeline, device branch, 64 a dispatch) and a
+   BatchedAnswerService (phase 13's AnswerPipeline): 64 concurrent POST
+   /search, 16 POST /answer, GET /health; every response against the
+   direct pipeline call on the same batch; request latency and requests/s.
+
+Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
+uploads staged through pinned memory and, for comparison, from pageable
+memory, and print each call's place on the run's timeline.
 
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import re
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from unittest import mock
 
 import numpy as np
 import torch
 
 from viquae_torch.core.profiling import StageTimer
+from viquae_torch.ir import embedding as ir_embedding
+from viquae_torch.ir import qa_serving as ir_qa_serving
+from viquae_torch.ir import serving as ir_serving
 from viquae_torch.ir.embedding import PackedTextEmbedder
 from viquae_torch.ir.qa_serving import AnswerPipeline, span_probabilities
+from viquae_torch.ir.server import (BatchedAnswerService,
+                                    BatchedRetrievalService,
+                                    make_http_server)
 from viquae_torch.ir.serving import (FusedRetrievalPipeline,
+                                     HybridRetrievalPipeline,
                                      MultiIndexRetrievalPipeline)
 from viquae_torch.kernels import build as kbuild
 from viquae_torch.models import convert, dpr, layers, qa
 from viquae_torch.native.build import load_packer
-from viquae_torch.ops import mips, mips_fused, packing
+from viquae_torch.ops import bm25 as bm25_lib
+from viquae_torch.ops import bm25_device, mips, mips_fused, packing
+from viquae_torch.ops.bm25_device import DeviceBM25
 from viquae_torch.ops.fusion import fuse_topk
 
 # H100 SXM data-sheet peaks (dense bf16 tensor cores; non-tensor FP32;
@@ -135,6 +171,21 @@ N_ANSWER_QUERIES = 256
 # probabilities, a joint probability within this relative distance of the
 # other's maximum (see span_agreement)
 SPAN_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# batches of the multi-batch streams (exact path, late fusion, hybrid)
+STREAM_BATCHES = 4
+# the BM25 corpus and queries (the shapes of the reference's hybrid bench)
+N_BM25_DOCS = 1_500_000
+BM25_VOCAB = 400_000
+BM25_QUERY_TERMS = 8
+BM25_K1, BM25_B = 0.5, 0.3
+BM25_Q_BLOCKS = (512, 128)
+BM25_SAMPLE = 64          # queries held against the exact score vector
+HYBRID_WEIGHTS = (0.7, 0.3)
+# the server: requests a dispatch, concurrent /answer requests, rounds of
+# SERVER_BATCH concurrent /search requests that latency is taken over
+SERVER_BATCH = 64
+SERVER_ANSWERS = 16
+SERVER_ROUNDS = 4
 
 
 def emit(obj):
@@ -359,6 +410,112 @@ def lognormal_questions(rng, n, lo=8, hi=ROW_LEN, special=2):
                       lo, hi).astype(int)
     return [" ".join(f"w{j}" for j in rng.integers(1000, 10_000, m - special))
             for m in lengths]
+
+
+class TimelineTimer(StageTimer):
+    """A StageTimer that also keeps every stage's (name, start, end) in
+    seconds on the host clock, to lay one run's stages on a timeline."""
+
+    def __init__(self, name):
+        super().__init__(name)
+        self.spans = []
+
+    @contextlib.contextmanager
+    def stage(self, stage_name, sync_output=None):
+        start = time.perf_counter()
+        with super().stage(stage_name, sync_output) as holder:
+            yield holder
+        self.spans.append((stage_name, start, time.perf_counter()))
+
+    def timeline(self, run_start, run_end) -> dict:
+        """Milliseconds from the run's start: where each stage's first call
+        began and its last call ended, each call's length, and the run's
+        end."""
+        out = {"run_ms": (run_end - run_start) * 1e3}
+        for name in dict.fromkeys(n for n, _, _ in self.spans):
+            calls = [(a, b) for n, a, b in self.spans if n == name]
+            out[name] = {
+                "first_start_ms": (calls[0][0] - run_start) * 1e3,
+                "last_end_ms": (calls[-1][1] - run_start) * 1e3,
+                "calls_ms": [round((b - a) * 1e3, 2) for a, b in calls]}
+        return out
+
+
+@contextlib.contextmanager
+def pageable_uploads():
+    """Uploads as a blocking copy from pageable host memory (before which
+    CUDA waits for the stream) in place of the pinned staging path: the
+    "before" of the multi-batch streams' before/after, nothing else."""
+    def pageable(array, device):
+        src = (array if isinstance(array, torch.Tensor)
+               else torch.from_numpy(np.ascontiguousarray(array)))
+        return src.to(device)
+
+    with contextlib.ExitStack() as stack:
+        for module in (ir_embedding, ir_serving, ir_qa_serving, bm25_device):
+            stack.enter_context(mock.patch.object(module, "upload", pageable))
+        yield
+
+
+def stream_timing(pipe, run, n_queries, n_batches, reps=2) -> dict:
+    """``run()`` (a pipeline call over ``n_batches`` batches) once to warm
+    up, then ``reps`` times on the host clock, the first of them with every
+    stage call laid on the run's timeline."""
+    run()
+    keep, pipe.timer = pipe.timer, TimelineTimer(pipe.timer.name)
+    t0 = time.perf_counter()
+    run()
+    t1 = time.perf_counter()
+    timeline, report = pipe.timer.timeline(t0, t1), pipe.timer.report()
+    pipe.timer = keep
+    walls = [t1 - t0]
+    for _ in range(reps - 1):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    wall_s = float(np.median(walls))
+    return {"queries": n_queries, "batches": n_batches,
+            "wall_ms": wall_s * 1e3, "batch_ms": wall_s / n_batches * 1e3,
+            "qps": n_queries / wall_s, "run_walls_s": walls,
+            "stages": report, "timeline": timeline}
+
+
+def traced_device_busy(run) -> dict:
+    """One more ``run()`` under torch.profiler (device activities only):
+    the device time of everything it put on the card over its wall time.
+    The pipelines use one stream, so the sum is the time the card was
+    busy; the rest of the wall it was idle."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    return {"traced_wall_ms": wall_ms, "traced_device_busy_ms": busy_ms,
+            "traced_device_idle_share": 1.0 - busy_ms / wall_ms}
+
+
+def stream_before_after(pipe, run, n_queries, n_batches, single_batch_ms,
+                        device_stage_ms) -> dict:
+    """A stream of ``n_batches`` batches with pageable uploads, then with
+    the pinned ones, beside the single-batch wall. ``device_idle_share_
+    derived`` is DERIVED, not traced: one less the sum of a batch's device
+    stages (each timed alone with CUDA events) over the stream's wall a
+    batch; the pinned stream is also run once under the profiler."""
+    with pageable_uploads():
+        before = stream_timing(pipe, run, n_queries, n_batches)
+    after = stream_timing(pipe, run, n_queries, n_batches)
+    after.update(traced_device_busy(run))
+    device_ms = float(sum(device_stage_ms.values()))
+    for result in (before, after):
+        result["device_idle_share_derived"] = max(
+            0.0, 1.0 - device_ms / result["batch_ms"])
+    return {"single_batch_wall_ms": single_batch_ms,
+            "device_stage_ms": device_stage_ms,
+            "device_stages_sum_ms": device_ms,
+            "idle_share_is": "derived from stage times, not traced",
+            "pageable_uploads": before, "pinned_uploads": after}
 
 
 def phase_device():
@@ -596,15 +753,32 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
     del got, ref, diff
     scored = mips_fused.fused_score_segmax_qmajor(q_full, index.matrix,
                                                   index.n)
-    emit({"phase": "main_path_breakdown", "queries": len(first),
-          "pack_host_ms": float(np.median(pack_ms)),
-          "upload_ms": time_ms(lambda: embedder.upload(packed), reps=3),
-          "encoder_ms": time_ms(lambda: embedder.forward(*canvas), reps=3),
-          "search_ms": time_ms(lambda: mips_fused.topk_fused(
-              q_full, index.matrix, K, valid_rows=index.n), reps=3),
-          "select_ms": time_ms(lambda: mips_fused.segment_topk(*scored, K),
-                               reps=3)})
+    breakdown = {
+        "pack_host_ms": float(np.median(pack_ms)),
+        "upload_ms": time_ms(lambda: embedder.upload(packed), reps=3),
+        "encoder_ms": time_ms(lambda: embedder.forward(*canvas), reps=3),
+        "search_ms": time_ms(lambda: mips_fused.topk_fused(
+            q_full, index.matrix, K, valid_rows=index.n), reps=3),
+        "select_ms": time_ms(lambda: mips_fused.segment_topk(*scored, K),
+                             reps=3)}
+    emit({"phase": "main_path_breakdown", "queries": len(first), **breakdown})
     del scored
+
+    # a stream of several full batches: does the prefetch thread hide the
+    # host tokenize + pack behind the device?
+    stream_queries = lognormal_questions(np.random.default_rng(11),
+                                         STREAM_BATCHES * BATCH)
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    pipe.run_arrays(stream_queries)
+    stream_launches = mips_fused.fused_score_segmax_qmajor.launches
+    check(stream_launches == STREAM_BATCHES, f"B1 launched {stream_launches} "
+          f"times for a stream of {STREAM_BATCHES} batches")
+    emit({"phase": "main_path_stream", "b1_launches": stream_launches,
+          **stream_before_after(
+              pipe, lambda: pipe.run_arrays(stream_queries),
+              len(stream_queries), STREAM_BATCHES, batch_ms,
+              {k: breakdown[k] for k in ("upload_ms", "encoder_ms",
+                                         "search_ms")})})
 
     # the encoder's device time by kernel, over one forward
     with torch.profiler.profile(
@@ -619,7 +793,9 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
                    "ms": e.device_time_total / 1e3} for e in events[:8]]})
     return {"index": index, "q": q_full, "launches": launches,
             "embedder": embedder, "queries": queries, "scores": scores,
-            "ids": ids}
+            "ids": ids, "encoder_ms": breakdown["encoder_ms"],
+            "stream_queries": stream_queries,
+            "stream_launches": stream_launches}
 
 
 def phase_kernel_table(index, q, launches):
@@ -929,7 +1105,18 @@ def phase_late_fusion(dev, main):
     check(int(ulps.max()) <= 1, "late fusion scores against fuse_topk")
     check(np.isfinite(scores).all() and ids.max() < N_KB,
           "late fusion outputs")
-    del indexes, pipe, s_list, i_list
+
+    # the same pipeline over a stream of several full batches
+    stream_queries = main["stream_queries"]
+    stream_feats = {
+        name: rng.standard_normal((len(stream_queries), width)).astype(
+            np.float32) for name, width in FUSION_WIDTHS.items()}
+    stream_feats["arcface"][rng.random(len(stream_queries)) < 0.1] = np.nan
+    emit({"phase": "late_fusion_stream", **stream_before_after(
+        pipe, lambda: pipe.run_arrays(stream_queries, stream_feats),
+        len(stream_queries), STREAM_BATCHES, batch_ms,
+        {"encoder_ms": main["encoder_ms"], **search_ms})})
+    del indexes, pipe, s_list, i_list, stream_feats
     torch.cuda.empty_cache()
 
 
@@ -1121,35 +1308,6 @@ def phase_reader_step(dev, main, rcfg=qa.ReaderConfig()):
             "packed_rows": packed_rows}
 
 
-class TimelineTimer(StageTimer):
-    """A StageTimer that also keeps every stage's (name, start, end) in
-    seconds on the host clock, to lay one run's stages on a timeline."""
-
-    def __init__(self, name):
-        super().__init__(name)
-        self.spans = []
-
-    @contextlib.contextmanager
-    def stage(self, stage_name, sync_output=None):
-        start = time.perf_counter()
-        with super().stage(stage_name, sync_output) as holder:
-            yield holder
-        self.spans.append((stage_name, start, time.perf_counter()))
-
-    def timeline(self, run_start, run_end) -> dict:
-        """Milliseconds from the run's start: where each stage's first call
-        began and its last call ended, each call's length, and the run's
-        end."""
-        out = {"run_ms": (run_end - run_start) * 1e3}
-        for name in dict.fromkeys(n for n, _, _ in self.spans):
-            calls = [(a, b) for n, a, b in self.spans if n == name]
-            out[name] = {
-                "first_start_ms": (calls[0][0] - run_start) * 1e3,
-                "last_end_ms": (calls[-1][1] - run_start) * 1e3,
-                "calls_ms": [round((b - a) * 1e3, 2) for a, b in calls]}
-        return out
-
-
 def answers_of_own_rows(pipe, queries, indices, out) -> dict:
     """The pipeline's answers against the reader steps run again, batch by
     batch, on the ids it retrieved: the share of answers equal to the
@@ -1244,7 +1402,690 @@ def phase_answer_path(dev, main, shared):
     emit({"phase": "answer_path_padded_vs_packed", **agreement})
     check(agreement["agree_share"] == 1.0,
           f"padded and packed answers: {agreement}")
+    shared["answer_pipe"] = pipe  # the packed one, for the server phase
     return launches_by_path
+
+
+def synth_zipf_index_on_device(n_docs: int, vocab_size: int = 400_000,
+                               mean_len: int = 100, zipf_a: float = 1.2,
+                               k1: float = 0.5, b: float = 0.3,
+                               seed: int = 0, device="cuda"):
+    """``ops.bm25.synth_zipf_index`` with the same numpy generator and the
+    same draws, its ``unique`` and its stable sort done with torch on
+    ``device``: the same BM25Index, array for array (a CPU test holds it),
+    in seconds instead of minutes at 1.5M documents."""
+    rng = np.random.default_rng(seed)
+    doc_len = rng.poisson(mean_len, n_docs).clip(20, 220).astype(np.int64)
+    total = int(doc_len.sum())
+    tokens = (rng.zipf(zipf_a, total).astype(np.int64) - 1) % vocab_size
+    lens = torch.from_numpy(doc_len).to(device)
+    key = torch.repeat_interleave(
+        torch.arange(n_docs, device=device), lens) * vocab_size
+    key += torch.from_numpy(tokens).to(device)
+    del tokens
+    uniq, tf = torch.unique(key, return_counts=True)  # sorted
+    del key
+    t = uniq % vocab_size
+    d = (uniq // vocab_size).to(torch.int32)
+    del uniq
+    order = torch.argsort(t, stable=True)
+    counts = torch.bincount(t, minlength=vocab_size)
+    offsets = np.zeros(vocab_size + 1, np.int64)
+    offsets[1:] = torch.cumsum(counts, 0).cpu().numpy()
+    return bm25_lib.BM25Index(
+        {f"t{i}": i for i in range(vocab_size)}, offsets,
+        d[order].cpu().numpy(), tf[order].float().cpu().numpy(),
+        doc_len.astype(np.float32), n_docs, k1=k1, b=b)
+
+
+def zipf_queries(rng, n, vocab_size, n_terms=BM25_QUERY_TERMS):
+    """``n`` queries of ``n_terms`` Zipf(1.2) terms "t<i>"."""
+    return [" ".join(f"t{t}" for t in
+                     (rng.zipf(1.2, n_terms).astype(np.int64) - 1)
+                     % vocab_size) for _ in range(n)]
+
+
+class FoldingTokenizer(WhitespaceTokenizer):
+    """BM25 terms "t<i>" (i up to the corpus vocabulary) folded into the
+    encoder's id range [1000, 30000), so one query text feeds both legs."""
+
+    def __call__(self, texts, truncation=True, max_length=512,
+                 add_special_tokens=True):
+        folded = [" ".join(f"w{1000 + int(w[1:]) % 29_000}"
+                           for w in text.split()) for text in texts]
+        return super().__call__(folded, truncation=truncation,
+                                max_length=max_length,
+                                add_special_tokens=add_special_tokens)
+
+
+def exact_bm25_scores(index, query) -> np.ndarray:
+    """The exact f32 score vector of one query over the host index."""
+    scores = np.zeros(index.n_docs, np.float32)
+    counts = {}
+    for tok in bm25_lib.analyze(query):
+        tid = index.vocab.get(tok)
+        if tid is not None:
+            counts[tid] = counts.get(tid, 0) + 1
+    for tid, qtf in counts.items():
+        lo, hi = index.offsets[tid], index.offsets[tid + 1]
+        docs, tf = index.docs[lo:hi], index.tfs[lo:hi]
+        scores[docs] += index.idf[tid] * qtf * tf / (tf + index.norm[docs])
+    return scores
+
+
+def device_vs_exact(index, queries, d_scores, d_ids, k) -> dict:
+    """DeviceBM25 lists against the exact score vectors: every retrieved
+    doc scores within one bf16 relative step (1.6e-2) of the true k-th
+    score, and its device score is the bf16-quantised exact one."""
+    worst_rank, worst_score, counts_ok = 0.0, 0.0, True
+    for query, ds, di in zip(queries, d_scores, d_ids):
+        exact = exact_bm25_scores(index, query)
+        n_pos = int((exact > 0).sum())
+        counts_ok &= len(di) == min(k, n_pos)
+        if not di:
+            continue
+        kth = -np.partition(-exact, len(di) - 1)[len(di) - 1]
+        tol = 1.6e-2 * max(abs(kth), 1e-6) + 1e-6
+        got = exact[np.asarray(di)]
+        worst_rank = max(worst_rank, float(((kth - got) / tol).max()))
+        worst_score = max(worst_score, float(
+            (np.abs(np.asarray(ds) - got) / (tol + 1.6e-2 * got)).max()))
+    return {"sample": len(queries), "result_counts_ok": bool(counts_ok),
+            "worst_rank_shortfall_over_tol": worst_rank,
+            "worst_score_error_over_tol": worst_score}
+
+
+def rows_agree(ids_a, scores_a, ids_b, scores_b, rtol) -> dict:
+    """Two top-k results of one scorer whose f32 sums may differ in their
+    last bits (atomic adds land in any order): the scores agree
+    positionwise within ``rtol``, and where the ids differ, the doc is
+    either in the other row with a score within ``rtol``, or tied with the
+    other row's last score within ``rtol`` (it fell off the end)."""
+    rows = swapped = 0
+    ok = True
+    for ia, sa, ib, sb in zip(ids_a, scores_a, ids_b, scores_b):
+        rows += 1
+        if len(ia) != len(ib):
+            ok = False
+            continue
+        if not len(ia):
+            continue
+        sa, sb = np.asarray(sa, np.float64), np.asarray(sb, np.float64)
+        ok &= bool(np.all(np.abs(sa - sb) <= rtol * np.abs(sb)))
+        if list(ia) == list(ib):
+            continue
+        swapped += 1
+        other = dict(zip(ib, sb))
+        for doc, score in zip(ia, sa):
+            want = other.get(doc, sb[-1])
+            ok &= abs(score - want) <= rtol * abs(want)
+    return {"rows": rows, "rows_with_another_order": swapped,
+            "agree": bool(ok), "rtol": rtol}
+
+
+def bm25_block_stages(dev_bm25, queries, k) -> dict:
+    """One block of ``q_block`` queries by stage (CUDA events), and the
+    host planning of that block (host clock). The scatter-add is timed in
+    three forms on the same lanes: atomic adds with the masked lanes
+    spread over the pad columns (what DeviceBM25 runs), atomic adds with
+    every masked lane on column n_docs (the reference's layout), and
+    ``index_put_(accumulate=True)``, which sorts the lanes and is
+    deterministic."""
+    qb = dev_bm25.q_block
+    block = list(queries[:qb])
+    plan_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plan, overflow = dev_bm25._plan(block)
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    head_w, *pools = plan
+    dev = dev_bm25.device
+    head_w16 = bm25_device._to_bf16(head_w).to(dev)
+    ms, ml, mr, mq, ss, sl, sr, sq = (
+        torch.from_numpy(a[0]).to(dev) for a in pools)
+    n_docs, d_pad = dev_bm25.n_docs, dev_bm25.d_pad
+    tiers = ((ms, ml, mr, mq, dev_bm25.l_mid),
+             (ss, sl, sr, sq, dev_bm25.l_small))
+
+    def lanes(d_pad_for_trash=d_pad):
+        out = []
+        for starts, lens, rows, qtf, cap in tiers:
+            flat, vals = bm25_device._pool_lanes(
+                dev_bm25.tail_docs, dev_bm25.tail_w, starts, lens, rows, qtf,
+                cap, n_docs, d_pad_for_trash)
+            out.append((flat, vals))
+        return out
+
+    spread = lanes()
+    # one trash column: as if the block were n_docs + 1 wide, then the
+    # flat targets re-based on the real row stride
+    single = []
+    for flat, vals in lanes(n_docs + 1):
+        rows, docs = flat // (n_docs + 1), flat % (n_docs + 1)
+        single.append((rows * d_pad + docs, vals))
+    masked = sum(int((v == 0).sum()) for _, v in spread)
+    total = sum(f.numel() for f, _ in spread)
+    scores = bm25_device._head_scores(head_w16, dev_bm25.head_dense)
+
+    def scatter(pairs):
+        for flat, vals in pairs:
+            bm25_device._scatter_add(scores, flat, vals)
+
+    def scatter_sorted(pairs):
+        for flat, vals in pairs:
+            scores.view(-1).index_put_((flat.reshape(-1),), vals.reshape(-1),
+                                       accumulate=True)
+
+    out = {
+        "q_block": qb, "queries_overflowing": len(overflow),
+        "plan_host_ms": float(np.median(plan_ms)),
+        "lanes": total, "masked_lanes": masked,
+        "pad_columns": d_pad - n_docs,
+        "head_product_ms": time_ms(lambda: bm25_device._head_scores(
+            head_w16, dev_bm25.head_dense), reps=5),
+        "gather_ms": time_ms(lanes, reps=5),
+        "scatter_add_ms": time_ms(lambda: scatter(spread), reps=5),
+        "scatter_add_one_trash_column_ms": time_ms(
+            lambda: scatter(single), reps=5),
+        "scatter_index_put_sorted_ms": time_ms(
+            lambda: scatter_sorted(spread), reps=3),
+        "select_ms": time_ms(lambda: mips._select_topk(scores, k, "fast"),
+                             reps=5),
+        "block_ms": time_ms(lambda: bm25_device._bm25_block(
+            dev_bm25.head_dense, dev_bm25.tail_docs, dev_bm25.tail_w,
+            head_w16, ms, ml, mr, mq, ss, sl, sr, sq, k=k,
+            l_mid=dev_bm25.l_mid, l_small=dev_bm25.l_small, n_docs=n_docs),
+            reps=5),
+    }
+    # the bytes and operations the card must at least move for this block
+    # (each input once, the block written once) and the head product's
+    # operations, with the times they imply
+    moved = (dev_bm25.head_dense.numel() * 2 + head_w16.numel() * 2
+             + (total - masked) * 6 + qb * d_pad * 4 * 2)
+    flops = 2 * qb * dev_bm25.head_dense.shape[0] * d_pad
+    out["block_bound_ms"] = max(moved / PEAK_HBM_BYTES_PER_S,
+                                flops / PEAK_BF16_FLOPS) * 1e3
+    return out
+
+
+def with_q_block(dev_bm25, q_block):
+    """The same built arrays scored in blocks of ``q_block`` queries, with
+    the default pools of that block size."""
+    other = copy.copy(dev_bm25)
+    other.q_block = q_block
+    other.pool_mid = bm25_device._round_up(3 * q_block + 320, 64)
+    other.pool_small = bm25_device._round_up(3 * q_block // 2 + 160, 64)
+    return other
+
+
+def phase_bm25(dev):
+    """BM25 alone: the host scorer and DeviceBM25 at full size."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = synth_zipf_index_on_device(
+        N_BM25_DOCS, vocab_size=BM25_VOCAB, k1=BM25_K1, b=BM25_B, device=dev)
+    torch.cuda.empty_cache()
+    corpus_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    queries = zipf_queries(rng, N_QUERIES, BM25_VOCAB)
+    stream_queries = queries + zipf_queries(
+        rng, STREAM_BATCHES * BATCH - N_QUERIES, BM25_VOCAB)
+
+    # the host scorer: bounds built and the library loaded before timing
+    index.term_ub
+    index.search_batch(queries[:8], k=K)
+    check(index._maxscore_scorer_mt() is not None,
+          "the native multi-thread MaxScore scorer did not build")
+    host_walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        h_scores, h_ids = index.search_batch(queries, k=K)
+        host_walls.append(time.perf_counter() - t0)
+    host_s = float(np.median(host_walls))
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    scorers = {BM25_Q_BLOCKS[0]: DeviceBM25(index, q_block=BM25_Q_BLOCKS[0],
+                                            device=dev)}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    first = scorers[BM25_Q_BLOCKS[0]]
+    device_bytes = torch.cuda.memory_allocated() - held
+    for q_block in BM25_Q_BLOCKS[1:]:
+        scorers[q_block] = with_q_block(first, q_block)
+
+    by_block = {}
+    for q_block, scorer in scorers.items():
+        scorer.search_batch(queries, k=K)  # warm-up
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            d_scores, d_ids = scorer.search_batch(queries, k=K)
+            walls.append(time.perf_counter() - t0)
+        wall_s = float(np.median(walls))
+        # the device form, nothing read back: enqueue, then wait
+        t0 = time.perf_counter()
+        rows_s, rows_i = scorer.search_batch_device(queries, k=K)
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        device_form_s = time.perf_counter() - t0
+        rows_s, rows_i = rows_s.cpu().numpy(), rows_i.cpu().numpy()
+        keep = rows_i[:N_QUERIES] != mips.INT32_MAX
+        lists_vs_rows = rows_agree(
+            d_ids, d_scores,
+            [rows_i[q][keep[q]].tolist() for q in range(N_QUERIES)],
+            [rows_s[q][keep[q]].tolist() for q in range(N_QUERIES)],
+            rtol=1e-5)
+        pads_ok = bool(np.isneginf(rows_s[:N_QUERIES][~keep]).all()
+                       and np.isfinite(rows_s[:N_QUERIES][keep]).all())
+        exact = device_vs_exact(index, queries[:BM25_SAMPLE],
+                                d_scores[:BM25_SAMPLE], d_ids[:BM25_SAMPLE],
+                                K)
+        by_block[q_block] = {
+            "qps": N_QUERIES / wall_s, "wall_ms": wall_s * 1e3,
+            "run_walls_s": walls, "last_overflow": scorer.last_overflow,
+            "pool_mid": scorer.pool_mid, "pool_small": scorer.pool_small,
+            "search_batch_device_enqueue_ms": enqueue_s * 1e3,
+            "search_batch_device_ms": device_form_s * 1e3,
+            "vs_exact_scores": exact, "lists_vs_device_rows": lists_vs_rows,
+            "pad_convention_ok": pads_ok,
+            "stages": bm25_block_stages(scorer, queries, K)}
+        check(exact["result_counts_ok"]
+              and exact["worst_rank_shortfall_over_tol"] <= 1.0
+              and exact["worst_score_error_over_tol"] <= 1.0,
+              f"DeviceBM25 (q_block {q_block}) against the exact scores: "
+              f"{exact}")
+        check(lists_vs_rows["agree"] and pads_ok,
+              f"search_batch lists against search_batch_device rows "
+              f"(q_block {q_block}): {lists_vs_rows}")
+
+    # a query with more tail terms than a block's whole pool goes to the
+    # host scorer: its row is the host's, float for float
+    tail_terms = np.flatnonzero(first.tail_df > 0)
+    giant = " ".join(f"t{t}" for t in tail_terms[
+        -(first.pool_mid + first.pool_small + 8):])
+    mixed = queries[:7] + [giant]
+    m_scores, m_ids = first.search_batch(mixed, k=K)
+    overflowed = first.last_overflow
+    g_scores, g_ids = index.search_batch([giant], k=K)
+    rows_s, rows_i = first.search_batch_device(mixed, k=K)
+    row_i = rows_i[7].cpu().numpy()
+    row_s = rows_s[7].cpu().numpy()
+    overflow_ok = (overflowed == 1 and m_ids[7] == g_ids[0]
+                   and m_scores[7] == g_scores[0]
+                   and row_i[: len(g_ids[0])].tolist() == g_ids[0]
+                   and row_s[: len(g_ids[0])].tolist() == g_scores[0])
+    emit({"phase": "bm25", "docs": index.n_docs, "vocab": BM25_VOCAB,
+          "postings": int(len(index.docs)), "k1": BM25_K1, "b": BM25_B,
+          "queries": N_QUERIES, "query_terms": BM25_QUERY_TERMS, "k": K,
+          "corpus_synthesis_s": corpus_s,
+          "host_scorer": {"qps": N_QUERIES / host_s, "wall_ms": host_s * 1e3,
+                          "run_walls_s": host_walls, "threads": "one a core",
+                          "scorer": "load_bm25_maxscore_mt"},
+          "device_build_s": build_s, "device_bytes_held": device_bytes,
+          "n_head": first.head_dense.shape[0], "d_pad": first.d_pad,
+          "l_mid": first.l_mid, "l_small": first.l_small,
+          "tail_postings": int(first.tail_offsets[-1]),
+          "by_q_block": by_block,
+          "overflow_query_terms": len(giant.split()),
+          "overflow_row_equals_host": bool(overflow_ok),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    check(overflow_ok, "an overflow query's row against the host scorer")
+    return {"index": index, "scorers": scorers, "queries": queries,
+            "stream_queries": stream_queries}
+
+
+def by_doc_agreement(ids_a, scores_a, ids_b, scores_b) -> dict:
+    """Two (n, k) fused results by doc id: the share of a's docs that b
+    holds too (per row, pads left out), and over the shared docs the
+    largest score difference relative to max(1, |score|)."""
+    shared_share, worst = [], 0.0
+    for ia, sa, ib, sb in zip(ids_a, scores_a, ids_b, scores_b):
+        a = {int(d): float(s) for d, s in zip(ia, sa) if d != mips.INT32_MAX}
+        b = {int(d): float(s) for d, s in zip(ib, sb) if d != mips.INT32_MAX}
+        if not a and not b:
+            continue
+        shared = set(a) & set(b)
+        shared_share.append(len(shared) / max(len(b), 1))
+        for d in shared:
+            worst = max(worst, abs(a[d] - b[d]) / max(1.0, abs(b[d])))
+    return {"rows": len(shared_share),
+            "min_shared_share": float(min(shared_share)),
+            "mean_shared_share": float(np.mean(shared_share)),
+            "max_relative_score_diff": worst}
+
+
+def hybrid_legs_apart(pipe, queries):
+    """``fuse_topk`` of the two legs of one batch run apart: the dense leg
+    through the index's search_device, the sparse leg through the
+    pipeline's own backend."""
+    emb, index = pipe.embed_fn, pipe.index
+    q = emb.forward(*emb.upload(emb.pack(list(queries))))
+    d_s, d_i = index.search_device(q, *index.snapshot(), pipe.k)
+    if hasattr(pipe.bm25, "search_batch_device"):
+        b_s, b_i = pipe.bm25.search_batch_device(list(queries),
+                                                 k=pipe.k_bm25)
+        b_s, b_i = b_s[: pipe.batch_size], b_i[: pipe.batch_size]
+        if b_s.shape[0] < pipe.batch_size:
+            pad = pipe.batch_size - b_s.shape[0]
+            b_s = torch.cat([b_s, b_s.new_full((pad, b_s.shape[1]),
+                                               mips.NEG_INF)])
+            b_i = torch.cat([b_i, b_i.new_full((pad, b_i.shape[1]),
+                                               mips.INT32_MAX)])
+    else:
+        b_s, b_i = (torch.from_numpy(a).to(index.device)
+                    for a in pipe._bm25_arrays(queries))
+    fused, fused_i = fuse_topk((d_s, b_s), (d_i, b_i), pipe.weights, pipe.k,
+                               norm=pipe.norm, valid_queries=len(queries))
+    n = len(queries)
+    return (fused[:n].to(torch.bfloat16).float().cpu().numpy(),
+            fused_i[:n].cpu().numpy())
+
+
+def phase_hybrid(dev, main, sparse):
+    """HybridRetrievalPipeline over the main path's encoder and fused
+    index and the BM25 corpus, with both sparse backends."""
+    queries = sparse["queries"]
+    n_batches = -(-N_QUERIES // BATCH)
+    embedder = PackedTextEmbedder(
+        main["embedder"].packed_apply_fn, main["embedder"].params,
+        FoldingTokenizer(), row_len=ROW_LEN, batch_size=BATCH,
+        compute_dtype=torch.bfloat16, device=dev)
+    backends = {"host": sparse["index"],
+                "device": sparse["scorers"][BM25_Q_BLOCKS[0]]}
+    results, launches_by_path, pipes = {}, {}, {}
+    for label, backend in backends.items():
+        pipe = HybridRetrievalPipeline(
+            embedder, main["index"], backend, weights=HYBRID_WEIGHTS,
+            batch_size=BATCH, k=K, norm="gzmuv")
+        pipes[label] = pipe
+        pipe.run_arrays(queries)  # warm-up
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        scores, ids = pipe.run_arrays(queries)
+        launches = mips_fused.fused_score_segmax_qmajor.launches
+        check(launches == n_batches, f"B1 launched {launches} times for "
+              f"{n_batches} hybrid batches ({label})")
+        launches_by_path[f"hybrid_{label}"] = launches
+        timing = stream_timing(pipe, lambda: pipe.run_arrays(queries),
+                               N_QUERIES, n_batches, reps=3)
+        apart = by_doc_agreement(ids, scores,
+                                 *reversed(hybrid_legs_apart(pipe, queries)))
+        results[label] = (scores, ids)
+        check(scores.shape == ids.shape == (N_QUERIES, K)
+              and np.isfinite(scores).all() and ids.max() < N_KB
+              and ids.min() >= 0, f"hybrid outputs ({label})")
+        stage = "bm25_device" if label == "device" else "bm25_host"
+        check(set(timing["stages"]) == {"tokenize+pack+dense_dispatch",
+                                        stage, "fuse_dispatch",
+                                        "drain_to_host"},
+              f"the StageTimer's stages ({label}): {set(timing['stages'])}")
+        # the host leg is deterministic: the same fuse gives the same rows;
+        # the device leg's atomic sums may move a near-tie
+        floor = 1.0 if label == "host" else 0.9
+        check(apart["min_shared_share"] >= floor
+              and apart["mean_shared_share"] >= 0.999
+              and apart["max_relative_score_diff"] <= 2e-2,
+              f"hybrid ({label}) against fuse_topk of its legs: {apart}")
+        emit({"phase": "hybrid", "sparse_backend": label,
+              "weights": HYBRID_WEIGHTS, "norm": "gzmuv", "k": K,
+              "k_bm25": pipe.k_bm25, "kb_rows": main["index"].n,
+              "bm25_docs": backend.n_docs, "b1_launches": launches,
+              "vs_fuse_topk_of_the_legs_apart": apart, **timing})
+
+    # device against host: the criterion of the reference's own test
+    d_vs_h = by_doc_agreement(*reversed(results["device"]),
+                              *reversed(results["host"]))
+    check(d_vs_h["min_shared_share"] >= 0.7
+          and d_vs_h["max_relative_score_diff"] <= 5e-2,
+          f"hybrid device branch against the host branch: {d_vs_h}")
+
+    # raw + stats against its closed form (host scorer: deterministic)
+    stats = ((0.5, 2.0), (20.1111, 5.85003))
+    raw = HybridRetrievalPipeline(
+        embedder, main["index"], backends["host"], weights=HYBRID_WEIGHTS,
+        batch_size=BATCH, k=K, norm="raw", stats=stats)
+    r_scores, r_ids = raw.run_arrays(queries)
+    d_scores, d_ids = FusedRetrievalPipeline(
+        embedder, main["index"], batch_size=BATCH, k=K).run_arrays(queries)
+    b_scores, b_ids = backends["host"].search_batch(queries, k=K)
+    worst, in_topk = 0.0, True
+    for i in range(N_QUERIES):
+        expect = {}
+        for sc, d in zip(d_scores[i], d_ids[i]):
+            expect[int(d)] = (expect.get(int(d), 0.0) + HYBRID_WEIGHTS[0]
+                              * (float(sc) - stats[0][0]) / stats[0][1])
+        for sc, d in zip(b_scores[i], b_ids[i]):
+            expect[int(d)] = (expect.get(int(d), 0.0) + HYBRID_WEIGHTS[1]
+                              * (sc - stats[1][0]) / stats[1][1])
+        got = {int(d): float(sc) for d, sc in zip(r_ids[i], r_scores[i])
+               if d != mips.INT32_MAX}
+        worst = max([worst] + [
+            float(abs(sc - expect[d]) / max(1.0, abs(expect[d])))
+            for d, sc in got.items()])
+        kth = sorted(expect.values(), reverse=True)[
+            min(len(got), len(expect)) - 1]
+        in_topk &= all(expect[d] >= kth - 0.05 for d in got)
+    emit({"phase": "hybrid_checks", "device_vs_host": d_vs_h,
+          "raw_stats": stats, "raw_max_relative_diff_vs_closed_form": worst,
+          "raw_rows_within_closed_form_topk": bool(in_topk)})
+    check(worst <= 2e-2 and in_topk, "raw + stats against the closed form")
+
+    # a stream of several batches on the device branch
+    pipe = pipes["device"]
+    stream_queries = sparse["stream_queries"]
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    pipe.run_arrays(stream_queries)
+    launches = mips_fused.fused_score_segmax_qmajor.launches
+    check(launches == STREAM_BATCHES, f"B1 launched {launches} times for a "
+          f"hybrid stream of {STREAM_BATCHES} batches")
+    launches_by_path["hybrid_device_stream"] = launches
+    emit({"phase": "hybrid_stream", "sparse_backend": "device",
+          "b1_launches": launches,
+          "last_overflow": pipe.bm25.last_overflow,
+          **stream_timing(pipe, lambda: pipe.run_arrays(stream_queries),
+                          len(stream_queries), STREAM_BATCHES),
+          **traced_device_busy(lambda: pipe.run_arrays(stream_queries)),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    return launches_by_path
+
+
+def http_json(url, payload=None, timeout=120):
+    data = None if payload is None else json.dumps(payload).encode()
+    request = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"},
+        method="GET" if payload is None else "POST")
+    with urllib.request.urlopen(request, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def concurrent_posts(url, payloads):
+    """One thread a payload, started together: [(status, body, seconds)]."""
+    out = [None] * len(payloads)
+
+    def client(i):
+        t0 = time.perf_counter()
+        status, body = http_json(url, payloads[i])
+        out[i] = (status, body, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - t0
+
+
+class RecordedBatches:
+    """A pipeline that keeps every batch it is given, as given (pads
+    included), so that a service's responses can be held against the
+    direct call on the same padded batch."""
+
+    def __init__(self, pipe):
+        self.pipe, self.batches = pipe, []
+
+    def run_arrays(self, queries):
+        self.batches.append(list(queries))
+        return self.pipe.run_arrays(queries)
+
+    def run(self, questions):
+        self.batches.append(list(questions))
+        return self.pipe.run(questions)
+
+
+def phase_server(dev, main, sparse, shared):
+    """The online entry point: the HTTP front over the batched services."""
+    embedder = PackedTextEmbedder(
+        main["embedder"].packed_apply_fn, main["embedder"].params,
+        FoldingTokenizer(), row_len=ROW_LEN, batch_size=SERVER_BATCH,
+        fixed_rows=PackedTextEmbedder.ROWS_GRANULARITY,
+        compute_dtype=torch.bfloat16, device=dev)
+    pipe = HybridRetrievalPipeline(
+        embedder, main["index"], sparse["scorers"][BM25_Q_BLOCKS[-1]],
+        weights=HYBRID_WEIGHTS, batch_size=SERVER_BATCH, k=K, norm="gzmuv")
+    answer_pipe = shared["answer_pipe"]
+    seen_search, seen_answer = RecordedBatches(pipe), RecordedBatches(
+        answer_pipe)
+    retrieval = BatchedRetrievalService(seen_search, max_batch=SERVER_BATCH,
+                                        max_wait_ms=50.0)
+    answerer = BatchedAnswerService(seen_answer, max_batch=SERVER_ANSWERS,
+                                    max_wait_ms=100.0)
+    server = make_http_server("127.0.0.1", 0, retrieval=retrieval,
+                              answerer=answerer)
+    # the stdlib server listens with a backlog of 5: a burst of 64
+    # connections overflows it and the kernel makes some of them wait a
+    # second for their SYN to be sent again; widen it for the burst
+    server.socket.listen(2 * SERVER_BATCH)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        queries = sparse["queries"][:SERVER_BATCH]
+        questions = lognormal_questions(np.random.default_rng(13),
+                                        SERVER_ANSWERS)
+        # warm-up at the service's shapes, then what one dispatch costs
+        # when it is called directly (host clock, results on the host)
+        direct_ms = {}
+        for name, call in (
+                ("search_batch", lambda: pipe.run_arrays(list(queries))),
+                ("answer_batch", lambda: answer_pipe.run(list(questions)))):
+            call()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                call()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            direct_ms[name] = float(np.median(walls))
+
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        got, _ = concurrent_posts(f"{base}/search",
+                                  [{"query": q} for q in queries])
+        search_launches = mips_fused.fused_score_segmax_qmajor.launches
+        search_dispatches = len(seen_search.batches)
+        check(all(status == 200 for status, _, _ in got), "/search statuses")
+        check(search_launches == search_dispatches
+              == retrieval.batcher.n_dispatches,
+              f"{search_launches} B1 launches for "
+              f"{search_dispatches} search dispatches")
+        # every response against the direct call on the batch it was in
+        expected = {}
+        for batch in seen_search.batches:
+            check(len(batch) == SERVER_BATCH, "a dispatch not padded to "
+                  f"{SERVER_BATCH} queries")
+            scores, ids = pipe.run_arrays(batch)
+            expected.update({q: (ids[j], scores[j])
+                             for j, q in enumerate(batch) if q})
+        search_vs_direct = by_doc_agreement(
+            [body["indices"] for _, body, _ in got],
+            [body["scores"] for _, body, _ in got],
+            [expected[q][0] for q in queries],
+            [expected[q][1] for q in queries])
+        check(search_vs_direct["min_shared_share"] >= 0.9
+              and search_vs_direct["mean_shared_share"] >= 0.999
+              and search_vs_direct["max_relative_score_diff"] <= 2e-2,
+              f"/search against the direct call: {search_vs_direct}")
+
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        answers, _ = concurrent_posts(f"{base}/answer",
+                                      [{"question": q} for q in questions])
+        answer_launches = mips_fused.fused_score_segmax_qmajor.launches
+        check(all(status == 200 for status, _, _ in answers),
+              "/answer statuses")
+        check(answer_launches == len(seen_answer.batches)
+              == answerer.batcher.n_dispatches,
+              f"{answer_launches} B1 launches for "
+              f"{len(seen_answer.batches)} answer dispatches")
+        expected = {}
+        for batch in seen_answer.batches:
+            check(len(batch) == SERVER_ANSWERS, "a dispatch not padded to "
+                  f"{SERVER_ANSWERS} questions")
+            expected.update({q: out for q, out in zip(
+                batch, answer_pipe.run(batch)) if q})
+        answers_equal = sum(body == expected[questions[i]]
+                            for i, (_, body, _) in enumerate(answers))
+        check(answers_equal == SERVER_ANSWERS,
+              f"/answer: {answers_equal} of {SERVER_ANSWERS} responses equal "
+              "the direct call on their batch")
+
+        # latency and throughput: rounds of SERVER_BATCH concurrent requests
+        dispatches_before = retrieval.batcher.n_dispatches
+        latencies, round_s = [], []
+        rng = np.random.default_rng(17)
+        for _ in range(SERVER_ROUNDS):
+            batch = [sparse["queries"][j] for j in rng.integers(
+                0, N_QUERIES, SERVER_BATCH)]
+            got, seconds = concurrent_posts(
+                f"{base}/search", [{"query": q} for q in batch])
+            check(all(status == 200 for status, _, _ in got),
+                  "/search statuses under load")
+            latencies += [sec for _, _, sec in got]
+            round_s.append(seconds)
+        answer_latencies = [sec for _, _, sec in answers]
+        status, health = http_json(f"{base}/health")
+        check(status == 200 and health["ok"]
+              and health["search"]["items"]
+              == SERVER_BATCH * (1 + SERVER_ROUNDS)
+              and health["answer"]["items"] == SERVER_ANSWERS
+              and health["search"]["transient_retries"] == 0,
+              f"/health: {health}")
+        emit({"phase": "server", "search_service": {
+                  "pipeline": "hybrid, device BM25 (q_block "
+                              f"{BM25_Q_BLOCKS[-1]})",
+                  "max_batch": SERVER_BATCH, "max_wait_ms": 50.0,
+                  "fixed_rows": embedder.fixed_rows},
+              "answer_service": {"max_batch": SERVER_ANSWERS,
+                                 "max_wait_ms": 100.0, "reader": "packed"},
+              "direct_call_ms": direct_ms,
+              "search_vs_direct_call": search_vs_direct,
+              "answers_equal_direct_call": answers_equal,
+              "b1_launches": {"search": search_launches,
+                              "answer": answer_launches},
+              "dispatches": {"search_check": search_dispatches,
+                             "answer_check": len(seen_answer.batches),
+                             "search_load_rounds":
+                             retrieval.batcher.n_dispatches
+                             - dispatches_before},
+              "search_requests": len(latencies),
+              "search_latency_ms": {
+                  "p50": float(np.percentile(latencies, 50) * 1e3),
+                  "p99": float(np.percentile(latencies, 99) * 1e3),
+                  "max": float(np.max(latencies) * 1e3)},
+              "search_requests_per_s": len(latencies) / float(sum(round_s)),
+              "round_walls_s": round_s,
+              "answer_latency_ms": {
+                  "p50": float(np.percentile(answer_latencies, 50) * 1e3),
+                  "p99": float(np.percentile(answer_latencies, 99) * 1e3)},
+              "health": health,
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        return {"server_search": search_launches,
+                "server_answer": answer_launches}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        retrieval.close()
+        answerer.close()
 
 
 def main() -> int:
@@ -1266,13 +2107,21 @@ def main() -> int:
     before_reader = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     shared = phase_reader_step(dev, main_path)
-    kernels[0]["launches_by_path"] = {
+    launches_by_path = {
         "exact_retrieval": main_path["launches"],
+        "exact_retrieval_stream": main_path["stream_launches"],
         **phase_answer_path(dev, main_path, shared)}
     reader_peak = torch.cuda.max_memory_allocated()
+    sparse = phase_bm25(dev)
+    launches_by_path.update(phase_hybrid(dev, main_path, sparse))
+    launches_by_path.update(phase_server(dev, main_path, sparse, shared))
+    kernels[0]["launches_by_path"] = launches_by_path
+    sparse_peak = torch.cuda.max_memory_allocated()
     emit({"phase": "device_memory",
           "max_memory_allocated_reader_phases": reader_peak,
-          "max_memory_allocated": max(before_reader, reader_peak)})
+          "max_memory_allocated_bm25_hybrid_server_phases": sparse_peak,
+          "max_memory_allocated": max(before_reader, reader_peak,
+                                      sparse_peak)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -585,17 +585,207 @@ def test_reader_step_enqueues_without_waiting_for_the_device(cuda):
                           m_passages=3, reader_seq=48, questions_per_step=4,
                           device=cuda)
     ids, mask, tt = _reader_batch(cfg, 4, 3, 48, seed=1)
+    canvas = pipe.pack_pairs(ids, mask, tt)
     padded = pipe.upload(ids, mask, tt)
-    packed = pipe.upload(*pipe.pack_pairs(ids, mask, tt), mask)
+    packed = pipe.upload(*canvas, mask)
     scores = torch.linspace(-1, 1, len(ids), device=cuda)
     pipe.read(*padded, scores)         # warm-up: library handles, pools
     pipe.read_packed(*packed, scores)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        spans = pipe.read(*padded, scores)
-        spans_packed = pipe.read_packed(*packed, scores)
+        # the uploads too: they go through pinned staging buffers, so a
+        # step's inputs go up while the step before it still runs
+        spans = pipe.read(*pipe.upload(ids, mask, tt), scores)
+        spans_packed = pipe.read_packed(*pipe.upload(*canvas, mask), scores)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.from_numpy(ids).to(cuda)   # what the uploads used to be
     finally:
         torch.cuda.set_sync_debug_mode("default")
     for a, b in zip(spans, spans_packed):
         assert a.shape == b.shape == (4,)
+
+
+# ---- uploads, streams, device BM25, hybrid --------------------------------
+def test_upload_values_survive_buffer_reuse(cuda):
+    """Many uploads in a row, far more than staging blocks in flight: every
+    tensor on the card holds its own array's values (a block handed out
+    again before its copy had run would show another array's), in every
+    dtype the pipelines send."""
+    from viquae_torch.core.device import upload
+
+    rng = np.random.default_rng(0)
+    arrays = [rng.integers(0, 1000, (257, 33)).astype(dtype)
+              for _ in range(100)
+              for dtype in (np.int32, np.float32, np.int64)]
+    big = rng.standard_normal((1280, 2048)).astype(np.float32)
+    on_card = [upload(a, cuda) for a in arrays]
+    big_card = [upload(big * j, cuda) for j in range(6)]
+    bf = torch.from_numpy(big[:64]).to(torch.bfloat16)
+    bf_card = upload(bf, cuda)
+    torch.cuda.synchronize()
+    for a, t in zip(arrays, on_card):
+        assert t.is_cuda and t.dtype == torch.from_numpy(a).dtype
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+    for j, t in enumerate(big_card):
+        np.testing.assert_array_equal(t.cpu().numpy(), big * j)
+    assert torch.equal(bf_card.cpu(), bf)
+    assert upload(np.zeros((0, 4), np.int32), cuda).shape == (0, 4)
+
+
+def _tiny_retrieval_parts(cuda, batch_size=16):
+    from viquae_torch.ir.embedding import PackedTextEmbedder
+    from viquae_torch.ops import bm25
+
+    bcfg = tbert.BertConfig(
+        vocab_size=300, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=64,
+        max_position_embeddings=64, add_pooler=False)
+    dcfg = tdpr.DPRConfig(bert=bcfg)
+    tree = convert.init_tree(dcfg, seed=0, stddev=0.2)
+    rng = np.random.default_rng(0)
+    kb = rng.normal(size=(512, 32)).astype(np.float32)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 200, 30))
+             for _ in range(512)]
+    queries = [" ".join(f"w{j}" for j in rng.integers(
+        0, 200, rng.integers(4, 9))) for _ in range(40)]
+    host = bm25.BM25Index.build(texts, k1=0.5, b=0.3)
+
+    def embedder(device, dtype=torch.float32):
+        return PackedTextEmbedder(
+            tdpr.make_packed_apply(dcfg),
+            convert.params_from_jax(tree, dcfg, device=device), _WordTokenizer(),
+            row_len=24, batch_size=batch_size, compute_dtype=dtype,
+            device=device)
+
+    return embedder, kb, host, queries
+
+
+@pytest.mark.parametrize("which", ["fused", "multi-index", "hybrid-host",
+                                   "hybrid-device"])
+def test_canvas_streams_enqueue_without_waiting_for_the_device(cuda, which):
+    """A serving loop's per-batch dispatch (upload the canvas and the
+    features, embed, search, fuse; for the hybrid loop the sparse leg too)
+    waits for nothing on the card: every batch of the stream is enqueued
+    under torch's sync debug mode, which raises on a wait."""
+    from viquae_torch.ir import serving
+    from viquae_torch.ops.bm25_device import DeviceBM25
+
+    embedder, kb, host, queries = _tiny_retrieval_parts(cuda)
+    emb = embedder(cuda, torch.bfloat16)
+    fused = tm.DenseIndex(kb, mode="fused", device=cuda)
+    args = ()
+    if which == "fused":
+        pipe = serving.FusedRetrievalPipeline(emb, fused, batch_size=16, k=5)
+    elif which == "multi-index":
+        rng = np.random.default_rng(1)
+        img = tm.DenseIndex(rng.normal(size=(512, 24)), do_l2norm=True,
+                            mode="global", dtype=torch.bfloat16, device=cuda)
+        pipe = serving.MultiIndexRetrievalPipeline(
+            emb, {"dpr": fused, "img": img}, {"dpr": 0.6, "img": 0.4}, "dpr",
+            batch_size=16, k=5)
+        args = ({"img": rng.normal(size=(40, 24)).astype(np.float32)},)
+    else:
+        sparse = host if which == "hybrid-host" else DeviceBM25(
+            host, n_head=16, l_small=32, q_block=8, device=cuda)
+        pipe = serving.HybridRetrievalPipeline(emb, fused, sparse,
+                                               batch_size=16, k=5)
+    list(pipe._canvas_stream(queries, *args))   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batches = list(pipe._canvas_stream(queries, *args))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [start for start, _, _, _ in batches] == [0, 16, 32]
+    for _, _, scores, idx in batches:
+        assert scores.is_cuda and scores.dtype == torch.bfloat16
+        assert idx.dtype == torch.int32 and idx.shape == (16, 5)
+
+
+def _lists_agree(ids_a, scores_a, ids_b, scores_b, rtol):
+    """Two runs of one scorer whose f32 sums may differ in their last bits:
+    scores positionwise within ``rtol``; where ids differ, the doc's score
+    in the other list (or that list's last score, if it fell off the end)
+    is within ``rtol`` of its own."""
+    for ia, sa, ib, sb in zip(ids_a, scores_a, ids_b, scores_b):
+        assert len(ia) == len(ib)
+        np.testing.assert_allclose(sa, sb, rtol=rtol)
+        other = dict(zip(ib, sb))
+        for doc, score in zip(ia, sa):
+            want = other.get(doc, sb[-1] if len(sb) else 0.0)
+            assert abs(score - want) <= rtol * abs(want), (doc, score, want)
+
+
+def test_device_bm25_on_gpu_matches_the_cpu_path(cuda):
+    """One Zipf corpus, the port's DeviceBM25 on the card and on the CPU:
+    the built arrays are equal bit for bit; the scores agree within 1e-5
+    relative (atomic f32 adds land in any order; the CPU sums in lane
+    order) and the ids wherever scores are further apart than that; the
+    device rows are the lists under the pad convention; an overflow row is
+    the host scorer's."""
+    from viquae_torch.ops import bm25
+    from viquae_torch.ops.bm25_device import DeviceBM25
+
+    host = bm25.synth_zipf_index(3000, vocab_size=2000, mean_len=60, seed=1)
+    kw = dict(n_head=64, l_small=64, l_mid=256, q_block=32)
+    on_gpu, on_cpu = DeviceBM25(host, **kw), DeviceBM25(host, device="cpu",
+                                                        **kw)
+    assert on_gpu.device.type == "cuda"
+    for name in ("head_dense", "tail_w"):
+        assert torch.equal(getattr(on_gpu, name).cpu().view(torch.int16),
+                           getattr(on_cpu, name).view(torch.int16)), name
+    assert torch.equal(on_gpu.tail_docs.cpu(), on_cpu.tail_docs)
+    rng = np.random.default_rng(3)
+    queries = [" ".join(f"t{t}" for t in
+                        (rng.zipf(1.2, 8).astype(np.int64) - 1) % 2000)
+               for _ in range(70)]
+    tails = np.flatnonzero(on_gpu.tail_df > 0)
+    queries.append(" ".join(f"t{t}" for t in tails[-700:]))  # overflows
+    g_s, g_i = on_gpu.search_batch(queries, k=20)
+    assert on_gpu.last_overflow == 1
+    c_s, c_i = on_cpu.search_batch(queries, k=20)
+    _lists_agree(g_i, g_s, c_i, c_s, rtol=1e-5)
+    h_s, h_i = host.search_batch(queries[-1:], k=20)
+    assert g_i[-1] == h_i[0] and g_s[-1] == h_s[0]
+    d_s, d_i = on_gpu.search_batch_device(queries, k=20)
+    assert d_s.is_cuda and d_s.shape == d_i.shape == (96, 20)
+    d_s, d_i = d_s.cpu().numpy(), d_i.cpu().numpy()
+    keep = d_i != 2 ** 31 - 1
+    assert np.isneginf(d_s[~keep]).all()
+    _lists_agree([d_i[q][keep[q]].tolist() for q in range(len(queries))],
+                 [d_s[q][keep[q]].tolist() for q in range(len(queries))],
+                 g_i, g_s, rtol=1e-5)
+    # two runs on the card agree with each other the same way
+    g2_s, g2_i = on_gpu.search_batch(queries, k=20)
+    _lists_agree(g2_i, g2_s, g_i, g_s, rtol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["host", "device"])
+def test_hybrid_pipeline_on_gpu_equals_cpu(cuda, backend):
+    """The hybrid loop in f32 at a tiny size, on the card and on the CPU:
+    the same docs (>= 90 % a row: a near-tie may move) with fused scores
+    within 2e-2, the bf16 wire format."""
+    from viquae_torch.ir.serving import HybridRetrievalPipeline
+    from viquae_torch.ops.bm25_device import DeviceBM25
+
+    embedder, kb, host, queries = _tiny_retrieval_parts(cuda)
+
+    def run(device):
+        sparse = host if backend == "host" else DeviceBM25(
+            host, n_head=16, l_small=32, q_block=8, device=device)
+        index = tm.DenseIndex(kb, mode="global", dtype=torch.float32,
+                              device=device)
+        return HybridRetrievalPipeline(
+            embedder(device), index, sparse, batch_size=16, k=10,
+            k_bm25=12, compact_transfer=False).run_arrays(queries)
+
+    (g_s, g_i), (c_s, c_i) = run(cuda), run("cpu")
+    assert g_s.shape == c_s.shape == (40, 10)
+    for q in range(40):
+        got = dict(zip(g_i[q].tolist(), g_s[q].tolist()))
+        want = dict(zip(c_i[q].tolist(), c_s[q].tolist()))
+        shared = set(got) & set(want)
+        assert len(shared) >= 9, (q, got, want)
+        for d in shared:
+            assert abs(got[d] - want[d]) <= 2e-2 * max(1.0, abs(want[d]))

@@ -46,6 +46,29 @@ def test_copy_equals_reference_but_for_the_package_name(name):
     assert ours == ref
 
 
+def test_server_equals_reference_but_for_docstring_and_transient_block():
+    """ir/server.py: the module docstring is the port's own, and the block
+    that says which device errors are transient is restated for CUDA
+    (between the shutdown sentinel and DynamicBatcher); every other line is
+    the reference's."""
+    def rest(text):
+        body = text[text.index('"""\nfrom __future__'):]
+        head, tail = body.split("_SHUTDOWN = object()\n", 1)
+        block, tail = tail.split("class DynamicBatcher:", 1)
+        return head + tail, block
+
+    ours, ref = _pair("ir/server")
+    (ours_rest, ours_block), (ref_rest, ref_block) = rest(ours), rest(ref)
+    assert ours_rest == ref_rest
+    assert ours_block != ref_block
+    assert "def is_transient_device_error(e: BaseException) -> bool:" \
+        in ours_block
+    assert "STICKY_ERROR_MARKERS" in ours_block
+    for tpu_marker in ('"INTERNAL"', '"UNAVAILABLE"', '"ABORTED"',
+                       '"RESOURCE_EXHAUSTED"'):
+        assert tpu_marker in ref_block and tpu_marker not in ours_block
+
+
 @pytest.mark.parametrize("name", sorted(DIFFERS))
 def test_copy_differs_only_in_the_listed_lines(name):
     ours, ref = _pair(name)

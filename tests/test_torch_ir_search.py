@@ -1,7 +1,8 @@
 """The retrieval runtime (viquae_torch/ir/search.py, ir/metrics.py,
 ir/fuse.py) against the JAX package's on the same KB and query batch: the
 same runs (ids equal, scores within 1e-5), qrels, metrics and files. The
-engines that are not ported refuse by name."""
+engines that are not ported refuse by name; the device BM25 scorer is built
+behind the BM25 seam."""
 import json
 
 import jax.numpy as jnp
@@ -354,8 +355,7 @@ def test_dense_and_bm25_indexes_save_and_load(setup, tmp_path):
 @pytest.mark.parametrize("index_kwargs,item", [
     (dict(column="embedding", string_factory="IVF64,Flat"), "A17"),
     (dict(column="embedding", string_factory="L2norm,IVF16,Flat"), "A17"),
-    (dict(column="passage", kind="BM25", device=True), "A12"),
-    (dict(column="passage", kind="BM25", device="sharded"), "A12"),
+    (dict(column="passage", kind="BM25", device="sharded"), "A17"),
 ])
 def test_engines_that_are_not_ported_refuse_by_name(setup, index_kwargs,
                                                     item):
@@ -364,6 +364,62 @@ def test_engines_that_are_not_ported_refuse_by_name(setup, index_kwargs,
     with pytest.raises(NotImplementedError, match=item):
         t_search.KnowledgeBase(kb, device="cpu",
                                index_kwargs={"index": index_kwargs})
+
+
+DEVICE_KWARGS = dict(n_head=8, l_small=32, l_mid=64, pool_mid=40,
+                     pool_small=24, q_block=4)
+
+
+def test_bm25_device_flag_builds_a_device_scorer_and_matches_jax(setup):
+    """IndexKind.BM25 with device=True builds a DeviceBM25 behind the seam
+    (tests/test_bm25_device.py:182), every device tunable reaches it, and
+    the runs through both packages' seams agree."""
+    from viquae_torch.ops.bm25_device import DeviceBM25
+    from viquae_tpu.ops.bm25_device import DeviceBM25 as JDeviceBM25
+
+    kb, batch = setup
+    kwargs = dict(column="passage", kind="BM25", k1=0.5, b=0.3, device=True,
+                  **DEVICE_KWARGS)
+    ours = t_search.KnowledgeBase(kb, device="cpu",
+                                  index_kwargs={"sparse": dict(kwargs)})
+    ref = j_search.KnowledgeBase(kb, index_kwargs={"sparse": dict(kwargs)})
+    backend = ours.indexes["sparse"].backend
+    assert isinstance(backend, DeviceBM25)
+    assert isinstance(ref.indexes["sparse"].backend, JDeviceBM25)
+    assert backend.device == torch.device("cpu")
+    assert (backend.l_mid_cfg, backend.n_head, backend.q_block,
+            backend.pool_mid, backend.pool_small, backend.l_small_cfg) == (
+        64, 8, 4, 40, 24, 32)
+    scores, ids = ours.search_batch("sparse", batch["text_query"], k=5)
+    ref_scores, ref_ids = ref.search_batch("sparse", batch["text_query"],
+                                           k=5)
+    assert all(ids), "non-empty retrieval through the seam"
+    assert ids == ref_ids
+    for a, b in zip(scores, ref_scores):
+        np.testing.assert_allclose(a, b, **SCORE_TOL)
+
+
+@pytest.mark.parametrize("how", ["build", "load"])
+def test_bm25_device_kwargs_with_device_false_reach_no_host_index(
+        setup, tmp_path, how):
+    """A config that carries the device scorer's tunables with
+    ``device: false`` serves from the host index on both sides: the keys
+    are taken out before BM25Index.build / .load sees them."""
+    kb, batch = setup
+    kwargs = dict(column="passage", kind="BM25", k1=0.5, b=0.3, device=False,
+                  **DEVICE_KWARGS)
+    if how == "load":
+        t_bm25.BM25Index.build(kb["passage"]).save(tmp_path / "bm25")
+        kwargs["load_path"] = str(tmp_path / "bm25")
+    ours = t_search.KnowledgeBase(kb, device="cpu",
+                                  index_kwargs={"sparse": dict(kwargs)})
+    ref = j_search.KnowledgeBase(kb, index_kwargs={"sparse": dict(kwargs)})
+    assert isinstance(ours.indexes["sparse"].backend, t_bm25.BM25Index)
+    a = ours.search_batch("sparse", batch["text_query"], k=5)
+    b = ref.search_batch("sparse", batch["text_query"], k=5)
+    assert a[1] == b[1] and all(a[1])
+    for x, y in zip(a[0], b[0]):
+        np.testing.assert_allclose(x, y, **SCORE_TOL)
 
 
 def test_knowledge_base_needs_a_gpu_unless_cpu_is_named(setup):

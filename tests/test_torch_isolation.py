@@ -49,7 +49,8 @@ print(json.dumps({{"modules": names, "forbidden": bad}}))
     assert res["forbidden"] == []
     for module in ("ops.mips_fused", "ops.fusion", "ir.serving",
                    "rankeval.compare", "ir.search", "ir.qa_serving",
-                   "models.qa", "ops.bm25", "data.loading", "core.config"):
+                   "models.qa", "ops.bm25", "data.loading", "core.config",
+                   "ops.bm25_device", "ir.server"):
         assert f"viquae_torch.{module}" in res["modules"]
 
 
@@ -107,3 +108,31 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert device.resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_hybrid_parts_and_services_refuse_to_fall_back_to_cpu(monkeypatch):
+    """DeviceBM25 resolves its device as every entry point does; the
+    hybrid pipeline and the batched services own no device of their own:
+    they run where their embedder and indexes were put, and those refuse
+    the CPU unless it was named."""
+    import numpy as np
+
+    from viquae_torch.ir.embedding import PackedTextEmbedder
+    from viquae_torch.ir.serving import HybridRetrievalPipeline
+    from viquae_torch.ops import bm25, mips
+    from viquae_torch.ops.bm25_device import DeviceBM25
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    host = bm25.BM25Index.build(["a b c", "b c d"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceBM25(host)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mips.DenseIndex(np.eye(4, dtype=np.float32), mode="global")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PackedTextEmbedder(None, None, None)
+    sparse = DeviceBM25(host, q_block=4, device="cpu")
+    index = mips.DenseIndex(np.eye(4, dtype=np.float32), mode="global",
+                            device="cpu")
+    pipe = HybridRetrievalPipeline(None, index, sparse, k=2)
+    assert sparse.device == index.device == torch.device("cpu")
+    assert pipe.k_bm25 == 2

@@ -32,3 +32,33 @@ def within_reorder_bound(q, kb, a, b) -> np.ndarray:
     ulp = np.ldexp(1.0, np.frexp(mag)[1] - 8)
     bound = 2 * gamma * (np.abs(q) @ np.abs(kb).T) + ulp
     return same_mask & (diff <= bound)
+
+
+def bf16_bits(a) -> np.ndarray:
+    """The uint16 bit patterns of a bf16 array: a torch tensor, or a numpy
+    array of the 2-byte bfloat16 dtype that a JAX array converts to."""
+    if hasattr(a, "detach"):
+        import torch
+
+        return a.detach().cpu().contiguous().view(torch.int16).numpy().view(
+            np.uint16)
+    a = np.asarray(a)
+    assert a.dtype.itemsize == 2, a.dtype
+    return a.view(np.uint16)
+
+
+def device_bm25_arrays(dev) -> dict:
+    """The built state of a DeviceBM25 (either package's) as numpy: bf16
+    arrays as their uint16 bit patterns, the rest in their own dtypes."""
+    def host(a):
+        return a.detach().cpu().numpy() if hasattr(a, "detach") \
+            else np.asarray(a)
+
+    return {
+        "head_dense": bf16_bits(dev.head_dense),
+        "tail_w": bf16_bits(dev.tail_w),
+        "tail_docs": host(dev.tail_docs),
+        "head_pos": np.asarray(dev.head_pos),
+        "tail_offsets": np.asarray(dev.tail_offsets),
+        "l_mid": dev.l_mid, "l_small": dev.l_small, "d_pad": dev.d_pad,
+    }

@@ -22,7 +22,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from viquae_torch.core.device import resolve_device
+from viquae_torch.core.device import resolve_device, upload
 from viquae_torch.ops import packing
 
 
@@ -140,7 +140,7 @@ class TextEmbedder:
             sub = texts[start: start + self.batch_size]
             enc, n_real = pad_batch(self.tokenize(sub), self.batch_size)
             out = self._forward(*(
-                torch.from_numpy(enc[name]).to(self.device)
+                upload(enc[name], self.device)
                 for name in ("input_ids", "attention_mask",
                              "token_type_ids")))
             if self.layers:
@@ -213,9 +213,10 @@ class PackedTextEmbedder:
         )
 
     def upload(self, p: packing.PackedBatch):
-        """The canvas arrays as tensors on the embedder's device."""
+        """The canvas arrays as tensors on the embedder's device (pinned
+        staging on a CUDA device: the call does not wait for the card)."""
         return tuple(
-            torch.from_numpy(a).to(self.device)
+            upload(a, self.device)
             for a in (p.input_ids, p.segment_ids, p.position_ids,
                       p.cls_rows, p.cls_cols))
 

@@ -21,9 +21,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from viquae_torch.core.device import resolve_device
+from viquae_torch.core.device import HostCopy as _HostCopy
+from viquae_torch.core.device import resolve_device, upload
 from viquae_torch.core.profiling import StageTimer
-from viquae_torch.ir.serving import _HostCopy, drain_lagged
+from viquae_torch.ir.serving import drain_lagged
 from viquae_torch.models import qa
 from viquae_torch.ops import packing
 
@@ -142,8 +143,8 @@ class AnswerPipeline:
         return self._postprocess(out.start_logits, out.end_logits, mask)
 
     def upload(self, *arrays):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in arrays)
+        """Host arrays on the pipeline's device, without waiting for it."""
+        return tuple(upload(a, self.device) for a in arrays)
 
     # ------------------------------------------------------------------
     def _encode_questions(self, queries):

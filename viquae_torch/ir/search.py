@@ -8,13 +8,14 @@ Searcher :296-459, dataset_search :462-524) on one GPU:
   on the device) or :class:`~viquae_torch.ops.mips.StreamingDenseIndex`
   (pinned host chunks streamed through it).
 - Elasticsearch/pyserini BM25 -> :class:`viquae_torch.ops.bm25.BM25Index`
-  (in-repo inverted index, scored on the host), behind the same
-  `IndexKind` seam.
+  (in-repo inverted index, scored on the host) or, with ``device: true``,
+  :class:`viquae_torch.ops.bm25_device.DeviceBM25` (scored on the card),
+  behind the same `IndexKind` seam.
 - ranx -> :mod:`viquae_torch.rankeval`.
 
 Not ported yet, and refused by name rather than served by another engine:
 the ``IVF`` string factories (ROADMAP.md A17, ``ops/ivf.py``) and BM25 with
-``device: true | "sharded"`` (ROADMAP.md A12, ``ops/bm25_device.py``). The
+``device: "sharded"`` (ROADMAP.md A17, the multi-GPU scorer). The
 mesh argument of the JAX classes is a ``device`` here.
 
 Kept behaviors: per-batch search over dataset columns, None-query masking,
@@ -201,12 +202,20 @@ class KnowledgeBase:
 
                 load_path = index_kwargs.pop("load_path", None)
                 save_path = index_kwargs.pop("save_path", None)
+                # device=True scores on the card (ops/bm25_device.py);
+                # device_kwargs pass through to DeviceBM25 (n_head, ...)
                 device = index_kwargs.pop("device", False)
-                if device:
+                device_kwargs = {
+                    key_: index_kwargs.pop(key_)
+                    for key_ in ("n_head", "l_small", "l_mid", "pool_mid",
+                                 "pool_small", "q_block")
+                    if key_ in index_kwargs
+                }
+                if device == "sharded":
                     raise NotImplementedError(
-                        f"BM25 with device={device!r}: the device scorer "
-                        "(ops/bm25_device.py) is not ported yet (ROADMAP.md "
-                        "A12); drop the key for the host scorer")
+                        "BM25 with device='sharded': the multi-GPU scorer "
+                        "(ShardedDeviceBM25) is not ported yet (ROADMAP.md "
+                        "A17); use device=True for one card")
                 if load_path and Path(load_path).exists():
                     backend = bm25.BM25Index.load(load_path, **index_kwargs)
                 else:
@@ -215,6 +224,11 @@ class KnowledgeBase:
                     )
                     if save_path:
                         backend.save(save_path)
+                if device:
+                    from viquae_torch.ops.bm25_device import DeviceBM25
+
+                    backend = DeviceBM25(backend, device=self.device,
+                                         **device_kwargs)
             self.indexes[index_name] = Index(
                 key=key, kind=kind, do_L2norm=False, backend=backend,
                 normalization=normalization,

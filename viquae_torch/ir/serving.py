@@ -13,10 +13,15 @@ Built so the GPU is the only critical path:
 
 Ported: ``drain_lagged``, ``RetrievalPipeline`` (``run_arrays`` and the
 rankeval ``Run`` output), ``FusedRetrievalPipeline`` over a "global",
-"approx" or "fused" ``DenseIndex``, and ``MultiIndexRetrievalPipeline``
-(late fusion) with precomputed query features. The reference's
-``_device_search`` is ``DenseIndex.search_device`` (ops/mips.py). The
-compact int8/int16 upload dtypes and the online image and face legs of the
+"approx" or "fused" ``DenseIndex``, ``MultiIndexRetrievalPipeline``
+(late fusion) with precomputed query features, and
+``HybridRetrievalPipeline`` (BM25 on the host or the device + dense). The
+reference's ``_device_search`` is ``DenseIndex.search_device``
+(ops/mips.py). ``compact_transfer`` chooses the dtype of uploaded query
+features as in the reference; the integer canvas always goes up as int32
+(the reference's int8/int16 wire dtypes buy nothing on PCIe). Every upload
+goes through pinned staging buffers (core/device.py ``upload``), so no
+dispatch waits for the device. The online image and face legs of the
 multi-index pipeline are listed in ROADMAP.md.
 """
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from viquae_torch.core.device import HostCopy as _HostCopy, upload
 from viquae_torch.core.profiling import StageTimer
 from viquae_torch.ops import mips
 from viquae_torch.ops.fusion import fuse_topk
@@ -55,33 +61,6 @@ def drain_lagged(stream, drain_one):
             drain_one(pending.popleft())
     while pending:
         drain_one(pending.popleft())
-
-
-class _HostCopy:
-    """Device->host copies started now, read later.
-
-    CUDA tensors are copied with ``non_blocking=True`` into PINNED buffers
-    (into pageable memory such a copy is silently synchronous), and an
-    event is recorded after the copies; :meth:`result` waits on the event,
-    because pinned memory read before the copy has landed holds garbage.
-    CPU tensors pass through."""
-
-    def __init__(self, *tensors: torch.Tensor):
-        self.event = None
-        if not tensors[0].is_cuda:
-            self.host = tensors
-            return
-        self.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                          for t in tensors)
-        for h, t in zip(self.host, tensors):
-            h.copy_(t, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record(torch.cuda.current_stream(tensors[0].device))
-
-    def result(self) -> Tuple[torch.Tensor, ...]:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host
 
 
 class RetrievalPipeline:
@@ -166,7 +145,8 @@ class FusedRetrievalPipeline(RetrievalPipeline):
     """
 
     def __init__(self, embedder, index, batch_size: int = 1280,
-                 k: int = 100, timer: Optional[StageTimer] = None):
+                 k: int = 100, timer: Optional[StageTimer] = None,
+                 compact_transfer: bool = True):
         if index.mode not in _SINGLE_PASS:
             raise ValueError(
                 f"FusedRetrievalPipeline requires a single-pass index mode "
@@ -174,6 +154,7 @@ class FusedRetrievalPipeline(RetrievalPipeline):
                 "RetrievalPipeline for chunked modes")
         super().__init__(embedder, index, batch_size=batch_size, k=k,
                          timer=timer)
+        self.compact = compact_transfer
 
     def _canvas_stream(self, queries):
         emb = self.embed_fn
@@ -213,10 +194,11 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
     reference embeds query images and faces in offline stages). A feature
     row with a NaN is that query's "no image / no face": the query is
     absent from that index's run (-inf scores, INT32_MAX ids), which the
-    default-minimum imputation of fuse_topk then skips. Features for a
-    bf16 index are rounded to bf16 before the f32 L2 norm, as the
-    reference's default compact upload does; an f32 index gets them in
-    f32. All indexes share one doc-id space. gzmuv's global statistics are
+    default-minimum imputation of fuse_topk then skips. With
+    ``compact_transfer`` (the default) features for a bf16 index are
+    rounded to bf16 before the f32 L2 norm, as the reference's compact
+    upload does; without it, and for an f32 index, they go up in f32 and
+    are normalised before the cast. All indexes share one doc-id space. gzmuv's global statistics are
     per serving batch (the batch plays the role of the run), over the
     batch's real queries only.
 
@@ -228,6 +210,7 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
     def __init__(self, embedder, indexes, weights, text_index: str,
                  batch_size: int = 1280, k: int = 100,
                  norm: str = "gzmuv", timer: Optional[StageTimer] = None,
+                 compact_transfer: bool = True,
                  image_encoders=None, face_encoders=None):
         if image_encoders or face_encoders:
             raise NotImplementedError(
@@ -248,7 +231,7 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
         super().__init__(embedder, indexes[text_index],
                          batch_size=batch_size,
                          k=min([k] + [ix.n for ix in indexes.values()]),
-                         timer=timer)
+                         timer=timer, compact_transfer=compact_transfer)
         self.indexes = dict(indexes)
         self.names = list(indexes)
         self.text_index = text_index
@@ -265,9 +248,10 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
             rows = np.concatenate([rows, np.zeros(
                 (self.batch_size - len(rows),) + rows.shape[1:], np.float32)])
         index = self.indexes[name]
-        dtype = (torch.bfloat16 if index.dtype == torch.bfloat16
+        dtype = (torch.bfloat16
+                 if self.compact and index.dtype == torch.bfloat16
                  else torch.float32)
-        return torch.from_numpy(rows).to(index.device).to(dtype)
+        return upload(rows, index.device).to(dtype)
 
     def _canvas_stream(self, queries, query_features):
         emb = self.embed_fn
@@ -344,3 +328,112 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
             for start, _, scores, idx in PrefetchIterable(
                 self._canvas_stream(queries, query_features), buffer_size=2)
         ]
+
+
+class HybridRetrievalPipeline(FusedRetrievalPipeline):
+    """Hybrid sparse+dense serving: BM25 (the host C++ scorer over the CSR
+    inverted index, ops/bm25.py + native/bm25_scorer.cpp, or the device
+    scorer, ops/bm25_device.py) interpolated with dense MIPS on the
+    device, fused into one ranking per batch.
+
+    Both legs retrieve top-k' candidates over the SAME passage id space
+    and are combined by weighted sum. Two interpolation semantics:
+
+    - norm="gzmuv" (default) — the Fusion semantics (gzmuv normalisation +
+      default-minimum imputation, ir/fuse.py), computed on the device by
+      ops.fusion.fuse_topk;
+    - norm="raw" + stats — the committed legacy config semantics
+      (`normalization` {mean, std} + `interpolation_weight`): each leg's
+      scores are pre-normalised (s - mean)/std with CORPUS-level
+      statistics and summed with the weights; absent docs contribute 0.
+
+    The schedule overlaps the two legs: the dense leg is enqueued BEFORE
+    the sparse leg runs, so host BM25 scoring (or the device scorer's host
+    planning) hides behind device compute; the fuse is enqueued last.
+
+    bm25_index: anything with ``n_docs`` and ``search_batch``; a backend
+    that also has ``search_batch_device`` keeps its results on the device.
+    weights: (dense_weight, bm25_weight) — the reference's tuned BM25
+    interpolation weight is 0.3 (bm25 leg), i.e. weights=(0.7, 0.3).
+    """
+
+    def __init__(self, embedder, index, bm25_index, weights=(0.7, 0.3),
+                 batch_size: int = 1280, k: int = 100,
+                 k_bm25: Optional[int] = None, norm: str = "gzmuv",
+                 stats=None, timer: Optional[StageTimer] = None,
+                 compact_transfer: bool = True):
+        super().__init__(embedder, index, batch_size=batch_size, k=k,
+                         timer=timer, compact_transfer=compact_transfer)
+        if stats is not None and norm != "raw":
+            raise ValueError(
+                "fixed (mean, std) stats are the legacy interpolation "
+                "semantics; use norm='raw' with them")
+        if norm == "raw" and stats is None:
+            raise ValueError(
+                "norm='raw' interpolates unnormalized scores; pass "
+                "stats=((dense_mean, dense_std), (bm25_mean, bm25_std)) "
+                "(the committed configs' `normalization` block), or use "
+                "norm='gzmuv'")
+        self.bm25 = bm25_index
+        self.k_bm25 = min(k_bm25 or self.k, bm25_index.n_docs)
+        self.weights = (float(weights[0]), float(weights[1]))
+        self.norm = norm
+        self.stats = stats
+
+    @torch.no_grad()
+    def _fuse(self, d_scores, d_idx, b_scores, b_idx, n_valid: int):
+        d_s, b_s = d_scores.float(), b_scores.float()
+        if self.stats is not None:
+            (d_mean, d_std), (b_mean, b_std) = self.stats
+            d_s = torch.where(d_idx != mips.INT32_MAX,
+                              (d_s - d_mean) / d_std, 0.0)
+            b_s = torch.where(b_idx != mips.INT32_MAX,
+                              (b_s - b_mean) / b_std, 0.0)
+        fused, fused_idx = fuse_topk(
+            (d_s, b_s), (d_idx.to(torch.int32), b_idx), self.weights,
+            self.k, norm=self.norm, valid_queries=n_valid)
+        return fused.to(torch.bfloat16), fused_idx
+
+    def _bm25_arrays(self, chunk):
+        """Host scoring -> fixed-shape (batch_size, k_bm25) arrays in the
+        framework pad convention (id INT32_MAX, score -inf)."""
+        scores_b, idx_b = self.bm25.search_batch(list(chunk), k=self.k_bm25)
+        s = np.full((self.batch_size, self.k_bm25), -np.inf, np.float32)
+        i = np.full((self.batch_size, self.k_bm25),
+                    np.iinfo(np.int32).max, np.int32)
+        for row, (ss, ii) in enumerate(zip(scores_b, idx_b)):
+            s[row, : len(ss)] = ss
+            i[row, : len(ii)] = ii
+        return s, i
+
+    def _canvas_stream(self, queries):
+        emb = self.embed_fn
+        device = self.index.device
+        for start, chunk in self._batches(queries):
+            with self.timer.stage("tokenize+pack+dense_dispatch"):
+                snap = self.index.snapshot()  # n before matrix
+                canvas = emb.upload(emb.pack(list(chunk)))
+                d_scores, d_idx = self.index.search_device(
+                    emb.forward(*canvas), *snap, self.k)
+            # the dense leg is now enqueued. Sparse leg: a device backend
+            # keeps its results ON the device (no pull-pad-reupload); the
+            # host scorer overlaps device compute instead
+            if hasattr(self.bm25, "search_batch_device"):
+                with self.timer.stage("bm25_device"):
+                    b_s, b_i = self.bm25.search_batch_device(
+                        list(chunk), k=self.k_bm25)
+                    b_s, b_i = b_s[: self.batch_size], b_i[: self.batch_size]
+                    if b_s.shape[0] < self.batch_size:  # q_block < batch
+                        pad = self.batch_size - b_s.shape[0]
+                        b_s = torch.cat([b_s, b_s.new_full(
+                            (pad, b_s.shape[1]), mips.NEG_INF)])
+                        b_i = torch.cat([b_i, b_i.new_full(
+                            (pad, b_i.shape[1]), mips.INT32_MAX)])
+            else:
+                with self.timer.stage("bm25_host"):
+                    b_s_np, b_i_np = self._bm25_arrays(chunk)
+                    b_s, b_i = upload(b_s_np, device), upload(b_i_np, device)
+            with self.timer.stage("fuse_dispatch"):
+                scores, idx = self._fuse(d_scores, d_idx, b_s, b_i,
+                                         len(chunk))
+            yield start, len(chunk), scores, idx
