@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's retrieval and answer paths on one NVIDIA GPU and
-hold every kernel on them against its plain PyTorch version.
+"""Drive the PyTorch port's retrieval, answer and image paths on one NVIDIA
+GPU and hold every kernel on them against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -85,18 +85,47 @@ raises on failure:
    (the hybrid pipeline, device branch, 64 a dispatch) and a
    BatchedAnswerService (phase 13's AnswerPipeline): 64 concurrent POST
    /search, 16 POST /answer, GET /health; every response against the
-   direct pipeline call on the same batch; request latency and requests/s.
+   direct pipeline call on the same batch; request latency and requests/s;
+   after phase 18 the same front over a BatchedVQAService (phase 13's
+   reader over phase 18's indexes and online legs, 16 a dispatch): 16
+   concurrent POST /answer with a PNG for every leg, for the face leg only,
+   or none, each response against the direct call on its recorded batch;
+17. the towers alone at their published widths (seeded weights):
+   ImageNet ResNet-50, CLIP RN50 (ModifiedResNet), CLIP ViT-B/32 and
+   ArcFace iresnet50, batch 128 in f32 and bf16 (ms, images/s), each in
+   f32 within 1e-3 of the same module on the CPU; MTCNN at MTCNNConfig()
+   (canvas 512, 10 scales) on 64 images by stage (pyramid + PNet, stage-1
+   NMS, RNet, ONet, each NMS loop alone), at the default thresholds and at
+   thresholds taken from the seeded run's per-stage probability quantiles
+   so that half the images or more get a face; valid masks on the card
+   equal the CPU's off images with a stage probability within 1e-4 of its
+   threshold, boxes within 1e-2 px;
+18. late fusion with online legs: phase 10's configuration whose image and
+   face legs now take Pillow images (short sides 160-720 px, 10 % of the
+   queries without one): ImageEmbedder over ResNet-50 (imagenet) and over
+   CLIP RN50 (clip), FaceQueryEncoder (MTCNN at phase 17's thresholds +
+   ArcFace, 64 a sub-batch), towers in f32; 1,257 questions, batch 1,280:
+   batch wall (median of 3), host decode and face-loop ms, device ms by
+   leg, a 4-batch stream with its device idle share (derived and traced),
+   B1 once a batch; the fused top-100 against the same pipeline given the
+   features that embed_images and the FaceQueryEncoder compute directly
+   (tie_aware_agreement), queries without an image absent from every
+   modal leg.
 
 Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
 uploads staged through pinned memory and, for comparison, from pageable
 memory, and print each call's place on the run's timeline.
 
-The last line is {"ok": true, "device": {...}}.
+Phases 17-18 and the VQA server run after phase 16. The last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import base64
 import contextlib
 import copy
+import dataclasses
+import io
 import json
 import math
 import re
@@ -111,6 +140,8 @@ import numpy as np
 import torch
 
 from viquae_torch.core.profiling import StageTimer
+from viquae_torch.image.embedding import ImageEmbedder, decode_image_batch
+from viquae_torch.image.face_recognition import FaceQueryEncoder
 from viquae_torch.ir import embedding as ir_embedding
 from viquae_torch.ir import qa_serving as ir_qa_serving
 from viquae_torch.ir import serving as ir_serving
@@ -118,12 +149,13 @@ from viquae_torch.ir.embedding import PackedTextEmbedder
 from viquae_torch.ir.qa_serving import AnswerPipeline, span_probabilities
 from viquae_torch.ir.server import (BatchedAnswerService,
                                     BatchedRetrievalService,
-                                    make_http_server)
+                                    BatchedVQAService, make_http_server)
 from viquae_torch.ir.serving import (FusedRetrievalPipeline,
                                      HybridRetrievalPipeline,
                                      MultiIndexRetrievalPipeline)
 from viquae_torch.kernels import build as kbuild
-from viquae_torch.models import convert, dpr, layers, qa
+from viquae_torch.models import (arcface, clip, convert, dpr, layers, mtcnn,
+                                 qa, resnet)
 from viquae_torch.native.build import load_packer
 from viquae_torch.ops import bm25 as bm25_lib
 from viquae_torch.ops import bm25_device, mips, mips_fused, packing
@@ -186,6 +218,19 @@ HYBRID_WEIGHTS = (0.7, 0.3)
 SERVER_BATCH = 64
 SERVER_ANSWERS = 16
 SERVER_ROUNDS = 4
+# the image and face chain (phases 17-18): images a tower call, images of
+# the MTCNN stage timings and of its card-vs-CPU check, the face leg's
+# sub-batch, the short sides of the query images (a Pillow image each)
+TOWER_BATCH = 128
+FACE_IMAGES = 64
+MTCNN_CHECK = 8
+# bf16 against f32 on phase 17's towers, relative to the largest output:
+# about twice the readings of two sound runs on the H100 (5.4e-3, 7.8e-2,
+# 2.6e-3, 1.7e-2; random weights compound the rounding through the depth)
+BF16_REL_TOL = {"resnet50_imagenet": 0.015, "clip_rn50": 0.16,
+                "clip_vit_b32": 0.01, "arcface_r50": 0.04}
+FACE_BATCH = 64
+QUERY_SIDES = (160, 720)
 
 
 def emit(obj):
@@ -1929,9 +1974,10 @@ class RecordedBatches:
         self.batches.append(list(queries))
         return self.pipe.run_arrays(queries)
 
-    def run(self, questions):
-        self.batches.append(list(questions))
-        return self.pipe.run(questions)
+    def run(self, questions, **kwargs):
+        self.batches.append((list(questions), kwargs) if kwargs
+                            else list(questions))
+        return self.pipe.run(questions, **kwargs)
 
 
 def phase_server(dev, main, sparse, shared):
@@ -2088,6 +2134,607 @@ def phase_server(dev, main, sparse, shared):
         answerer.close()
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: the image and face chain
+# ---------------------------------------------------------------------------
+def tower_specs(dev, res=resnet.ResNetConfig(),
+                mrn=clip.ModifiedResNetConfig(), vit=clip.CLIPVisionConfig(),
+                arc=arcface.ArcFaceConfig()) -> list:
+    """The four towers, seeded, at their published configurations by
+    default: (name, module, apply(module, images, compute_dtype), input
+    side, output width, config)."""
+    return [
+        ("resnet50_imagenet", resnet.init(res, seed=30, device=dev),
+         lambda m, x, cd: resnet.apply(m, res, x, cd), mrn.image_size,
+         res.width * 2 ** (len(res.stage_sizes) + 1), res),
+        ("clip_rn50", clip.modified_resnet_init(mrn, seed=31, device=dev),
+         lambda m, x, cd: clip.modified_resnet_apply(m, mrn, x, cd),
+         mrn.image_size, mrn.output_dim, mrn),
+        ("clip_vit_b32", clip.vit_init(vit, seed=32, device=dev),
+         lambda m, x, cd: clip.vit_apply(m, vit, x, cd or torch.float32)[
+             "image_embeds"], vit.image_size, vit.projection_dim, vit),
+        ("arcface_r50", arcface.init(arc, seed=33, device=dev),
+         lambda m, x, cd: arcface.apply(m, arc, x, cd), arc.image_size,
+         arc.embedding_size, arc),
+    ]
+
+
+def rel_error(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over the largest |b|."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def query_image_arrays(rng, n: int, sides=None) -> list:
+    """``n`` uint8 RGB arrays whose short side is drawn from ``sides``
+    (default QUERY_SIDES) and whose long side is 1-1.5 times that, in
+    either orientation."""
+    lo, hi = sides or QUERY_SIDES
+    out = []
+    for _ in range(n):
+        short = int(rng.integers(lo, hi + 1))
+        long = int(short * rng.uniform(1.0, 1.5))
+        h, w = (short, long) if rng.random() < 0.5 else (long, short)
+        out.append(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    return out
+
+
+def detection_canvases(arrays, cfg):
+    """FaceQueryEncoder's host preparation of arrays already at most the
+    canvas size: (canvases uint8 (n, side, side, 3), true hws (n, 2))."""
+    side = cfg.canvas
+    canvas = np.zeros((len(arrays), side, side, 3), np.uint8)
+    hws = np.zeros((len(arrays), 2), np.float32)
+    for i, a in enumerate(arrays):
+        canvas[i, : a.shape[0], : a.shape[1]] = a
+        hws[i] = a.shape[:2]
+    return canvas, hws
+
+
+def online_image_features(enc, pics) -> np.ndarray:
+    """An image leg's features as MultiIndexRetrievalPipeline's online leg
+    computes them: the serving decode of each BATCH of ``pics``, then
+    ``enc``'s preprocess + tower; NaN rows where there is no image."""
+    out = []
+    for start in range(0, len(pics), BATCH):
+        chunk = pics[start: start + BATCH]
+        canvas, ok = decode_image_batch(chunk, enc.raw_size, BATCH)
+        rows = enc._forward(enc.params, torch.from_numpy(canvas).to(
+            enc.device))[: len(chunk)].float().cpu().numpy()
+        rows[~ok[: len(chunk)]] = np.nan
+        out.append(rows)
+    return np.concatenate(out)
+
+
+def mtcnn_stages(params, images, hws, cfg) -> dict:
+    """The cascade stage by stage (the stages detect_faces_batch chains),
+    each stage's probabilities kept."""
+    boxes, scores, regs, valid = mtcnn.pnet_stage(params, images, hws, cfg)
+    b1, v1 = mtcnn.stage1_nms(boxes, scores, regs, valid, cfg)
+    p2, b2, v2 = mtcnn.rnet_stage(params, images, b1, v1, cfg)
+    p3, out = mtcnn.onet_stage(params, images, b2, v2, cfg)
+    return {"pnet": (boxes, scores, regs, valid), "stage1": (b1, v1),
+            "rnet": (p2, b2, v2), "onet": (p3, out)}
+
+
+def gap_threshold(values: torch.Tensor, near: float,
+                  window: float = 0.02) -> float:
+    """The middle of the widest gap between the sorted ``values`` that lie
+    within ``window`` of ``near``: a threshold next to ``near`` that no
+    value lies close to."""
+    v = torch.sort(values.flatten().float().cpu()).values
+    v = v[(v > near - window) & (v < near + window)]
+    if len(v) < 2:
+        return near
+    i = int(torch.argmax(v[1:] - v[:-1]))
+    return float((v[i] + v[i + 1]) / 2)
+
+
+def borderline_images(st, cfg, margin=1e-4) -> dict:
+    """Per stage, the images with a candidate whose probability lies within
+    ``margin`` of the stage's threshold (PNet: the candidates)."""
+    t0, t1, t2 = cfg.thresholds
+    return {"pnet_candidates": int(((st["pnet"][1] - t0).abs() < margin)
+                                   .sum()),
+            "rnet": int((((st["rnet"][0] - t1).abs() < margin)
+                         & st["stage1"][1]).any(1).sum()),
+            "onet": int((((st["onet"][0] - t2).abs() < margin)
+                         & st["rnet"][2]).any(1).sum())}
+
+
+def mtcnn_card_vs_cpu(params, images, hws, cfg, margin=1e-4) -> dict:
+    """Each cascade stage on the card against the same stage on the CPU fed
+    the card's inputs to it (so a stage's difference is its own, not the
+    earlier stages' amplified by random pixels): probabilities, boxes in
+    px, and the stage's valid mask off the borderline. PNet's candidates
+    are thresholded one by one, so there a candidate whose probability
+    lies within ``margin`` of the threshold is left out; RNet's and ONet's
+    NMS couple an image's candidates, so there such an image is left
+    out."""
+    cpu = copy.deepcopy(params).to("cpu")
+    host = lambda ts: [t.cpu() for t in ts]  # noqa: E731
+    imgs, sizes = images.cpu(), hws.cpu()
+    card = mtcnn_stages(params, images, hws, cfg)
+    t0, t1, t2 = cfg.thresholds
+    boxes, scores, regs, valid = host(card["pnet"])
+    b1, v1 = host(card["stage1"])
+    p2, b2, v2 = host(card["rnet"])
+    p3 = card["onet"][0].cpu()
+    out = {k: v.cpu() for k, v in card["onet"][1].items()}
+    ref = {"pnet": host(mtcnn.pnet_stage(cpu, imgs, sizes, cfg)),
+           "stage1": host(mtcnn.stage1_nms(boxes, scores, regs, valid,
+                                           cfg)),
+           "rnet": host(mtcnn.rnet_stage(cpu, imgs, b1, v1, cfg)),
+           "onet": mtcnn.onet_stage(cpu, imgs, b2, v2, cfg)}
+    near = {"pnet": (scores - t0).abs() < margin,
+            "stage1": torch.zeros(len(imgs), dtype=torch.bool),
+            "rnet": (((p2 - t1).abs() < margin) & v1).any(1),
+            "onet": (((p3 - t2).abs() < margin) & v2).any(1)}
+    pairs = {"pnet": (valid, ref["pnet"][3], boxes, ref["pnet"][0]),
+             "stage1": (v1, ref["stage1"][1], b1, ref["stage1"][0]),
+             "rnet": (v2, ref["rnet"][2], b2, ref["rnet"][1]),
+             "onet": (out["valid"], ref["onet"][1]["valid"], out["boxes"],
+                      ref["onet"][1]["boxes"])}
+    result = {"prob_max_diff": max(
+        float((scores - ref["pnet"][1]).abs().max()),
+        float((p2 - ref["rnet"][0]).abs().max()),
+        float((p3 - ref["onet"][0]).abs().max()))}
+    for stage, (got, want, gb, wb) in pairs.items():
+        same = got == want if stage == "pnet" else (got == want).all(1)
+        both = got & want
+        result[stage] = {
+            "borderline": int(near[stage].sum()),
+            "masks_equal_off_borderline": bool(same[~near[stage]].all()),
+            "max_box_err_px": float((gb - wb)[both].abs().max())
+            if both.any() else 0.0}
+    result["faces"] = int(out["valid"].sum())
+    return result
+
+
+def calibrated_thresholds(params, images, hws, cfg, quantile):
+    """Thresholds at the ``quantile`` of each stage's probabilities on
+    these images, stage after stage (each stage's candidates are those the
+    previous calibrated threshold keeps)."""
+    boxes, scores, regs, _ = mtcnn.pnet_stage(params, images, hws, cfg)
+    t0 = float(torch.quantile(scores.flatten(), quantile))
+    cfg = dataclasses.replace(cfg, thresholds=(t0,) + cfg.thresholds[1:])
+    b1, v1 = mtcnn.stage1_nms(*mtcnn.pnet_stage(params, images, hws, cfg),
+                              cfg)
+    p2 = mtcnn.rnet_stage(params, images, b1, v1, cfg)[0]
+    t1 = float(torch.quantile(p2[v1], quantile))
+    cfg = dataclasses.replace(cfg, thresholds=(t0, t1, cfg.thresholds[2]))
+    _, b2, v2 = mtcnn.rnet_stage(params, images, b1, v1, cfg)
+    p3 = mtcnn.onet_stage(params, images, b2, v2, cfg)[0]
+    t2 = float(torch.quantile(p3[v2], quantile))
+    return dataclasses.replace(cfg, thresholds=(round(t0, 4), round(t1, 4),
+                                                round(t2, 4)))
+
+
+def phase_towers(dev, specs=None, cfg=mtcnn.MTCNNConfig()) -> dict:
+    """Phase 17: each tower alone at its published width (seeded weights),
+    batch TOWER_BATCH in f32 and bf16, against the same module on the CPU;
+    MTCNN at MTCNNConfig() on FACE_IMAGES images by stage, at the default
+    thresholds and at thresholds calibrated so that at least half the
+    images get a face, against the CPU. Returns the towers and the
+    calibrated detector configuration for phase 18."""
+    towers, results = {}, {}
+    for name, model, apply, side, width, tcfg in specs or tower_specs(dev):
+        x = gaussian(dev, TOWER_BATCH * side * side, 3, torch.float32,
+                     seed=40).reshape(TOWER_BATCH, side, side, 3)
+        row = {"batch": TOWER_BATCH, "input": [side, side, 3],
+               "width": width}
+        for label, cd in (("f32", None), ("bf16", torch.bfloat16)):
+            ms = time_ms(lambda: apply(model, x, cd), reps=3)
+            row[f"{label}_ms"] = ms
+            row[f"{label}_images_per_s"] = TOWER_BATCH / ms * 1e3
+        got = apply(model, x[:4], None)
+        check(tuple(got.shape) == (4, width), f"{name} output shape")
+        cpu = copy.deepcopy(model).to("cpu")
+        row["f32_rel_err_vs_cpu"] = rel_error(got, apply(cpu, x[:4].cpu(),
+                                                         None))
+        row["bf16_rel_err_vs_f32"] = rel_error(
+            apply(model, x[:4], torch.bfloat16), got)
+        # the check's control: the f32 tower with one mid-network weight
+        # zeroed (a residual branch cut, as a dropped key in a weight
+        # conversion would leave it) must fail the bf16 limit
+        cut = copy.deepcopy(model)
+        mats = [p for p in cut.parameters() if p.dim() >= 2]
+        mats[len(mats) // 2].zero_()
+        row["control_rel_err_vs_f32"] = rel_error(apply(cut, x[:4], None),
+                                                  got)
+        del cpu, cut, x
+        results[name] = row
+        towers[name] = (model, apply, side, tcfg)
+        check(row["f32_rel_err_vs_cpu"] <= 1e-3,
+              f"{name} f32 on the card against the CPU: {row}")
+        check(row["bf16_rel_err_vs_f32"] <= BF16_REL_TOL[name]
+              < row["control_rel_err_vs_f32"],
+              f"{name} bf16 against f32 (limit {BF16_REL_TOL[name]}; the "
+              f"control must exceed it): {row}")
+    emit({"phase": "towers", "towers": results, "rel_err_tol": {
+        "f32_vs_cpu": 1e-3, "bf16_vs_f32": BF16_REL_TOL}})
+
+    # ---- MTCNN at its published configuration -------------------------
+    params = mtcnn.init(seed=34, device=dev)
+    arrays = query_image_arrays(
+        np.random.default_rng(41), FACE_IMAGES,
+        (min(QUERY_SIDES[0], cfg.canvas // 2), cfg.canvas))
+    arrays = [a[: cfg.canvas, : cfg.canvas] for a in arrays]
+    canvas, hws_np = detection_canvases(arrays, cfg)
+    images = torch.from_numpy(canvas).to(dev).float()
+    hws = torch.from_numpy(hws_np).to(dev)
+
+    def by_stage(cfg):
+        st = mtcnn_stages(params, images, hws, cfg)
+        boxes, scores, regs, valid = st["pnet"]
+        b1, v1 = st["stage1"]
+        p2, b2, v2 = st["rnet"]
+        p3, out = st["onet"]
+        ms = {
+            "pyramid_pnet": time_ms(lambda: mtcnn.pnet_stage(
+                params, images, hws, cfg), reps=3),
+            "stage1_nms_select": time_ms(lambda: mtcnn.stage1_nms(
+                boxes, scores, regs, valid, cfg), reps=3),
+            "rnet_stage": time_ms(lambda: mtcnn.rnet_stage(
+                params, images, b1, v1, cfg), reps=3),
+            "onet_stage": time_ms(lambda: mtcnn.onet_stage(
+                params, images, b2, v2, cfg), reps=3),
+            "detect_faces_batch": time_ms(lambda: mtcnn.detect_faces_batch(
+                params, images, hws, cfg), reps=3)}
+        # the NMS loops alone, at their stages' shapes and inputs
+        k1, k2 = v1 & (p2 >= cfg.thresholds[1]), v2 & (p3 >= cfg.thresholds[2])
+        flat = (boxes.reshape(len(arrays), -1, 4),
+                scores.reshape(len(arrays), -1))
+        nms = {
+            "per_scale": time_ms(lambda: mtcnn.nms_fixed(
+                boxes, scores, valid, 0.5), reps=3),
+            "cross_scale": time_ms(lambda: mtcnn.nms_fixed(
+                *flat, valid.reshape(len(arrays), -1), 0.7,
+                max_keep=cfg.k_stage1), reps=3),
+            "rnet": time_ms(lambda: mtcnn.nms_fixed(
+                b1, p2, k1, 0.7, max_keep=cfg.k_stage2), reps=3),
+            "onet": time_ms(lambda: mtcnn.nms_fixed(
+                b2, p3, k2, 0.7, mode="min", max_keep=cfg.max_faces),
+                reps=3)}
+        found = out["valid"].any(1)
+        return st, {"thresholds": list(cfg.thresholds), "stage_ms": ms,
+                    "nms_ms": nms, "nms_ms_sum": sum(nms.values()),
+                    "nms_iterations": [cfg.k_per_scale, cfg.k_stage1,
+                                       cfg.k_stage2, cfg.max_faces],
+                    "stage1_candidates": int(v1.sum()),
+                    "stage2_candidates": int(v2.sum()),
+                    "faces": int(out["valid"].sum()),
+                    "share_with_a_face": float(found.float().mean())}
+
+    _, default = by_stage(cfg)
+    for quantile in (0.5, 0.3, 0.1):
+        tuned = calibrated_thresholds(params, images, hws, cfg, quantile)
+        st, calibrated = by_stage(tuned)
+        if calibrated["share_with_a_face"] >= 0.5:
+            break
+    calibrated["quantile"] = quantile
+    check(calibrated["share_with_a_face"] >= 0.5,
+          f"calibrated thresholds find a face in half the images: "
+          f"{calibrated}")
+    # the card against the CPU on the first MTCNN_CHECK images. Random
+    # RNet / ONet probabilities crowd near their medians, so at the
+    # calibrated thresholds most images hold a candidate within 1e-4 of
+    # one (printed): RNet's and ONet's thresholds move into the widest
+    # nearby gap of these images' probabilities (ONet's after RNet's
+    # move). PNet's candidates are compared one by one and need no move.
+    n = MTCNN_CHECK
+    imgs, sizes = images[:n], hws[:n]
+    st = mtcnn_stages(params, imgs, sizes, tuned)
+    at_calibrated = borderline_images(st, tuned)
+    t0, t1, t2 = tuned.thresholds
+    t1 = gap_threshold(st["rnet"][0][st["stage1"][1]], t1)
+    check_cfg = dataclasses.replace(tuned, thresholds=(t0, t1, t2))
+    st = mtcnn_stages(params, imgs, sizes, check_cfg)
+    t2 = gap_threshold(st["onet"][0][st["rnet"][2]], t2)
+    check_cfg = dataclasses.replace(check_cfg, thresholds=(t0, t1, t2))
+    agreement = {"images": n, "thresholds": [t0, t1, t2],
+                 "borderline_at_calibrated": at_calibrated,
+                 **mtcnn_card_vs_cpu(params, imgs, sizes, check_cfg)}
+    emit({"phase": "mtcnn", "config": dataclasses.asdict(cfg),
+          "scales": len(cfg.scales), "images": len(arrays),
+          "image_sides": [int(hws_np.min()), int(hws_np.max())],
+          "default_thresholds": default, "calibrated": calibrated,
+          "card_vs_cpu_by_stage": agreement})
+    stages = ("pnet", "stage1", "rnet", "onet")
+    check(agreement["prob_max_diff"] <= 1e-4
+          and all(agreement[k]["masks_equal_off_borderline"]
+                  and agreement[k]["max_box_err_px"] <= 1e-2
+                  for k in stages) and agreement["faces"] > 0
+          and max(agreement[k]["borderline"] for k in ("rnet", "onet"))
+          <= n // 2,
+          f"MTCNN on the card against the CPU: {agreement}")
+    return {"towers": towers, "mtcnn": params, "mtcnn_cfg": tuned}
+
+
+def phase_image_fusion(dev, main, chain) -> dict:
+    """Phase 18: late fusion with online legs. Phase 10's configuration,
+    whose three non-text legs now take their features online: ImageEmbedder
+    over ResNet-50 (imagenet) and over CLIP RN50 (clip), FaceQueryEncoder
+    (MTCNN at the calibrated thresholds + ArcFace, FACE_BATCH a
+    sub-batch), all in f32."""
+    embedder, queries = main["embedder"], main["queries"]
+    n_batches = -(-N_QUERIES // BATCH)
+    towers = chain["towers"]
+    indexes = {"dpr": main["index"]}
+    for j, (name, width) in enumerate(FUSION_WIDTHS.items()):
+        indexes[name] = mips.DenseIndex(
+            gaussian(dev, N_KB, width, torch.bfloat16, seed=20 + j),
+            do_l2norm=True, mode="global", dtype=torch.bfloat16, device=dev)
+    legs = {"imagenet-RN50": ("resnet50_imagenet", "imagenet"),
+            "clip-RN50": ("clip_rn50", "clip")}
+    # embed_images (the precomputed check below) at the pipeline's batch:
+    # cuDNN chooses its algorithm by shape, and f32 sums of another
+    # algorithm differ in their last bits
+    encoders = {
+        name: ImageEmbedder(
+            lambda p, x, apply=towers[tower][1]: apply(p, x, None),
+            towers[tower][0], name, image_size=towers[tower][2],
+            preprocessing=kind, batch_size=BATCH, device=dev)
+        for name, (tower, kind) in legs.items()}
+    face_enc = FaceQueryEncoder(
+        chain["mtcnn"], towers["arcface_r50"][0],
+        mtcnn_cfg=chain["mtcnn_cfg"], arcface_cfg=towers["arcface_r50"][3],
+        batch_size=FACE_BATCH, device=dev)
+    faces = {"arcface": face_enc}
+    from PIL import Image
+
+    # the face leg's rows go up as features: in f32 (no compact
+    # transfer), as the image legs' embeddings stay f32 until the search
+    pipe = MultiIndexRetrievalPipeline(
+        embedder, indexes, FUSION_WEIGHTS, text_index="dpr",
+        batch_size=BATCH, k=K, norm="gzmuv", compact_transfer=False,
+        image_encoders=encoders, face_encoders=faces)
+    rng = np.random.default_rng(42)
+    pics = [Image.fromarray(a) for a in query_image_arrays(rng, N_QUERIES)]
+    no_image = rng.random(N_QUERIES) < 0.1
+    pics = [None if none else p for p, none in zip(pics, no_image)]
+    query_images = dict.fromkeys(FUSION_WIDTHS, pics)
+
+    def run():
+        return pipe.run_arrays(queries, query_images=query_images)
+
+    # one run, traced: the run whose outputs are checked and whose B1
+    # launches are counted (a batch takes ~30 s of host work, so the batch
+    # wall is read from the stream below, not from repeats of this run)
+    checked = {}
+
+    def run_checked():
+        checked["out"] = run()
+
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    traced = traced_device_busy(run_checked)
+    launches = mips_fused.fused_score_segmax_qmajor.launches
+    scores, ids = checked["out"]
+    check(launches == n_batches, f"B1 launched {launches} times for "
+          f"{n_batches} batches")
+
+    # ---- online against the same features passed precomputed ---------
+    # the clip leg's embed_images resizes as the serving decode does; the
+    # imagenet kind's embed_images takes another PIL filter than the
+    # serving decode (ROADMAP.md C5), so that leg's features are the
+    # serving decode's, through the same preprocess + tower
+    host = {}
+    feats = {"imagenet-RN50": online_image_features(
+                 encoders["imagenet-RN50"], pics),
+             "clip-RN50": encoders["clip-RN50"].embed_images(pics)}
+    t0 = time.perf_counter()
+    feats["arcface"] = face_enc(pics)
+    host["face_leg_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    staged = MultiIndexRetrievalPipeline(
+        embedder, indexes, FUSION_WEIGHTS, text_index="dpr",
+        batch_size=BATCH, k=K, norm="gzmuv", compact_transfer=False)
+    ref_scores, ref_ids = staged.run_arrays(queries, feats)
+    agreement = tie_aware_agreement(ids, scores, ref_ids, ref_scores)
+    nan_rows = {n: int(np.isnan(f).any(1).sum()) for n, f in feats.items()}
+    absent = {"no_image": int(no_image.sum()), "nan_rows": nan_rows,
+              "faces_found": int(np.isfinite(feats["arcface"]).all(1).sum())}
+
+    # ---- by leg: device ms over the first batch ------------------------
+    first = pics[:BATCH]
+    present_faces = [p for p in first if p is not None]
+    n_sub = -(-len(present_faces) // FACE_BATCH)
+    sub = [np.asarray(p.resize((max(1, int(p.size[0] * s)),
+                                max(1, int(p.size[1] * s)))))
+           for p in present_faces[:FACE_BATCH]
+           for s in [min(1.0, face_enc.mtcnn_cfg.canvas / max(p.size))]]
+    sub_canvas, sub_hws = detection_canvases(sub, face_enc.mtcnn_cfg)
+    sub_imgs = torch.from_numpy(sub_canvas).to(dev).float()
+    sub_hws = torch.from_numpy(sub_hws).to(dev)
+    lms, _ = face_enc._detect(face_enc.mtcnn_params, sub_imgs, sub_hws)
+    device_ms = {"text_encoder": main["encoder_ms"]}
+    q = {"dpr": embedder.forward(*embedder.upload(embedder.pack(
+        queries[:BATCH])))}
+    for name, enc in encoders.items():
+        t0 = time.perf_counter()
+        canvas = decode_image_batch(first, enc.raw_size, BATCH)[0]
+        host[f"decode_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        canvas = torch.from_numpy(canvas).to(dev)
+        device_ms[f"{name}_preprocess_tower"] = time_ms(
+            lambda: enc._forward(enc.params, canvas), reps=3)
+        q[name] = enc._forward(enc.params, canvas)
+    per_sub = {
+        "mtcnn": time_ms(lambda: face_enc._detect(
+            face_enc.mtcnn_params, sub_imgs, sub_hws), reps=3),
+        "align_arcface": time_ms(lambda: face_enc._align_embed(
+            face_enc.embedder.params, sub_imgs, lms), reps=3)}
+    device_ms["mtcnn"] = per_sub["mtcnn"] * n_sub
+    device_ms["align_arcface"] = per_sub["align_arcface"] * n_sub
+    host["face_leg_host_ms"] = host["face_leg_wall_ms"] - (
+        device_ms["mtcnn"] + device_ms["align_arcface"])
+    present = torch.from_numpy(~no_image[:BATCH])
+    agreement["feature_max_rel_diff"] = {
+        name: rel_error(q[name][: len(first)][present],
+                        torch.from_numpy(feats[name][:BATCH][present.numpy()]))
+        for name in encoders}
+    rows = np.zeros((BATCH, feats["arcface"].shape[1]), np.float32)
+    rows[: len(first)] = np.nan_to_num(feats["arcface"][:BATCH])
+    q["arcface"] = torch.from_numpy(rows).to(dev)
+    s_list, i_list = [], []
+    for name, index in indexes.items():
+        label = "b1_dpr" if name == "dpr" else f"search_{name}"
+        device_ms[label] = time_ms(lambda: index.search_device(
+            q[name], *index.snapshot(), K), reps=3)
+        s, i = index.search_device(q[name], *index.snapshot(), K)
+        s_list.append(s)
+        i_list.append(i)
+    weights = tuple(FUSION_WEIGHTS.values())
+    device_ms["fuse_topk"] = time_ms(lambda: fuse_topk(
+        s_list, i_list, weights, K, norm="gzmuv", valid_queries=N_QUERIES),
+        reps=3)
+    del q, s_list, i_list
+
+    # ---- a stream of several full batches ------------------------------
+    stream_queries = main["stream_queries"]
+    stream_images = dict.fromkeys(FUSION_WIDTHS, [
+        pics[j % N_QUERIES] for j in range(len(stream_queries))])
+
+    def run_stream():
+        return pipe.run_arrays(stream_queries, query_images=stream_images)
+
+    keep, pipe.timer = pipe.timer, TimelineTimer(pipe.timer.name)
+    t0 = time.perf_counter()
+    run_stream()
+    t1 = time.perf_counter()
+    stream = {"queries": len(stream_queries), "batches": STREAM_BATCHES,
+              "wall_ms": (t1 - t0) * 1e3,
+              "batch_ms": (t1 - t0) * 1e3 / STREAM_BATCHES,
+              "stages": pipe.timer.report(),
+              "timeline": pipe.timer.timeline(t0, t1)}
+    pipe.timer = keep
+    # traced over one batch (the checked run): the face leg's NMS loops put
+    # ~4k kernels a sub-batch on the card, and the profiler keeps every one
+    stream.update(traced)
+    batch_ms = stream["batch_ms"]
+    qps = N_QUERIES / (batch_ms / 1e3 * n_batches)
+    device_sum = float(sum(device_ms.values()))
+    stream["device_idle_share_derived"] = max(
+        0.0, 1.0 - device_sum / stream["batch_ms"])
+    emit({"phase": "image_fusion", "indexes": {
+              n: [ix.n, ix.d, str(ix.dtype).removeprefix("torch."), ix.mode,
+                  ix.do_l2norm] for n, ix in indexes.items()},
+          "online_legs": {"imagenet-RN50": "ImageEmbedder(ResNet-50, "
+                          "imagenet)", "clip-RN50": "ImageEmbedder(CLIP "
+                          "RN50, clip)", "arcface": "FaceQueryEncoder("
+                          "MTCNN + ArcFace r50)"},
+          "face_thresholds": list(face_enc.mtcnn_cfg.thresholds),
+          "face_batch": FACE_BATCH, "towers_dtype": "float32",
+          "weights": FUSION_WEIGHTS, "norm": "gzmuv",
+          "query_image_sides": list(QUERY_SIDES), **absent,
+          "b1_launches": launches, "batch_ms": batch_ms, "qps": qps,
+          "batch_ms_is": "the 4-batch stream's wall over its batches",
+          "host_ms": host, "device_ms": device_ms,
+          "device_ms_sum": device_sum, "face_sub_batches": n_sub,
+          "face_per_sub_batch_ms": per_sub,
+          "online_vs_precomputed": agreement, "stream": stream})
+    check(tie_aware_ok(agreement),
+          f"online legs against the same features precomputed: {agreement}")
+    check(nan_rows["imagenet-RN50"] == nan_rows["clip-RN50"]
+          == absent["no_image"] and nan_rows["arcface"] >= absent["no_image"],
+          f"queries without an image are absent from the image legs: "
+          f"{absent}")
+    check(np.isfinite(scores).all() and ids.max() < N_KB,
+          "late fusion outputs")
+    return {"pipe": pipe, "indexes": indexes, "encoders": encoders,
+            "faces": faces, "pics": pics, "launches": launches,
+            "stream_launches": STREAM_BATCHES}
+
+
+def png_b64(image) -> str:
+    buf = io.BytesIO()
+    image.save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def phase_vqa_server(dev, main, shared, fusion) -> dict:
+    """Phase 16's server with images: make_http_server over a
+    BatchedVQAService whose AnswerPipeline reads with phase 13's reader over
+    phase 18's indexes and online legs (SERVER_ANSWERS a dispatch):
+    SERVER_ANSWERS concurrent POST /answer, with an image for every leg,
+    with a face image only, or with none; each response against the direct
+    call on its recorded batch."""
+    embedder = PackedTextEmbedder(
+        main["embedder"].packed_apply_fn, main["embedder"].params,
+        WhitespaceTokenizer(), row_len=ROW_LEN, batch_size=SERVER_ANSWERS,
+        fixed_rows=PackedTextEmbedder.ROWS_GRANULARITY,
+        compute_dtype=torch.bfloat16, device=dev)
+    retrieval = MultiIndexRetrievalPipeline(
+        embedder, fusion["indexes"], FUSION_WEIGHTS, text_index="dpr",
+        batch_size=SERVER_ANSWERS, k=K, norm="gzmuv",
+        image_encoders=fusion["encoders"], face_encoders=fusion["faces"])
+    reader = shared["reader"]
+    answers = AnswerPipeline(
+        retrieval, shared["kb"], reader.cfg, reader, WhitespaceTokenizer(),
+        m_passages=READER_M, reader_seq=READER_SEQ,
+        passage_tokens_key="passage_tokens",
+        questions_per_step=READER_QUESTIONS,
+        compute_dtype=next(reader.parameters()).dtype, device=dev)
+    seen = RecordedBatches(answers)
+    names = list(FUSION_WIDTHS)
+    service = BatchedVQAService(seen, names, max_batch=SERVER_ANSWERS,
+                                max_wait_ms=100.0)
+    server = make_http_server("127.0.0.1", 0, vqa=service)
+    server.socket.listen(4 * SERVER_ANSWERS)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        questions = lognormal_questions(np.random.default_rng(19),
+                                        SERVER_ANSWERS)
+        pics = [p for p in fusion["pics"] if p is not None]
+        payloads = []
+        for j, question in enumerate(questions):
+            payload = {"question": question}
+            if j % 4 in (0, 1):
+                payload["image_b64"] = png_b64(pics[j])
+            elif j % 4 == 2:
+                payload["images_b64"] = {"arcface": png_b64(pics[j])}
+            payloads.append(payload)
+        warm = {n: [pics[0]] + [None] * (SERVER_ANSWERS - 1) for n in names}
+        answers.run([questions[0]] + [""] * (SERVER_ANSWERS - 1),
+                    query_images=warm)
+        seen.batches.clear()
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        got, seconds = concurrent_posts(f"{base}/answer", payloads)
+        launches = mips_fused.fused_score_segmax_qmajor.launches
+        check(all(status == 200 for status, _, _ in got), "/answer statuses")
+        check(launches == len(seen.batches) == service.batcher.n_dispatches,
+              f"{launches} B1 launches for {len(seen.batches)} VQA "
+              "dispatches")
+        expected = {}
+        for questions_b, kwargs in seen.batches:
+            check(len(questions_b) == SERVER_ANSWERS, "a VQA dispatch not "
+                  f"padded to {SERVER_ANSWERS} questions")
+            expected.update({q: out for q, out in zip(
+                questions_b, answers.run(questions_b, **kwargs)) if q})
+        equal = sum(json.loads(json.dumps(expected[p["question"]])) == body
+                    for p, (_, body, _) in zip(payloads, got))
+        latencies = [sec for _, _, sec in got]
+        emit({"phase": "server_vqa", "service": {
+                  "max_batch": SERVER_ANSWERS, "max_wait_ms": 100.0,
+                  "legs": names, "reader": "padded"},
+              "requests": len(payloads),
+              "with_every_image": sum("image_b64" in p for p in payloads),
+              "with_face_image_only": sum("images_b64" in p
+                                          for p in payloads),
+              "dispatches": len(seen.batches), "b1_launches": launches,
+              "answers_equal_direct_call": equal, "wall_s": seconds,
+              "latency_ms": {"p50": float(np.percentile(latencies, 50) * 1e3),
+                             "max": float(np.max(latencies) * 1e3)}})
+        check(equal == SERVER_ANSWERS, f"/answer with images: {equal} of "
+              f"{SERVER_ANSWERS} responses equal the direct call")
+        return {"server_vqa": launches}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        service.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2115,13 +2762,22 @@ def main() -> int:
     sparse = phase_bm25(dev)
     launches_by_path.update(phase_hybrid(dev, main_path, sparse))
     launches_by_path.update(phase_server(dev, main_path, sparse, shared))
-    kernels[0]["launches_by_path"] = launches_by_path
     sparse_peak = torch.cuda.max_memory_allocated()
+    del sparse
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    chain = phase_towers(dev)
+    fusion = phase_image_fusion(dev, main_path, chain)
+    launches_by_path["image_fusion"] = fusion["launches"]
+    launches_by_path.update(phase_vqa_server(dev, main_path, shared, fusion))
+    kernels[0]["launches_by_path"] = launches_by_path
+    image_peak = torch.cuda.max_memory_allocated()
     emit({"phase": "device_memory",
           "max_memory_allocated_reader_phases": reader_peak,
           "max_memory_allocated_bm25_hybrid_server_phases": sparse_peak,
+          "max_memory_allocated_image_phases": image_peak,
           "max_memory_allocated": max(before_reader, reader_peak,
-                                      sparse_peak)})
+                                      sparse_peak, image_peak)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

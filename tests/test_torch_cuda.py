@@ -1,12 +1,16 @@
 """GPU-only tests: each CUDA kernel of the port against its plain PyTorch
-version, and the wrapper's argument checks. They skip without a GPU (a
-CUDA kernel has no CPU mode). This file imports no JAX, so it also runs on
+version, and the wrapper's argument checks; the port's paths on the card
+against the CPU (encoders, reader, BM25, the image towers and the face
+cascade) and without host reads where a serving step must not wait. They
+skip without a GPU (a CUDA kernel has no CPU mode). This file imports no JAX, so it also runs on
 a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.)
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -684,7 +688,7 @@ def test_canvas_streams_enqueue_without_waiting_for_the_device(cuda, which):
         pipe = serving.MultiIndexRetrievalPipeline(
             emb, {"dpr": fused, "img": img}, {"dpr": 0.6, "img": 0.4}, "dpr",
             batch_size=16, k=5)
-        args = ({"img": rng.normal(size=(40, 24)).astype(np.float32)},)
+        args = ({"img": rng.normal(size=(40, 24)).astype(np.float32)}, {})
     else:
         sparse = host if which == "hybrid-host" else DeviceBM25(
             host, n_head=16, l_small=32, q_block=8, device=cuda)
@@ -789,3 +793,242 @@ def test_hybrid_pipeline_on_gpu_equals_cpu(cuda, backend):
         assert len(shared) >= 9, (q, got, want)
         for d in shared:
             assert abs(got[d] - want[d]) <= 2e-2 * max(1.0, abs(want[d]))
+
+
+# ---- the image and face chain ---------------------------------------------
+def _close_rel(a, b, rel):
+    a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+    assert np.isfinite(a).all() and a.shape == b.shape
+    assert np.abs(a - b).max() <= rel * np.abs(b).max(), (
+        np.abs(a - b).max(), np.abs(b).max())
+
+
+def _towers(device):
+    """The four towers at published widths, depth cut to one block a
+    stage, seeded: (name, module, apply, input side)."""
+    from viquae_torch.models import arcface, clip, resnet
+
+    res = resnet.ResNetConfig(stage_sizes=(1, 1, 1, 1))
+    mrn = clip.ModifiedResNetConfig(stage_sizes=(1, 1, 1, 1))
+    vit = clip.CLIPVisionConfig(num_layers=2)
+    arc = arcface.ArcFaceConfig(stage_sizes=(1, 1, 1, 1))
+    return [
+        ("resnet50", resnet.init(res, seed=0, device=device),
+         lambda m, x, cd: resnet.apply(m, res, x, cd), 224),
+        ("clip_rn50", clip.modified_resnet_init(mrn, seed=1, device=device),
+         lambda m, x, cd: clip.modified_resnet_apply(m, mrn, x, cd), 224),
+        ("clip_vit_b32", clip.vit_init(vit, seed=2, device=device),
+         lambda m, x, cd: clip.vit_apply(m, vit, x, cd or torch.float32)[
+             "image_embeds"], 224),
+        ("arcface_r50", arcface.init(arc, seed=3, device=device),
+         lambda m, x, cd: arcface.apply(m, arc, x, cd), 112),
+    ]
+
+
+@pytest.mark.parametrize("which", range(4),
+                         ids=["resnet50", "clip_rn50", "clip_vit_b32",
+                              "arcface_r50"])
+def test_image_towers_on_gpu_match_cpu(cuda, which):
+    """Each tower on the card against the same weights on the CPU: f32
+    within 1e-3 of the embedding scale (reordered f32 sums, TF32 off);
+    bf16 compute_dtype within 5e-2."""
+    name, model, apply, side = _towers(cuda)[which]
+    x = torch.randn(4, side, side, 3, generator=torch.Generator().manual_seed(
+        which)).to(cuda)
+    on_gpu = apply(model, x, None)
+    on_cpu = apply(model.to("cpu"), x.cpu(), None)
+    _close_rel(on_gpu, on_cpu, 1e-3)
+    model.to(cuda)
+    _close_rel(apply(model, x, torch.bfloat16), on_cpu, 5e-2)
+
+
+def _cascade_case(device, n=6, canvas=128):
+    from viquae_torch.models import mtcnn
+
+    cfg = mtcnn.MTCNNConfig(canvas=canvas, thresholds=(0.5, 0.5, 0.5))
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (n, canvas, canvas, 3), generator=gen)
+    images[1, canvas // 2:] = 0                      # ties: flat padding
+    hws = torch.tensor([[canvas, canvas]] * n, dtype=torch.float32)
+    hws[1, 0] = canvas // 2
+    return mtcnn.init(seed=3, device=device), cfg, images.float().to(
+        device), hws.to(device)
+
+
+def test_mtcnn_cascade_on_gpu_matches_cpu(cuda):
+    """detect_faces_batch on the card against the CPU: valid masks equal,
+    boxes within 1e-2 px where valid (the seed's stage probabilities lie
+    >= 1e-4 from their thresholds, checked on the CPU run)."""
+    from viquae_torch.models import mtcnn
+
+    params, cfg, images, hws = _cascade_case(cuda)
+    got = mtcnn.detect_faces_batch(params, images, hws, cfg)
+    cpu = params.to("cpu")
+    boxes, scores, regs, valid = mtcnn.pnet_stage(cpu, images.cpu(),
+                                                  hws.cpu(), cfg)
+    b1, v1 = mtcnn.stage1_nms(boxes, scores, regs, valid, cfg)
+    p2, b2, v2 = mtcnn.rnet_stage(cpu, images.cpu(), b1, v1, cfg)
+    p3, ref = mtcnn.onet_stage(cpu, images.cpu(), b2, v2, cfg)
+    assert float((p2 - 0.5).abs()[v1].min()) > 1e-4
+    assert float((p3 - 0.5).abs()[v2].min()) > 1e-4
+    assert torch.equal(got["valid"].cpu(), ref["valid"])
+    assert int(ref["valid"].sum()) > 0
+    mask = ref["valid"]
+    np.testing.assert_allclose(got["boxes"].cpu()[mask].numpy(),
+                               ref["boxes"][mask].numpy(), atol=1e-2)
+
+
+def test_batched_nms_on_gpu_matches_a_per_image_loop(cuda):
+    """nms_fixed over a batch of rows in one call equals the same call
+    row by row, on the card, with ties and an all-invalid row."""
+    from viquae_torch.models import mtcnn
+
+    gen = torch.Generator().manual_seed(1)
+    boxes = torch.rand(32, 64, 4, generator=gen) * 100
+    boxes[..., 2:] = boxes[..., :2] + 5 + torch.rand(32, 64, 2,
+                                                     generator=gen) * 25
+    scores = torch.rand(32, 64, generator=gen)
+    scores[3] = 0.5
+    valid = torch.rand(32, 64, generator=gen) < 0.7
+    valid[5] = False
+    boxes, scores, valid = boxes.to(cuda), scores.to(cuda), valid.to(cuda)
+    for mode, cap in (("union", None), ("min", 16)):
+        batched = mtcnn.nms_fixed(boxes, scores, valid, 0.5, mode, cap)
+        for r in range(32):
+            one = mtcnn.nms_fixed(boxes[r], scores[r], valid[r], 0.5, mode,
+                                  cap)
+            assert torch.equal(batched[r], one), (mode, r)
+
+
+def test_cascade_and_face_leg_make_no_host_read_in_their_loops(cuda):
+    """detect_faces_batch (pyramid, every NMS loop, RNet, ONet) and the
+    face leg's device program enqueue without waiting for the device
+    (torch's sync debug mode raises on a wait). The face leg's one read
+    per sub-batch comes after the program and is not in it."""
+    from viquae_torch.image.face_recognition import FaceQueryEncoder
+    from viquae_torch.models import arcface, mtcnn
+
+    params, cfg, images, hws = _cascade_case(cuda, n=4)
+    acfg = arcface.ArcFaceConfig(stage_sizes=(1, 1, 1, 1), width=16,
+                                 embedding_size=32)
+    enc = FaceQueryEncoder(params, arcface.init(acfg, seed=0, device=cuda),
+                           mtcnn_cfg=cfg, arcface_cfg=acfg, batch_size=4,
+                           device=cuda)
+    u8 = images.to(torch.uint8)
+    mtcnn.detect_faces_batch(params, images, hws, cfg)      # warm-up
+    enc._face_program(params, enc.embedder.params, u8, hws)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        det = mtcnn.detect_faces_batch(params, images, hws, cfg)
+        emb, has, _ = enc._face_program(params, enc.embedder.params, u8, hws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert det["valid"].shape == (4, cfg.max_faces)
+    assert emb.shape == (4, 32) and has.dtype == torch.bool
+
+
+def test_image_legs_enqueue_without_waiting_for_the_device(cuda):
+    """Phase 18's image legs (raw uint8 canvas upload -> preprocess ->
+    ResNet / CLIP RN50 -> search -> fuse) add no wait on the device to the
+    multi-index stream: every batch is enqueued under torch's sync debug
+    mode. (The face leg reads back once per sub-batch, as the reference's
+    does, and is left out.)"""
+    from PIL import Image
+
+    from viquae_torch.image.embedding import ImageEmbedder
+    from viquae_torch.ir import serving
+    from viquae_torch.models import clip, resnet
+
+    embedder, kb, _, queries = _tiny_retrieval_parts(cuda)
+    emb = embedder(cuda, torch.bfloat16)
+    rng = np.random.default_rng(2)
+    res = resnet.ResNetConfig(stage_sizes=(1, 1), width=8)
+    mrn = clip.ModifiedResNetConfig(stage_sizes=(1, 1, 1, 1), width=8,
+                                    output_dim=16, heads=4, image_size=64)
+    encoders = {
+        "imagenet": ImageEmbedder(
+            lambda p, x: resnet.apply(p, res, x),
+            resnet.init(res, seed=0, device=cuda), "imagenet",
+            image_size=64, preprocessing="imagenet", device=cuda),
+        "clip": ImageEmbedder(
+            lambda p, x: clip.modified_resnet_apply(p, mrn, x),
+            clip.modified_resnet_init(mrn, seed=1, device=cuda), "clip",
+            image_size=64, preprocessing="clip", device=cuda)}
+    indexes = {"dpr": tm.DenseIndex(kb, mode="fused", device=cuda)}
+    for name, d in (("imagenet", 64), ("clip", 16)):
+        indexes[name] = tm.DenseIndex(rng.normal(size=(512, d)),
+                                      do_l2norm=True, mode="global",
+                                      dtype=torch.bfloat16, device=cuda)
+    pipe = serving.MultiIndexRetrievalPipeline(
+        emb, indexes, {"dpr": 0.6, "imagenet": 0.2, "clip": 0.2}, "dpr",
+        batch_size=16, k=5, image_encoders=encoders)
+    images = [None if i % 4 == 3 else Image.fromarray(rng.integers(
+        0, 255, (80, 100, 3), dtype=np.uint8)) for i in range(len(queries))]
+    query_images = {"imagenet": images, "clip": images}
+    list(pipe._canvas_stream(queries, {}, query_images))   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batches = list(pipe._canvas_stream(queries, {}, query_images))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [start for start, _, _, _ in batches] == [0, 16, 32]
+    for _, _, scores, idx in batches:
+        assert scores.is_cuda and idx.shape == (16, 5)
+
+
+def test_face_query_encoder_on_gpu_matches_cpu(cuda):
+    """The online face leg on the card against the CPU on the same images:
+    the same faces found, landmarks within 1 px (on random pixels a box
+    shift of 1e-3 px moves a crop's pixels by ~0.25 and the regressions
+    after it, so the devices' f32 reorderings grow through the three
+    stages), and the card's embeddings within 1e-3 of the embedding scale
+    of the CPU's align + ArcFace on the card's landmarks; through
+    ``__call__``, the redo path of an image larger than the canvas
+    included, the same rows are NaN."""
+    from PIL import Image
+
+    from viquae_torch.image.face_recognition import FaceQueryEncoder
+    from viquae_torch.models import arcface, mtcnn
+
+    cfg = mtcnn.MTCNNConfig(canvas=128, thresholds=(0.5, 0.5, 0.5))
+    acfg = arcface.ArcFaceConfig(stage_sizes=(1, 1, 1, 1), width=16,
+                                 embedding_size=32)
+    rng = np.random.default_rng(3)
+    images = [None, Image.fromarray(rng.integers(0, 255, (128, 96, 3),
+                                                 dtype=np.uint8)),
+              Image.fromarray(rng.integers(0, 255, (200, 150, 3),
+                                           dtype=np.uint8)),
+              Image.fromarray(rng.integers(0, 255, (90, 128, 3),
+                                           dtype=np.uint8))]
+    m_params = mtcnn.init(seed=5, device="cpu")
+    a_params = arcface.init(acfg, seed=6, device="cpu")
+    encoders = {dev: FaceQueryEncoder(
+        copy.deepcopy(m_params).to(dev), copy.deepcopy(a_params).to(dev),
+        mtcnn_cfg=cfg, arcface_cfg=acfg, batch_size=4, device=dev)
+        for dev in (cuda, torch.device("cpu"))}
+    out = {dev: enc(images) for dev, enc in encoders.items()}
+    np.testing.assert_array_equal(np.isnan(out[cuda]),
+                                  np.isnan(out[torch.device("cpu")]))
+    assert np.isfinite(out[cuda]).all(1).sum() >= 1
+
+    canvas = torch.zeros(4, 128, 128, 3, dtype=torch.uint8)
+    hws = torch.zeros(4, 2)
+    for i in range(4):
+        a = torch.from_numpy(rng.integers(0, 255, (100 + 8 * i, 128, 3),
+                                          dtype=np.uint8))
+        canvas[i, : a.shape[0]] = a
+        hws[i] = torch.tensor(a.shape[:2], dtype=torch.float32)
+    runs = {dev: enc._face_program(enc.mtcnn_params, enc.embedder.params,
+                                   canvas.to(dev), hws.to(dev))
+            for dev, enc in encoders.items()}
+    (emb_g, has_g, lms_g), (_, has_c, lms_c) = (
+        [t.cpu() for t in runs[d]] for d in (cuda, torch.device("cpu")))
+    assert torch.equal(has_g, has_c) and bool(has_g.any())
+    lm_err = float((lms_g - lms_c)[has_g].abs().max())
+    assert lm_err <= 1.0, lm_err
+    cpu = encoders[torch.device("cpu")]
+    ref = cpu._align_embed(cpu.embedder.params, canvas.float(), lms_g)
+    scale = float(ref[has_g].abs().max())
+    assert float((emb_g - ref)[has_g].abs().max()) <= 1e-3 * scale

@@ -9,7 +9,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 TEXTUAL = ("data/utils", "data/sentencize", "data/loading", "data/infoseek",
-           "train/metrics", "ops/bm25", "ir/metrics", "ir/hp")
+           "train/metrics", "ops/bm25", "ir/metrics", "ir/hp",
+           "image/face_box", "image/resize")
 # module -> the only lines (stripped) that the copy may add or drop
 DIFFERS = {
     "ir/fuse": {"import yaml"},
@@ -23,6 +24,7 @@ DIFFERS = {
         "import viquae_torch.models  # noqa: F401",
         "# lazily import the model modules whose import registers entries",
         "import viquae_torch.models.qa  # noqa: F401",
+        "import viquae_torch.models.clip  # noqa: F401",
         "config = (yaml.safe_load(text) if path.suffix in "
         "(\".yaml\", \".yml\")",
         "else json.loads(text))",

@@ -50,7 +50,11 @@ print(json.dumps({{"modules": names, "forbidden": bad}}))
     for module in ("ops.mips_fused", "ops.fusion", "ir.serving",
                    "rankeval.compare", "ir.search", "ir.qa_serving",
                    "models.qa", "ops.bm25", "data.loading", "core.config",
-                   "ops.bm25_device", "ir.server"):
+                   "ops.bm25_device", "ir.server", "ops.image",
+                   "models.resnet", "models.clip", "models.arcface",
+                   "models.mtcnn", "image.embedding", "image.face_detection",
+                   "image.face_recognition", "image.face_box",
+                   "image.resize"):
         assert f"viquae_torch.{module}" in res["modules"]
 
 
@@ -136,3 +140,30 @@ def test_hybrid_parts_and_services_refuse_to_fall_back_to_cpu(monkeypatch):
     pipe = HybridRetrievalPipeline(None, index, sparse, k=2)
     assert sparse.device == index.device == torch.device("cpu")
     assert pipe.k_bm25 == 2
+
+
+def test_image_and_face_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """The towers' seeded inits, their JAX-tree loaders and the image and
+    face stages resolve their device as every entry point does: the GPU,
+    or the CPU when it is named."""
+    from viquae_torch.image.embedding import ImageEmbedder
+    from viquae_torch.image.face_detection import FaceDetector
+    from viquae_torch.image.face_recognition import (FaceEmbedder,
+                                                     FaceQueryEncoder)
+    from viquae_torch.models import arcface, clip, mtcnn, resnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = resnet.ResNetConfig(stage_sizes=(1,), width=8)
+    for call in (lambda: resnet.init(small),
+                 lambda: mtcnn.init(),
+                 lambda: arcface.init(arcface.ArcFaceConfig(
+                     stage_sizes=(1,), width=8, embedding_size=4)),
+                 lambda: clip.CLIPTextTower(num_layers=1, vocab_size=10),
+                 lambda: ImageEmbedder(None, None, "e"),
+                 lambda: FaceDetector(None),
+                 lambda: FaceEmbedder(None),
+                 lambda: FaceQueryEncoder(None, None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    model = resnet.init(small, device="cpu")
+    assert next(model.parameters()).device == torch.device("cpu")

@@ -2,8 +2,8 @@
 (viquae_torch/ir/server.py): the cases of tests/test_server.py (:21-161
 the batcher, :215 the retrieval service, :244 the answer service, :277 the
 HTTP front, :336 index adds under the service) on the port's pipelines on
-the CPU, the transient-error rules restated for CUDA, and the VQA service,
-whose online image legs are not ported yet.
+the CPU, the transient-error rules restated for CUDA, and the VQA service
+(its online legs are served in tests/test_torch_image_serving.py).
 
 Tolerances: a service's response equals the direct pipeline call on the
 same padded batch: ids exactly, scores within 1e-5 (they are the same
@@ -558,7 +558,7 @@ def test_service_sees_concurrent_index_adds(parts):
 
 
 # ---------------------------------------------------------------------------
-# the VQA service: ported, its pipeline's online image legs are not
+# the VQA service
 # ---------------------------------------------------------------------------
 @time_limit(30)
 def test_vqa_service_pads_questions_and_images():
@@ -582,10 +582,11 @@ def test_vqa_service_pads_questions_and_images():
 
 @time_limit(60)
 def test_vqa_online_image_legs_refuse_by_name(parts):
-    """The multi-index pipeline has no online image or face leg yet
-    (ROADMAP.md A14): building one with encoders raises by name, and a
-    VQA request that carries an image for a pipeline built without them
-    fails with the pipeline's own error, not a wrong answer."""
+    """The multi-index pipeline takes online image and face legs by index
+    name: an unknown name or the text index is refused by name, and a VQA
+    request that carries an image for a pipeline built WITHOUT online
+    encoders fails with the pipeline's own error, not a wrong answer.
+    (tests/test_torch_image_serving.py serves real image and face legs.)"""
     from viquae_torch.ir.serving import MultiIndexRetrievalPipeline
     from viquae_torch.ops import mips
 
@@ -594,11 +595,22 @@ def test_vqa_online_image_legs_refuse_by_name(parts):
                "clip": mips.DenseIndex(kb[:, :8], mode="global",
                                        device="cpu")}
     weights = {"dpr": 0.5, "clip": 0.5}
-    for legs in (dict(image_encoders={"clip": object()}),
-                 dict(face_encoders={"clip": object()})):
-        with pytest.raises(NotImplementedError, match="A14"):
+    for legs, match in ((dict(image_encoders={"dpr": object()}),
+                         "image_encoders"),
+                        (dict(face_encoders={"dpr": object()}),
+                         "face_encoders"),
+                        (dict(image_encoders={"nope": object()}),
+                         "image_encoders")):
+        with pytest.raises(ValueError, match=match):
             MultiIndexRetrievalPipeline(embedder, indexes, weights, "dpr",
                                         batch_size=8, k=5, **legs)
+    for legs in (dict(image_encoders={"clip": object()}),
+                 dict(face_encoders={"clip": object()})):
+        online = MultiIndexRetrievalPipeline(embedder, indexes, weights,
+                                             "dpr", batch_size=8, k=5,
+                                             **legs)
+        assert set(online.image_encoders) | set(online.face_encoders) == {
+            "clip"}
     retrieval = MultiIndexRetrievalPipeline(embedder, indexes, weights,
                                             "dpr", batch_size=8, k=5)
 

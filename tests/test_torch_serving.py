@@ -334,8 +334,16 @@ def test_multi_index_pipeline_rejects_bad_inputs(setup):
                "clip": tm.DenseIndex(kb[:, :8], mode="global",
                                      device="cpu")}
     weights = {"dpr": 0.5, "clip": 0.5}
-    with pytest.raises(NotImplementedError, match="A14"):
-        TMulti(t_emb, indexes, weights, "dpr", image_encoders={"clip": 1})
+    # online legs: only non-text index names, and an index takes one leg
+    with pytest.raises(ValueError, match="image_encoders"):
+        TMulti(t_emb, indexes, weights, "dpr", image_encoders={"nope": 1})
+    with pytest.raises(ValueError, match="image_encoders"):
+        TMulti(t_emb, indexes, weights, "dpr", image_encoders={"dpr": 1})
+    with pytest.raises(ValueError, match="face_encoders"):
+        TMulti(t_emb, indexes, weights, "dpr", image_encoders={"clip": 1},
+               face_encoders={"clip": 1})
+    online = TMulti(t_emb, indexes, weights, "dpr", image_encoders={"clip": 1})
+    assert online.image_encoders == {"clip": 1} and not online.face_encoders
     with pytest.raises(ValueError, match="text_index"):
         TMulti(t_emb, indexes, weights, "nope")
     with pytest.raises(ValueError, match="weights keys"):

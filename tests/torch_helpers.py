@@ -62,3 +62,58 @@ def device_bm25_arrays(dev) -> dict:
         "tail_offsets": np.asarray(dev.tail_offsets),
         "l_mid": dev.l_mid, "l_small": dev.l_small, "d_pad": dev.d_pad,
     }
+
+
+def jax_tree(module):
+    """The JAX package's param tree (numpy f32 leaves) of a port module
+    whose submodules are named as the tree's keys: the inverse of
+    ``viquae_torch.models.convert.state_dict_from_tree``. Lets a test draw
+    seeded weights with the port (fast) and hand the same weights to the
+    JAX functions."""
+    from torch import nn
+
+    def arr(t):
+        return t.detach().cpu().float().numpy().copy()
+
+    def node(mod):
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            w = arr(mod.weight)
+            out = {"kernel": w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T}
+            if mod.bias is not None:
+                out["bias"] = arr(mod.bias)
+            return out
+        if hasattr(mod, "running_mean"):
+            return {"scale": arr(mod.weight), "bias": arr(mod.bias),
+                    "mean": arr(mod.running_mean),
+                    "var": arr(mod.running_var)}
+        if isinstance(mod, nn.LayerNorm):
+            return {"scale": arr(mod.weight), "bias": arr(mod.bias)}
+        if isinstance(mod, nn.PReLU):
+            return {"alpha": arr(mod.weight)}
+        if isinstance(mod, nn.ModuleList):
+            return [node(child) for child in mod]
+        out = {name: arr(p) for name, p in
+               mod.named_parameters(recurse=False)}
+        out.update({name: node(child) for name, child in
+                    mod.named_children()})
+        return out
+
+    return node(module)
+
+
+def randomize_batch_norm_(module, seed: int = 0):
+    """Non-trivial batch-norm statistics (mean/var mix-ups must show):
+    means and shifts U(-0.2, 0.2), variances and scales U(0.5, 1.5)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in module.modules():
+            if hasattr(mod, "running_mean"):
+                for t, (lo, hi) in ((mod.running_mean, (-0.2, 0.2)),
+                                    (mod.bias, (-0.2, 0.2)),
+                                    (mod.running_var, (0.5, 1.5)),
+                                    (mod.weight, (0.5, 1.5))):
+                    t.copy_(torch.rand(t.shape, generator=gen)
+                            * (hi - lo) + lo)
+    return module

@@ -16,9 +16,10 @@ Components:
   pipelines switch grad mode off inside their own device entry points.
 - :class:`BatchedRetrievalService` / :class:`BatchedAnswerService` —
   adapters over `ir.serving.RetrievalPipeline.run_arrays` and
-  `ir.qa_serving.AnswerPipeline.run` with fixed-shape padding.
-  :class:`BatchedVQAService` is here too; the online image and face legs
-  of its pipeline are not ported yet (ROADMAP.md A14) and raise by name.
+  `ir.qa_serving.AnswerPipeline.run` with fixed-shape padding;
+  :class:`BatchedVQAService` serves (question, image) pairs through an
+  `AnswerPipeline` over a `MultiIndexRetrievalPipeline` with online image
+  and face legs.
 - :func:`make_http_server` — stdlib ThreadingHTTPServer exposing
   POST /search, POST /answer, GET /health. No web-framework dependency;
   `PIL` is imported only where an image payload is decoded.

@@ -14,15 +14,16 @@ Built so the GPU is the only critical path:
 Ported: ``drain_lagged``, ``RetrievalPipeline`` (``run_arrays`` and the
 rankeval ``Run`` output), ``FusedRetrievalPipeline`` over a "global",
 "approx" or "fused" ``DenseIndex``, ``MultiIndexRetrievalPipeline``
-(late fusion) with precomputed query features, and
-``HybridRetrievalPipeline`` (BM25 on the host or the device + dense). The
+(late fusion) with online image and face legs or precomputed query
+features, and ``HybridRetrievalPipeline`` (BM25 on the host or the device +
+dense). The
 reference's ``_device_search`` is ``DenseIndex.search_device``
 (ops/mips.py). ``compact_transfer`` chooses the dtype of uploaded query
 features as in the reference; the integer canvas always goes up as int32
 (the reference's int8/int16 wire dtypes buy nothing on PCIe). Every upload
 goes through pinned staging buffers (core/device.py ``upload``), so no
-dispatch waits for the device. The online image and face legs of the
-multi-index pipeline are listed in ROADMAP.md.
+dispatch waits for the device; the one read back inside a batch is the
+online face leg's (once per sub-batch, as in the reference).
 """
 from __future__ import annotations
 
@@ -189,22 +190,31 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
 
         packed text embed -> per-index single-pass search -> fuse_topk
 
-    The text index is searched with the packed DPR tower; every other index
-    with PRECOMPUTED per-query features passed to ``run_arrays`` (the
-    reference embeds query images and faces in offline stages). A feature
-    row with a NaN is that query's "no image / no face": the query is
+    The text index is searched with the packed DPR tower. An index named in
+    ``image_encoders`` (``image.embedding.ImageEmbedder``) is searched with
+    an embedding computed in the same chain of device work from the raw
+    query-image canvas: host decode, one uint8 upload, device preprocess
+    and tower. An index named in ``face_encoders``
+    (``image.face_recognition.FaceQueryEncoder``) gets the online face leg
+    (pixels -> MTCNN -> align -> ArcFace), run per batch on the host side
+    of the stream (it reads its results back once per sub-batch) and fed
+    through the same path as precomputed features. Every other index takes
+    PRECOMPUTED per-query features passed to ``run_arrays``. A query
+    without an image, or a feature row with a NaN (no image / no face), is
     absent from that index's run (-inf scores, INT32_MAX ids), which the
     default-minimum imputation of fuse_topk then skips. With
     ``compact_transfer`` (the default) features for a bf16 index are
     rounded to bf16 before the f32 L2 norm, as the reference's compact
     upload does; without it, and for an f32 index, they go up in f32 and
-    are normalised before the cast. All indexes share one doc-id space. gzmuv's global statistics are
-    per serving batch (the batch plays the role of the run), over the
-    batch's real queries only.
+    are normalised before the cast. All indexes share one doc-id space.
+    gzmuv's global statistics are per serving batch (the batch plays the
+    role of the run), over the batch's real queries only.
 
     indexes: {name: DenseIndex} (insertion order = fusion order), each in
     a single-pass mode; weights: {name: float}; text_index: the name
-    searched with the query TEXT. k is clamped to the smallest index.
+    searched with the query TEXT; query_images: {name: [PIL.Image | None]
+    * n_queries} for the names with an image or face encoder. k is clamped
+    to the smallest index.
     """
 
     def __init__(self, embedder, indexes, weights, text_index: str,
@@ -212,14 +222,17 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
                  norm: str = "gzmuv", timer: Optional[StageTimer] = None,
                  compact_transfer: bool = True,
                  image_encoders=None, face_encoders=None):
-        if image_encoders or face_encoders:
-            raise NotImplementedError(
-                "the online image and face legs (image_encoders, "
-                "face_encoders) are not ported yet (ROADMAP.md A14): pass "
-                "precomputed query_features")
         if text_index not in indexes:
             raise ValueError(f"text_index {text_index!r} not in indexes "
                              f"{list(indexes)}")
+        face_encoders = dict(face_encoders or {})
+        bad_face = ((set(face_encoders) - set(indexes))
+                    | (set(face_encoders) & set(image_encoders or {}))
+                    | ({text_index} & set(face_encoders)))
+        if bad_face:
+            raise ValueError(
+                f"face_encoders must name non-text indexes distinct from "
+                f"image_encoders; offending: {sorted(bad_face)}")
         bad = [n for n, ix in indexes.items() if ix.mode not in _SINGLE_PASS]
         if bad:
             raise ValueError(
@@ -228,6 +241,13 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
                 f"{bad}")
         if set(weights) != set(indexes):
             raise ValueError("weights keys must match indexes keys")
+        image_encoders = dict(image_encoders or {})
+        unknown = set(image_encoders) - set(indexes)
+        if unknown or text_index in image_encoders:
+            raise ValueError(
+                f"image_encoders must name non-text indexes; got "
+                f"{sorted(image_encoders)} vs indexes {list(indexes)} "
+                f"(text: {text_index!r})")
         super().__init__(embedder, indexes[text_index],
                          batch_size=batch_size,
                          k=min([k] + [ix.n for ix in indexes.values()]),
@@ -237,6 +257,8 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
         self.text_index = text_index
         self.norm = norm
         self.weights = tuple(float(weights[n]) for n in self.names)
+        self.image_encoders = image_encoders
+        self.face_encoders = face_encoders
 
     def _features(self, name: str, features, start: int, count: int
                   ) -> torch.Tensor:
@@ -253,9 +275,17 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
                  else torch.float32)
         return upload(rows, index.device).to(dtype)
 
-    def _canvas_stream(self, queries, query_features):
+    def _canvas_stream(self, queries, query_features, query_images):
+        from viquae_torch.image.embedding import decode_image_batch
+
         emb = self.embed_fn
         for start, chunk in self._batches(queries):
+            stop = start + len(chunk)
+            with self.timer.stage("face_legs"):
+                # the face leg reads back once per sub-batch: run it before
+                # this batch's device work is enqueued
+                faces = {n: enc(query_images[n][start: stop])
+                         for n, enc in self.face_encoders.items()}
             with self.timer.stage("tokenize+pack+dispatch"):
                 # each index's count read before its matrix (snapshot)
                 snaps = {n: ix.snapshot() for n, ix in self.indexes.items()}
@@ -265,9 +295,21 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
                     ok = None
                     if name == self.text_index:
                         q = q_text
+                    elif name in self.image_encoders:
+                        # raw uint8 canvas -> preprocess + tower, enqueued
+                        # with the rest of the batch
+                        enc = self.image_encoders[name]
+                        canvas, present = decode_image_batch(
+                            query_images[name][start: stop], enc.raw_size,
+                            self.batch_size)
+                        q = enc._forward(enc.params,
+                                         upload(canvas, enc.device))
+                        ok = upload(present, q.device)[:, None]
                     else:
-                        q = self._features(name, query_features[name],
-                                           start, len(chunk))
+                        # a face leg's rows are this batch's alone
+                        rows, at = ((faces[name], 0) if name in faces
+                                    else (query_features[name], start))
+                        q = self._features(name, rows, at, len(chunk))
                         ok = torch.isfinite(q).all(dim=1, keepdim=True)
                         q = torch.where(ok, q, 0.0)
                     s, i = self.indexes[name].search_device(
@@ -284,11 +326,13 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
             yield start, len(chunk), fused.to(torch.bfloat16), fused_idx
 
     def _validate_inputs(self, queries, query_features, query_images):
-        if query_images:
+        online = set(self.image_encoders) | set(self.face_encoders)
+        if set(query_images) != online:
             raise ValueError(
                 f"query_images keys {sorted(query_images)} must match "
-                f"image_encoders + face_encoders []")
-        missing = set(self.names) - {self.text_index} - set(query_features)
+                f"image_encoders + face_encoders {sorted(online)}")
+        missing = (set(self.names) - {self.text_index}
+                   - set(query_features) - online)
         if missing:
             raise ValueError(f"missing query_features for indexes "
                              f"{sorted(missing)}")
@@ -303,12 +347,22 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
                 raise ValueError(
                     f"query_features[{name!r}] has {len(f)} rows for "
                     f"{n} queries")
+        for name, imgs in query_images.items():
+            if len(imgs) != n:
+                raise ValueError(
+                    f"query_images[{name!r}] has {len(imgs)} entries for "
+                    f"{n} queries")
+
+    def _stream(self, queries, query_features, query_images):
+        query_features = query_features or {}
+        query_images = query_images or {}
+        self._validate_inputs(queries, query_features, query_images)
+        return self._canvas_stream(queries, query_features, query_images)
 
     def run_arrays(self, queries, query_features=None, query_images=None):
-        query_features = query_features or {}
-        self._validate_inputs(queries, query_features, query_images)
         return self._drain_arrays(
-            self._canvas_stream(queries, query_features), len(queries))
+            self._stream(queries, query_features, query_images),
+            len(queries))
 
     def run(self, query_ids, queries, query_features=None,
             query_images=None):
@@ -321,12 +375,11 @@ class MultiIndexRetrievalPipeline(FusedRetrievalPipeline):
     def run_device(self, queries, query_features=None, query_images=None):
         """[(start, scores_bf16, ids_int32)] per batch, left on the
         device; rows past the batch's real query count are padding."""
-        query_features = query_features or {}
-        self._validate_inputs(queries, query_features, query_images)
         return [
             (start, scores, idx)
             for start, _, scores, idx in PrefetchIterable(
-                self._canvas_stream(queries, query_features), buffer_size=2)
+                self._stream(queries, query_features, query_images),
+                buffer_size=2)
         ]
 
 

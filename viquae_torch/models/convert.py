@@ -9,6 +9,13 @@ same layout with numpy from a seed, for runs that need full-width weights
 and no checkpoint. :func:`reader_from_jax` and :func:`init_reader_tree` do
 the same for the reader tree (``bert``, ``qa_outputs``, ``score_proj_w/b``)
 and :class:`viquae_torch.models.qa.Reader`.
+
+:func:`state_dict_from_tree` and :func:`module_from_tree` do it for any tree whose
+modules are named as its keys (the image and face towers): a node with a
+``kernel`` becomes a ``weight`` (HWIO -> OIHW, (in, out) -> (out, in)), a
+batch-norm node (scale, bias, mean, var) becomes weight, bias,
+running_mean, running_var, a layer-norm node (scale, bias) weight and
+bias, a PReLU node (alpha) weight; bare arrays keep their names.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from viquae_torch.core.device import resolve_device
 from viquae_torch.models import qa
@@ -163,3 +171,59 @@ def init_reader_tree(cfg: qa.ReaderConfig, seed: int = 0,
         tree["score_proj_w"] = np.ones((1, 1), np.float32)
         tree["score_proj_b"] = np.zeros((1,), np.float32)
     return tree
+
+
+def state_dict_from_tree(tree) -> Dict[str, np.ndarray]:
+    """A JAX param tree (numpy or JAX leaves) -> a flat f32 state dict in
+    torch layouts (see the module docstring)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def f32(a):
+        return np.asarray(a, dtype=np.float32)
+
+    def visit(node, name):
+        key = (lambda k: f"{name}.{k}") if name else (lambda k: str(k))
+        if isinstance(node, dict):
+            if "kernel" in node:
+                kernel = f32(node["kernel"])
+                out[key("weight")] = (kernel.transpose(3, 2, 0, 1)
+                                      if kernel.ndim == 4 else kernel.T)
+                if "bias" in node:
+                    out[key("bias")] = f32(node["bias"])
+            elif "mean" in node and "var" in node:
+                out[key("weight")] = f32(node["scale"])
+                out[key("bias")] = f32(node["bias"])
+                out[key("running_mean")] = f32(node["mean"])
+                out[key("running_var")] = f32(node["var"])
+            elif "scale" in node:
+                out[key("weight")] = f32(node["scale"])
+                out[key("bias")] = f32(node["bias"])
+            elif "alpha" in node:
+                out[key("weight")] = f32(node["alpha"])
+            else:
+                for k, v in node.items():
+                    visit(v, key(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                visit(v, key(i))
+        else:
+            out[name] = f32(node)
+
+    visit(tree, "")
+    return out
+
+
+def module_from_tree(module_cls, *args, tree, device=None,
+                     dtype: torch.dtype = torch.float32) -> nn.Module:
+    """``module_cls(*args)`` built on the meta device, with the JAX param
+    tree's tensors assigned on ``device`` (default: the GPU) in ``dtype``;
+    strict, so a tree and a module that disagree on a name or a shape
+    raise. The weights do not require grad."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        module = module_cls(*args)
+    sd = {name: torch.from_numpy(np.array(a, order="C")).to(
+        device=device, dtype=dtype)
+        for name, a in state_dict_from_tree(tree).items()}
+    module.load_state_dict(sd, strict=True, assign=True)
+    return module.requires_grad_(False).eval()

@@ -11,12 +11,15 @@ forward math and keep the JAX rounding points:
 - ``layer_norm`` runs in f32 whatever the input dtype;
 - attention logits and softmax are f32, the probabilities are rounded to
   ``compute_dtype`` before the product with the (f32) values;
+- the convolutional towers keep batch-norm statistics in :class:`BatchNorm`
+  and apply them in f32 (:func:`batch_norm`);
 - masks are FINITE additive biases (``finfo(float32).min * 0.5``): a canvas
   padding row allows no key at all, and a -inf or boolean mask would turn
   its softmax into NaN, which the next layer spreads to every real token
   sharing the row.
 
-Evaluation only: dropout is not ported.
+Evaluation only: dropout is not ported. :func:`init_weights_` draws
+seeded random weights for a module built from a config.
 """
 from __future__ import annotations
 
@@ -152,3 +155,86 @@ def attention_bias_from_segments(segment_ids: torch.Tensor) -> torch.Tensor:
     valid = (segment_ids > 0)[:, None, :]
     allowed = same & valid
     return ((~allowed).float() * (_F32_MIN * 0.5))[:, None]
+
+
+# ---- batch norm (inference statistics) ------------------------------------
+class BatchNorm(nn.Module):
+    """Inference batch-norm statistics of ``channels`` features, named as
+    torch's batch-norm layers (``weight``, ``bias``, ``running_mean``,
+    ``running_var``; the JAX tree's scale / bias / mean / var)."""
+
+    def __init__(self, channels: int, **factory):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels, **factory))
+        self.bias = nn.Parameter(torch.zeros(channels, **factory))
+        self.register_buffer("running_mean", torch.zeros(channels, **factory))
+        self.register_buffer("running_var", torch.ones(channels, **factory))
+
+
+def batch_norm(bn: BatchNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32 over dim 1
+    (channels of NCHW, features of (B, C)), folded into one scale and one
+    shift so that it is a single pass over ``x``."""
+    inv = torch.rsqrt(bn.running_var + eps) * bn.weight
+    shift = bn.bias - bn.running_mean * inv
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return torch.addcmul(shift.view(shape), x.float(), inv.view(shape))
+
+
+def prelu(p: nn.PReLU, x: torch.Tensor) -> torch.Tensor:
+    """Per-channel PReLU over dim 1 (``p.weight`` holds the slopes)."""
+    alpha = p.weight.view((1, -1) + (1,) * (x.dim() - 2))
+    return torch.where(x >= 0, x, alpha * x)
+
+
+# ---- seeded initialisation ------------------------------------------------
+def seeded(module_cls, *args, seed: int = 0, device=None,
+           **init_kwargs) -> nn.Module:
+    """``module_cls(*args)`` built on the meta device, materialised on
+    ``device`` (default: the GPU) and drawn by :func:`init_weights_`;
+    evaluation mode, no grad."""
+    from viquae_torch.core.device import resolve_device
+
+    with torch.device("meta"):
+        model = module_cls(*args)
+    model.to_empty(device=resolve_device(device))
+    return init_weights_(model, seed, **init_kwargs).requires_grad_(
+        False).eval()
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, seed: int, linear_std: float = 0.02,
+                  embed_std: float = 0.02) -> nn.Module:
+    """Draw every weight of ``module`` in place from a ``torch.Generator``
+    on the module's device, in the kinds of the JAX package's inits:
+    convolution kernels He-normal (std sqrt(2 / fan_in)), dense kernels
+    and bare embedding tables N(0, std), biases 0, norm scales 1 and shifts
+    0, running means 0 and variances 1, PReLU slopes 0.25. The draws are
+    not the JAX package's (another generator), so parity runs go through
+    converted weights."""
+    device = next(iter(module.parameters())).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    done = set()
+    for mod in module.modules():
+        params = dict(mod.named_parameters(recurse=False))
+        if isinstance(mod, nn.Conv2d):
+            fan_in = mod.weight[0].numel()
+            mod.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=gen)
+        elif isinstance(mod, nn.Linear):
+            mod.weight.normal_(0.0, linear_std, generator=gen)
+        elif isinstance(mod, (BatchNorm, nn.LayerNorm)):
+            mod.weight.fill_(1.0)
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        elif isinstance(mod, nn.PReLU):
+            mod.weight.fill_(0.25)
+        else:
+            for p in params.values():
+                p.normal_(0.0, embed_std, generator=gen)
+        if isinstance(mod, (nn.Conv2d, nn.Linear, BatchNorm, nn.LayerNorm)) \
+                and getattr(mod, "bias", None) is not None:
+            mod.bias.zero_()
+        done.update(id(p) for p in params.values())
+    assert all(id(p) in done for p in module.parameters())
+    return module
