@@ -111,12 +111,35 @@ raises on failure:
    features that embed_images and the FaceQueryEncoder compute directly
    (tie_aware_agreement), queries without an image absent from every
    modal leg.
+19. early fusion at published widths: the ECA and ILF encoders of
+   configs/experiments/ir/{eca,ilf}_embedding{,_kb}.json (BERT-base, no
+   face, CLIP-RN50 1,024, max_length 256, packed; seeded weights stand in
+   for their checkpoints) through MMEmbedder, f32: phase 5's 1,257
+   questions (batch 128) and 2,048 passages of about 100 tokens (one call
+   at batch 2,048), each with a random unit CLIP feature or, for 10 %,
+   none; questions/s and passages/s, one batch by stage (host prepare on
+   the host clock, the encoder with CUDA events); packed against padded on
+   the card and, for the questions, the card against the CPU (64), within
+   1e-4 of the output scale; then the exact top-100 of the ECA question vectors over
+   phase 5's fused index through B1 (once a batch), against the plain
+   version by tie_aware_agreement;
+20. the command line on the card, as subprocesses (``python -m
+   viquae_torch``, through a wrapper that reports B1's launches at exit):
+   an export directory of phase 5's DPR weights, a BERT tokenizer
+   directory and phase 5's KB saved as .npz; ``serve`` over the 1,257
+   questions with a fused index (B1), its run against the in-process
+   pipeline on the same weights, tokenizer and queries; ``server`` with the
+   same config (started with ``serve``), 64 concurrent POST /search one a
+   dispatch, each response against the direct call on its own batch of
+   one; wall, start-up (and its first steps) and batch seconds.
 
 Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
 uploads staged through pinned memory and, for comparison, from pageable
 memory, and print each call's place on the run's timeline.
 
-Phases 17-18 and the VQA server run after phase 16. The last line is
+Phases 17-18 and the VQA server run after phase 16, phases 19-20 after
+them; phase 17 also times each tower in bf16 with its convolutions' f32
+sums taken by models/resnet._conv_upcast instead of im2col + GEMM. The last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -128,7 +151,9 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -225,10 +250,11 @@ TOWER_BATCH = 128
 FACE_IMAGES = 64
 MTCNN_CHECK = 8
 # bf16 against f32 on phase 17's towers, relative to the largest output:
-# about twice the readings of two sound runs on the H100 (5.4e-3, 7.8e-2,
-# 2.6e-3, 1.7e-2; random weights compound the rounding through the depth)
-BF16_REL_TOL = {"resnet50_imagenet": 0.015, "clip_rn50": 0.16,
-                "clip_vit_b32": 0.01, "arcface_r50": 0.04}
+# about twice the readings of sound runs on the H100 with f32 convolution
+# sums (4.7e-3, 1.16e-1, 2.8e-3, 1.4e-2; random weights compound the
+# operands' rounding through the depth); never raised, each control above
+BF16_REL_TOL = {"resnet50_imagenet": 0.01, "clip_rn50": 0.16,
+                "clip_vit_b32": 0.01, "arcface_r50": 0.03}
 FACE_BATCH = 64
 QUERY_SIDES = (160, 720)
 
@@ -2327,6 +2353,12 @@ def phase_towers(dev, specs=None, cfg=mtcnn.MTCNNConfig()) -> dict:
             ms = time_ms(lambda: apply(model, x, cd), reps=3)
             row[f"{label}_ms"] = ms
             row[f"{label}_images_per_s"] = TOWER_BATCH / ms * 1e3
+        # bf16 with each convolution's f32 sum taken by the f32
+        # convolution of the upcast operands instead of im2col + one bf16
+        # GEMM (bf16_ms), ROADMAP C6
+        with mock.patch.object(resnet, "_conv_gemm", resnet._conv_upcast):
+            row["bf16_upcast_conv_ms"] = time_ms(
+                lambda: apply(model, x, torch.bfloat16), reps=3)
         got = apply(model, x[:4], None)
         check(tuple(got.shape) == (4, width), f"{name} output shape")
         cpu = copy.deepcopy(model).to("cpu")
@@ -2735,6 +2767,355 @@ def phase_vqa_server(dev, main, shared, fusion) -> dict:
         service.close()
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: early fusion and the CLI
+# ---------------------------------------------------------------------------
+# the published early-fusion embedding configs (seeded weights stand in for
+# their checkpoints); passages of about PASSAGE_TOKENS tokens; questions
+# checked on the CPU; rows of the packed-vs-padded check on the passages
+MM_CONFIGS = {"eca_questions": "configs/experiments/ir/eca_embedding.json",
+              "eca_passages": "configs/experiments/ir/eca_embedding_kb.json",
+              "ilf_questions": "configs/experiments/ir/ilf_embedding.json"}
+N_MM_PASSAGES = 2048
+MM_CPU_CHECK = 64
+MM_PADDED_CHECK = 256
+MM_REL_TOL = 1e-4
+# phase 20: concurrent requests, seconds a subprocess may take
+CLI_REQUESTS = 64
+CLI_TIMEOUT_S = 600
+
+
+def bert_vocab_tokenizer(path, vocab_size: int):
+    """A BertTokenizerFast whose vocabulary maps "w<j>" to id j (and the
+    specials to BERT's ids 0, 100-103), saved under ``path``: it tokenizes
+    the synthetic questions exactly as WhitespaceTokenizer does."""
+    from transformers import BertTokenizerFast
+
+    specials = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]",
+                103: "[MASK]"}
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "vocab.txt").write_text("\n".join(
+        specials.get(i, f"w{i}") for i in range(vocab_size)))
+    tok = BertTokenizerFast(vocab_file=str(path / "vocab.txt"),
+                            do_lower_case=True)
+    tok.save_pretrained(str(path))
+    return tok
+
+
+def mm_items(rng, texts, key, dim, missing=0.1) -> list:
+    """One item a text, with a random unit CLIP-RN50 feature, or none for
+    a ``missing`` share."""
+    feats = rng.standard_normal((len(texts), dim)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    absent = rng.random(len(texts)) < missing
+    return [{key: t, "clip-RN50": None if absent[i] else feats[i].tolist()}
+            for i, t in enumerate(texts)]
+
+
+def mm_embedder(dev, name, tokenizer, packed=None, bundle=None):
+    """The MMEmbedder that ``MM_CONFIGS[name]`` describes, over seeded
+    weights (its checkpoint path is dropped): the CLI's ``embed`` branch."""
+    from viquae_torch.core.config import get_pretrained, load_config
+    from viquae_torch.train.data import PreComputedImageFeatures
+
+    config = load_config(MM_CONFIGS[name])
+    model_kwargs = dict(config.pop("model"))
+    model_kwargs.pop("pretrained_model_name_or_path")
+    if bundle is None:
+        bundle = get_pretrained(**model_kwargs, seed=50, device=dev)
+    config.pop("tokenizer")
+    features = PreComputedImageFeatures(**config.pop("image_features"))
+    packed_cfg = config.pop("packed", False)
+    packed = packed_cfg if packed is None else packed
+    return bundle, ir_embedding.MMEmbedder(
+        bundle.apply_fn, bundle.params, tokenizer, features,
+        packed_bundle=bundle if packed else None, device=dev, **config)
+
+
+def mm_stage_ms(embedder, items, reps: int = 3) -> dict:
+    """One batch by stage: host (tokenize, features, pack) on the host
+    clock, the encoder with CUDA events; medians of ``reps``."""
+    chunk = items[: embedder.batch_size]
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        prepared = embedder.prepare(chunk)
+        host.append((time.perf_counter() - t0) * 1e3)
+    return {"host_ms": float(np.median(host)),
+            "encoder_ms": time_ms(lambda: embedder.forward(prepared),
+                                  reps=reps)}
+
+
+def phase_early_fusion(dev, main, tokenizer) -> dict:
+    """Phase 19: the ECA / ILF encoders at BERT-base width from the
+    published configs (seeded weights), ECA questions and passages and ILF
+    questions, then the exact top-K of the ECA question vectors over
+    phase 5's fused index through B1."""
+    rng = np.random.default_rng(19)
+    questions = main["queries"]
+    passages = [" ".join(f"w{j}" for j in rng.integers(
+        1000, 30_000, int(n))) for n in rng.integers(
+        PASSAGE_TOKENS - 10, PASSAGE_TOKENS + 10, N_MM_PASSAGES)]
+    results, vectors = {}, {}
+    for name in MM_CONFIGS:
+        t_phase = time.perf_counter()
+        key = "passage" if name == "eca_passages" else "input"
+        items = mm_items(rng, passages if key == "passage" else questions,
+                         key, 1024)
+        bundle, emb = mm_embedder(dev, name, tokenizer)
+        emb.embed_items(items[: emb.batch_size])    # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = emb.embed_items(items)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(out.shape == (len(items), bundle.cfg.bert.hidden_size)
+              and np.isfinite(out).all(), f"{name} embeddings")
+        # packed against padded, on the card, in f32
+        _, padded = mm_embedder(dev, name, tokenizer, packed=False,
+                                bundle=bundle)
+        padded.batch_size = min(padded.batch_size, 128)
+        sub = items[:MM_PADDED_CHECK]
+        ref = padded.embed_items(sub)
+        packed_err = float(np.abs(out[: len(sub)] - ref).max()
+                           / np.abs(ref).max())
+        # the card against the CPU (f32, TF32 off), on the questions
+        cpu_err = None
+        if key == "input":
+            cpu_bundle = copy.copy(bundle)
+            cpu_bundle.params = copy.deepcopy(bundle.params).to("cpu")
+            _, on_cpu = mm_embedder("cpu", name, tokenizer,
+                                    bundle=cpu_bundle)
+            on_cpu.batch_size = MM_CPU_CHECK
+            ref = on_cpu.embed_items(items[:MM_CPU_CHECK])
+            cpu_err = float(np.abs(out[:MM_CPU_CHECK] - ref).max()
+                            / np.abs(ref).max())
+            del cpu_bundle, on_cpu
+        results[name] = {
+            "config": MM_CONFIGS[name], "items": len(items),
+            "batch": emb.batch_size, "packed": emb.packed_bundle is not None,
+            "max_length": emb.max_length,
+            "without_image": sum(it["clip-RN50"] is None for it in items),
+            "wall_s": wall, "items_per_s": len(items) / wall,
+            **mm_stage_ms(emb, items, reps=3 if key == "input" else 1),
+            "packed_vs_padded_rel_err": packed_err,
+            "card_vs_cpu_rel_err": cpu_err,
+            "phase_s": time.perf_counter() - t_phase}
+        check(packed_err <= MM_REL_TOL and (cpu_err or 0.0) <= MM_REL_TOL,
+              f"{name}: packed against padded and the card against the CPU "
+              f"(limit {MM_REL_TOL}): {results[name]}")
+        vectors[name] = out
+        del bundle, emb, padded
+        torch.cuda.empty_cache()
+
+    # the exact search of the ECA question vectors through B1
+    index = main["index"]
+    q = torch.from_numpy(vectors["eca_questions"]).to(dev).to(torch.bfloat16)
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    starts = range(0, len(q), BATCH)
+    got = [index.search_device(q[i: i + BATCH], index.n, index.matrix, K)
+           for i in starts]
+    torch.cuda.synchronize()
+    launches = mips_fused.fused_score_segmax_qmajor.launches
+    check(launches == len(starts),
+          f"B1 launched {launches} times for {len(starts)} ECA batches")
+    scores = torch.cat([s for s, _ in got]).float().cpu().numpy()
+    ids = torch.cat([i for _, i in got]).cpu().numpy()
+    p_s, p_i = mips_fused.segment_topk(
+        *mips_fused.fused_score_segmax_qmajor_plain(q, index.matrix,
+                                                    index.n), K)
+    agreement = tie_aware_agreement(ids, scores, p_i.cpu().numpy(),
+                                    p_s.float().cpu().numpy())
+    search_ms = time_ms(lambda: index.search_device(
+        q[:BATCH], index.n, index.matrix, K), reps=3)
+    emit({"phase": "early_fusion", "encoders": results,
+          "search": {"queries": len(q), "kb_rows": index.n, "k": K,
+                     "b1_launches": launches, "batch_ms": search_ms,
+                     "plain_agreement": agreement},
+          "rel_tol": MM_REL_TOL})
+    check(tie_aware_ok(agreement),
+          f"ECA search against the plain version: {agreement}")
+    return {"launches": launches}
+
+
+# Runs ``python -m viquae_torch`` (runpy, as -m does) and, at exit, prints
+# to stderr the B1 launch count of the process, its seconds, those of the
+# pipelines' run() calls and of the start-up's first steps (importing torch
+# and initialising CUDA, importing transformers)
+CLI_WRAPPER = """
+import atexit, json, runpy, sys, time
+t0 = time.perf_counter()
+import torch
+if torch.cuda.is_available():
+    torch.cuda.init()
+t_cuda = time.perf_counter()
+import transformers
+t_transformers = time.perf_counter()
+from viquae_torch.ir import serving
+from viquae_torch.ops import mips_fused
+runs = []
+run = serving.RetrievalPipeline.run
+def timed(self, *args, **kwargs):
+    t = time.perf_counter()
+    out = run(self, *args, **kwargs)
+    runs.append(time.perf_counter() - t)
+    return out
+serving.RetrievalPipeline.run = timed
+atexit.register(lambda: print(json.dumps({
+    "b1_launches": mips_fused.fused_score_segmax_qmajor.launches,
+    "process_s": time.perf_counter() - t0, "run_s": runs,
+    "torch_and_cuda_init_s": t_cuda - t0,
+    "import_transformers_s": t_transformers - t_cuda}),
+    file=sys.stderr, flush=True))
+sys.argv = ["viquae_torch"] + sys.argv[1:]
+runpy.run_module("viquae_torch", run_name="__main__")
+"""
+
+
+def cli_process(dev, *args):
+    return subprocess.Popen(
+        [sys.executable, "-c", CLI_WRAPPER, "--device", str(dev),
+         *map(str, args)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def cli_exit_report(stderr: str) -> dict:
+    return json.loads(stderr.strip().splitlines()[-1])
+
+
+def run_arrays_of(run, n) -> tuple:
+    """A saved Run (rank order kept) -> (scores, ids) arrays."""
+    rows = [run[str(i)] for i in range(n)]
+    ids = np.array([[int(d) for d in r] for r in rows])
+    scores = np.array([[r[d] for d in r] for r in rows], np.float32)
+    return scores, ids
+
+
+def phase_cli(dev, main, tokenizer, workdir, cfg=dpr.DPRConfig()) -> dict:
+    """Phase 20: the command line on the card, as subprocesses started
+    together (their start-ups overlap): ``serve`` over phase 5's questions
+    and KB (fused index, B1), and ``server`` with the same config answering
+    CLI_REQUESTS concurrent /search once ``serve`` is done; each against
+    the in-process pipeline on the same weights, tokenizer and queries."""
+    from viquae_torch.train.checkpoint import export_params
+
+    t0 = time.perf_counter()
+    tree = convert.init_tree(cfg, seed=0)        # phase 5's weights
+    export_params(workdir / "dpr", tree)
+    index = main["index"]
+    index.save(workdir / "kb")
+    write_s = time.perf_counter() - t0
+    (workdir / "queries.txt").write_text("\n".join(main["queries"]))
+    config = {"model": {"class_name": "DPREncoder",
+                        "pretrained_model_name_or_path": str(workdir / "dpr"),
+                        "bert_config": dataclasses.asdict(cfg.bert)},
+              "tokenizer": str(workdir / "tok"), "row_len": ROW_LEN,
+              "index": {"load": str(workdir / "kb.npz"), "mode": "fused"}}
+    (workdir / "serve.json").write_text(json.dumps(config))
+    torch.cuda.empty_cache()
+
+    # the in-process pipeline: the CLI's embedder on the same weights
+    model = convert.params_from_jax(tree, cfg, device=dev)
+    del tree
+
+    def pipeline(batch):
+        emb = PackedTextEmbedder(dpr.make_packed_apply(cfg), model,
+                                 tokenizer, row_len=ROW_LEN,
+                                 batch_size=batch, device=dev)
+        return FusedRetrievalPipeline(emb, index, batch_size=batch, k=K)
+
+    queries = main["queries"]
+    ref_scores, ref_ids = pipeline(BATCH).run_arrays(queries)
+
+    # server (one query a dispatch, so that each response is the direct
+    # call on its own batch of one) and serve, started together
+    t_server = time.perf_counter()
+    server_proc = cli_process(dev, "server", workdir / "serve.json",
+                              "--port", 0, "--k", K, "--max-batch", 1,
+                              "--max-wait-ms", 5)
+    try:
+        t0 = time.perf_counter()
+        proc = cli_process(dev, "serve", workdir / "queries.txt",
+                           workdir / "serve.json", workdir / "run.json",
+                           "--k", K, "--batch", BATCH)
+        try:
+            out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+        finally:
+            proc.kill()
+        serve_wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"viquae_torch serve failed: {err[-4000:]}")
+        report = cli_exit_report(err)
+        printed = json.loads(out.strip().splitlines()[-1])
+        run = json.loads((workdir / "run.json").read_text())
+        scores, ids = run_arrays_of(run, len(queries))
+        serve_agreement = tie_aware_agreement(ids, scores, ref_ids,
+                                              ref_scores)
+        serve = {"queries": printed["queries"], "wall_s": serve_wall,
+                 **{k: report[k] for k in ("process_s", "run_s",
+                                           "torch_and_cuda_init_s",
+                                           "import_transformers_s")},
+                 "start_up_s": report["process_s"] - sum(report["run_s"]),
+                 "batch_ms": sum(report["run_s"]) * 1e3
+                 / -(-len(queries) // BATCH),
+                 "b1_launches": report["b1_launches"],
+                 "stages": printed["stages"],
+                 "bitwise_equal": bool(np.array_equal(ids, ref_ids)
+                                       and np.array_equal(scores,
+                                                          ref_scores)),
+                 "in_process_agreement": serve_agreement}
+        check(report["b1_launches"] == -(-len(queries) // BATCH)
+              and tie_aware_ok(serve_agreement),
+              f"viquae_torch serve against the in-process pipeline: {serve}")
+
+        info = json.loads(server_proc.stdout.readline())
+        start_up = time.perf_counter() - t_server
+        base = info["listening"]
+        picks = queries[:CLI_REQUESTS]
+        responses, burst_s = concurrent_posts(
+            f"{base}/search", [{"query": q} for q in picks])
+        status, health = http_json(f"{base}/health")
+    finally:
+        server_proc.send_signal(signal.SIGINT)  # cmd_server shuts down
+        try:
+            _, err = server_proc.communicate(timeout=60)
+        finally:
+            server_proc.kill()
+    report = cli_exit_report(err)
+    direct = pipeline(1)
+    same, agreements = 0, []
+    for q, (code, body, _) in zip(picks, responses):
+        check(code == 200, f"/search answered {code}")
+        r_scores, r_ids = direct.run_arrays([q])
+        got_ids = np.array([body["indices"]])
+        got_scores = np.array([body["scores"]], np.float32)
+        same += bool(np.array_equal(got_ids, r_ids)
+                     and np.array_equal(got_scores, r_scores))
+        agreements.append(tie_aware_agreement(got_ids, got_scores, r_ids,
+                                              r_scores))
+    latencies = sorted(t for _, _, t in responses)
+    server = {"requests": len(picks), "start_up_s": start_up,
+              **{k: report[k] for k in ("torch_and_cuda_init_s",
+                                        "import_transformers_s")},
+              "burst_s": burst_s,
+              "p50_ms": latencies[len(latencies) // 2] * 1e3,
+              "max_ms": latencies[-1] * 1e3,
+              "b1_launches": report["b1_launches"],
+              "health": health, "bitwise_equal_responses": same,
+              "min_id_agreement_above_kth_tie": min(
+                  a["id_agreement_above_kth_tie"] for a in agreements),
+              "max_ulp_positionwise": max(a["max_ulp_positionwise"]
+                                          for a in agreements)}
+    emit({"phase": "cli", "index_rows": index.n,
+          "write_export_and_index_s": write_s, "serve": serve,
+          "server": server})
+    check(status == 200 and report["b1_launches"] >= len(picks)
+          and all(tie_aware_ok(a) for a in agreements),
+          f"viquae_torch server against the direct calls: {server}")
+    return {"cli_serve": serve["b1_launches"],
+            "cli_server": report["b1_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2770,8 +3151,25 @@ def main() -> int:
     fusion = phase_image_fusion(dev, main_path, chain)
     launches_by_path["image_fusion"] = fusion["launches"]
     launches_by_path.update(phase_vqa_server(dev, main_path, shared, fusion))
-    kernels[0]["launches_by_path"] = launches_by_path
     image_peak = torch.cuda.max_memory_allocated()
+    del chain, fusion
+    torch.cuda.empty_cache()
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=Path(__file__).parent) as tmp:
+        workdir = Path(tmp)
+        tokenizer = bert_vocab_tokenizer(workdir / "tok",
+                                         dpr.DPRConfig().bert.vocab_size)
+        launches_by_path["early_fusion"] = phase_early_fusion(
+            dev, main_path, tokenizer)["launches"]
+        launches_by_path.update(phase_cli(dev, main_path, tokenizer,
+                                          workdir))
+    emit({"phase": "early_fusion_and_cli_seconds",
+          "seconds": time.perf_counter() - t0})
+    kernels[0]["launches_by_path"] = launches_by_path
     emit({"phase": "device_memory",
           "max_memory_allocated_reader_phases": reader_peak,
           "max_memory_allocated_bm25_hybrid_server_phases": sparse_peak,

@@ -1,0 +1,728 @@
+"""The port's CLI (``python -m viquae_torch --device cpu <command>``)
+against the JAX package's (``viquae_tpu.cli.main``) on the same configs
+and the same weights: the cases of tests/test_cli.py (all but training)
+and of tests/test_cli_aux.py for the aux commands the port runs, plus the
+stubs and the parsers.
+
+Weights: neither CLI draws them. Both load one export directory written
+by the JAX package's ``export_params`` (a tree drawn with numpy), or one
+torch checkpoint in the reference's layout (facenet, insightface, HF
+CLIP). Equality: runs and answers exactly (same ids, same answer
+strings); scores within 1e-5, or one bf16 ulp where the pipeline rounds
+them to bf16 (the f32 sums of the two packages differ in their last bits
+and may round to neighbouring bf16 values: seen once, on the hybrid answer
+path); embeddings within 1e-5 of the largest entry; host-only commands
+byte for byte.
+"""
+import io
+import json
+import re
+import shutil
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from viquae_torch.cli import main as tmain
+from viquae_torch.cli import parse_args
+from viquae_torch.models import bert as tbert
+from viquae_torch.models import convert
+from viquae_tpu.cli import main as jmain
+from viquae_tpu.train.checkpoint import export_params
+
+torch.set_num_threads(2)
+
+BCFG = dict(vocab_size=40, hidden_size=16, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=32,
+            max_position_embeddings=64, add_pooler=False)
+READER_BCFG = {k: v for k, v in BCFG.items() if k != "add_pooler"}
+
+
+def port(argv):
+    tmain(["--device", "cpu", *map(str, argv)])
+
+
+def jax_cli(argv):
+    jmain([*map(str, argv)])
+
+
+@pytest.fixture(scope="module")
+def ws(tmp_path_factory):
+    """Tokenizer, KB (passages, 16-d text and 8-d clip embeddings), query
+    file and the DPR and reader export directories."""
+    from datasets import Dataset
+    from transformers import BertTokenizerFast
+
+    root = tmp_path_factory.mktemp("cli")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        f"w{i}" for i in range(30)]
+    (root / "tok").mkdir()
+    (root / "tok" / "vocab.txt").write_text("\n".join(vocab))
+    BertTokenizerFast(vocab_file=str(root / "tok" / "vocab.txt"),
+                      do_lower_case=True).save_pretrained(root / "tok")
+    rng = np.random.default_rng(0)
+    Dataset.from_dict({
+        "passage": [" ".join(f"w{j}" for j in rng.integers(0, 30, 8))
+                    for _ in range(40)],
+        "embedding": rng.standard_normal((40, 16)).astype(
+            np.float32).tolist(),
+        "clip": rng.standard_normal((40, 8)).astype(np.float32).tolist(),
+    }).save_to_disk(str(root / "kb"))
+    np.save(root / "q_clip.npy", rng.standard_normal((9, 8)).astype(
+        np.float32))
+    (root / "queries.txt").write_text(
+        "\n".join(f"w{i} w{i + 1} w{i + 2}" for i in range(9)))
+    export_params(root / "dpr", convert.init_tree(
+        tbert.BertConfig(**BCFG), seed=3))
+    from viquae_torch.models import qa as tqa
+
+    export_params(root / "reader", convert.init_reader_tree(
+        tqa.MultiPassageBERTReader.config(READER_BCFG), seed=4))
+    return root
+
+
+def dpr_model(ws):
+    return {"class_name": "DPREncoder",
+            "pretrained_model_name_or_path": str(ws / "dpr"),
+            "bert_config": BCFG}
+
+
+def reader_block(ws):
+    return {"reader": {"class_name": "MultiPassageBERTReader",
+                       "pretrained_model_name_or_path": str(ws / "reader"),
+                       "bert_config": READER_BCFG},
+            "passages": str(ws / "kb"), "reader_seq": 48,
+            "questions_per_step": 4, "packed_reader": True}
+
+
+def write(path, obj):
+    path.write_text(json.dumps(obj))
+    return path
+
+
+def assert_scores_close(got, ref):
+    """Within 1e-5, or one bf16 ulp of the reference score."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    ulp = np.ldexp(1.0, np.frexp(np.abs(ref))[1] - 8)
+    assert got.shape == ref.shape
+    assert (np.abs(got - ref) <= np.maximum(1e-5, ulp)).all(), (got, ref)
+
+
+def assert_runs_equal(a, b):
+    assert a.keys() == b.keys()
+    for q in a:
+        assert list(a[q]) == list(b[q]), q
+        assert_scores_close([b[q][d] for d in b[q]], [a[q][d] for d in a[q]])
+
+
+def both_serve(ws, tmp_path, config, capsys, k=5):
+    cfg = write(tmp_path / "serve.json", config)
+    out = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        cli(["serve", ws / "queries.txt", cfg, tmp_path / f"{label}.json",
+             "--k", k, "--batch", 4])
+        out[label] = json.loads(capsys.readouterr().out)
+    assert out["port"]["queries"] == out["jax"]["queries"] == 9
+    runs = {label: json.loads((tmp_path / f"{label}.json").read_text())
+            for label in out}
+    assert len(runs["port"]) == 9
+    assert all(len(v) == k for v in runs["port"].values())
+    assert_runs_equal(runs["jax"], runs["port"])
+    return out
+
+
+def both_answer(ws, tmp_path, config, capsys):
+    cfg = write(tmp_path / "answer.json", config)
+    results = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        cli(["answer", ws / "queries.txt", cfg, tmp_path / f"{label}.json",
+             "--m-passages", 3, "--batch", 4])
+        assert json.loads(capsys.readouterr().out)["queries"] == 9
+        results[label] = json.loads((tmp_path / f"{label}.json").read_text())
+    assert len(results["port"]) == 9
+    for a, b in zip(results["jax"], results["port"]):
+        assert b["question"] == a["question"]
+        assert b["answer"] == a["answer"] and b["answer"] is not None
+        assert list(b["passage_ids"]) == list(a["passage_ids"])
+        assert len(b["passage_ids"]) == 3
+        assert_scores_close(b["scores"], a["scores"])
+
+
+# --------------------------------------------------------------------------
+# parsers, stubs, the device
+# --------------------------------------------------------------------------
+def _commands(main, capsys):
+    with pytest.raises(SystemExit) as exc:
+        main(["--help"])
+    assert exc.value.code == 0
+    listed = re.search(r"\{([a-z0-9,\-]+)\}", capsys.readouterr().out)
+    return set(listed.group(1).split(","))
+
+
+def test_parsers_list_the_same_commands(capsys):
+    ours, ref = _commands(tmain, capsys), _commands(jmain, capsys)
+    assert ours == ref and len(ours) == 31
+
+
+STUBS = {"stats": "A18", "train": "A16", "save-ptm": "A16",
+         "kilt2vqa": "A18", "wiki": "A18", "wikidump": "A18", "wit": "A18",
+         "labelstudio": "A18", "mscelebs": "A18", "evqa": "A18",
+         "html": "A18", "plot": "A18", "wtl-filter": "A18"}
+
+
+@pytest.mark.parametrize("command", sorted(STUBS))
+def test_stubbed_commands_exit_naming_their_roadmap_item(command):
+    with pytest.raises(SystemExit, match=f"ROADMAP.md {STUBS[command]}"):
+        port([command, "fit", "some/dataset", "--output", "x"])
+
+
+def test_cli_refuses_the_cpu_unless_named(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device resolves")
+    cfg = write(tmp_path / "c.json", {})
+    with pytest.raises(SystemExit):
+        tmain(["hp", str(cfg)])
+    assert "--device cpu" in capsys.readouterr().err
+    assert parse_args(["--device", "cpu", "hp", str(cfg)]).device == \
+        torch.device("cpu")
+
+
+def test_cli_config_both_styles(tmp_path, capsys):
+    """Configs are accepted positionally or via --config; both/neither
+    fail, with the JAX package's messages."""
+    cfg = str(write(tmp_path / "cfg.json", {}))
+    for main in (jmain, lambda argv: tmain(["--device", "cpu", *argv])):
+        with pytest.raises(SystemExit):
+            main(["hp"])
+        assert "config is required" in capsys.readouterr().err
+        with pytest.raises(SystemExit):
+            main(["hp", cfg, "--config", cfg])
+        assert "both positionally" in capsys.readouterr().err
+
+
+# --------------------------------------------------------------------------
+# serve / answer
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("mode", ["global", "fused"])
+def test_cli_serve(ws, tmp_path, capsys, mode):
+    both_serve(ws, tmp_path, {
+        "model": dpr_model(ws), "tokenizer": str(ws / "tok"), "row_len": 16,
+        "index": {"dataset": str(ws / "kb"), "column": "embedding",
+                  "mode": mode}}, capsys)
+
+
+def test_cli_serve_fusion(ws, tmp_path, capsys, devices):
+    from viquae_tpu.ops import mips
+
+    clip = np.asarray(
+        __import__("datasets").load_from_disk(str(ws / "kb"))["clip"],
+        np.float32)
+    mips.DenseIndex(clip, do_l2norm=True).save(str(tmp_path / "clip_idx"))
+    both_serve(ws, tmp_path, {
+        "model": dpr_model(ws), "tokenizer": str(ws / "tok"), "row_len": 16,
+        "indexes": {
+            "dpr": {"dataset": str(ws / "kb"), "column": "embedding",
+                    "mode": "global"},
+            "clip": {"load": str(tmp_path / "clip_idx.npz"),
+                     "mode": "global"}},
+        "weights": {"dpr": 0.6, "clip": 0.4}, "text_index": "dpr",
+        "norm": "gzmuv",
+        "query_features": {"clip": str(ws / "q_clip.npy")}}, capsys)
+
+
+@pytest.mark.parametrize("device_bm25", [False, True])
+def test_cli_serve_hybrid(ws, tmp_path, capsys, device_bm25):
+    bm25 = {"kb": str(ws / "kb"), "column": "passage", "b": 0.3, "k1": 0.5}
+    if device_bm25:
+        bm25.update(device=True, n_head=8, l_small=16, pool_mid=8,
+                    pool_small=16, q_block=4)
+    out = both_serve(ws, tmp_path, {
+        "model": dpr_model(ws), "tokenizer": str(ws / "tok"), "row_len": 16,
+        "index": {"dataset": str(ws / "kb"), "column": "embedding",
+                  "mode": "global"},
+        "bm25": bm25, "weights": [0.7, 0.3], "norm": "gzmuv"}, capsys)
+    assert ("bm25_host" in out["port"]["stages"]) != device_bm25
+
+
+def test_cli_answer(ws, tmp_path, capsys):
+    both_answer(ws, tmp_path, {
+        "model": dpr_model(ws), "tokenizer": str(ws / "tok"), "row_len": 16,
+        "index": {"dataset": str(ws / "kb"), "column": "embedding",
+                  "mode": "fused"}, **reader_block(ws)}, capsys)
+
+
+def test_cli_answer_fusion(ws, tmp_path, capsys):
+    both_answer(ws, tmp_path, {
+        "model": dpr_model(ws), "tokenizer": str(ws / "tok"), "row_len": 16,
+        "indexes": {
+            "dpr": {"dataset": str(ws / "kb"), "column": "embedding",
+                    "mode": "fused"},
+            "clip": {"dataset": str(ws / "kb"), "column": "clip",
+                     "mode": "global"}},
+        "weights": {"dpr": 0.6, "clip": 0.4}, "text_index": "dpr",
+        "query_features": {"clip": str(ws / "q_clip.npy")},
+        **reader_block(ws)}, capsys)
+
+
+def test_cli_answer_hybrid(ws, tmp_path, capsys):
+    both_answer(ws, tmp_path, {
+        "model": dpr_model(ws), "tokenizer": str(ws / "tok"), "row_len": 16,
+        "index": {"dataset": str(ws / "kb"), "column": "embedding",
+                  "mode": "global"},
+        "bm25": {"kb": str(ws / "kb"), "column": "passage", "b": 0.3,
+                 "k1": 0.5},
+        "weights": [0.7, 0.3], **reader_block(ws)}, capsys)
+
+
+def test_cli_interact(ws, tmp_path, capsys, monkeypatch):
+    """The REPL prints the same hits (and, with a reader, the same
+    answers) in both packages."""
+    lines = "w1 w2 w3\n\nw7 w8\n"
+    base = {"model": dpr_model(ws), "tokenizer": str(ws / "tok"),
+            "row_len": 16, "index": {"dataset": str(ws / "kb"),
+                                     "column": "embedding",
+                                     "mode": "global"}}
+    for config in ({**base, "passages": str(ws / "kb")},
+                   {**base, **reader_block(ws)}):
+        cfg = write(tmp_path / "interact.json", config)
+        printed = {}
+        for label, cli in (("jax", jax_cli), ("port", port)):
+            monkeypatch.setattr("sys.stdin", io.StringIO(lines))
+            cli(["interact", cfg, "--k", 3, "--batch", 4,
+                 "--m-passages", 3])
+            printed[label] = capsys.readouterr().out
+        assert printed["port"] == printed["jax"]
+        assert printed["port"].count("\n") >= 3
+
+
+# --------------------------------------------------------------------------
+# embed
+# --------------------------------------------------------------------------
+def _embedding(path, column):
+    from datasets import load_from_disk
+
+    return np.asarray(load_from_disk(str(path))[column], np.float32)
+
+
+def _close(got, ref, rtol=1e-5):
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= rtol * np.abs(ref).max()
+
+
+def test_cli_embed_packed_matches_padded(ws, tmp_path):
+    from datasets import Dataset
+
+    rng = np.random.default_rng(0)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 30,
+                                                    rng.integers(3, 12)))
+             for _ in range(17)]
+    base = {"model": dpr_model(ws), "tokenizer": str(ws / "tok"),
+            "max_length": 16, "batch_size": 8, "key": "passage",
+            "save_as": "embedding"}
+    out = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        for packed in (False, True):
+            name = f"{label}_{packed}"
+            Dataset.from_dict({"passage": texts}).save_to_disk(
+                str(tmp_path / name))
+            cfg = write(tmp_path / f"{name}.json", {**base,
+                                                    "packed": packed})
+            cli(["embed", tmp_path / name, cfg])
+            out[name] = _embedding(tmp_path / name, "embedding")
+    _close(out["port_True"], out["port_False"], 2e-4)  # packed == padded
+    _close(out["port_False"], out["jax_False"])
+    _close(out["port_True"], out["jax_True"])
+
+
+@pytest.fixture(scope="module")
+def mm_ws(tmp_path_factory):
+    """A tokenizer, a 3-row dataset with face and clip columns (row 1 has
+    no face), and ECA / ILF export directories from the JAX inits."""
+    from datasets import Dataset
+    from transformers import BertTokenizerFast
+
+    from viquae_tpu.models import bert as jbert
+    from viquae_tpu.models import mm
+
+    root = tmp_path_factory.mktemp("mm")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "who", "is",
+             "this"] + [f"ent{i}" for i in range(10)]
+    (root / "tok").mkdir()
+    (root / "tok" / "vocab.txt").write_text("\n".join(vocab))
+    BertTokenizerFast(vocab_file=str(root / "tok" / "vocab.txt"),
+                      do_lower_case=True).save_pretrained(root / "tok")
+    bcfg = dict(vocab_size=30, hidden_size=16, num_hidden_layers=1,
+                num_attention_heads=2, intermediate_size=32,
+                max_position_embeddings=16, add_pooler=False)
+    cfg = mm.MMConfig(bert=jbert.BertConfig(**bcfg), n_faces=2,
+                      face_dim=8, image_dims=(("clip", 10),))
+    export_params(root / "eca", jax.tree.map(
+        np.asarray, mm.eca_init(jax.random.key(0), cfg)))
+    export_params(root / "ilf", jax.tree.map(
+        np.asarray, mm.ilf_init(jax.random.key(1), cfg)))
+    rng = np.random.default_rng(0)
+    rows = [{
+        "input": f"who is this ent{i}",
+        "face_embedding": (None if i == 1 else rng.standard_normal(
+            (2, 8)).astype(np.float32).tolist()),
+        "face_box": (None if i == 1 else rng.standard_normal(
+            (2, 7)).astype(np.float32).tolist()),
+        "clip": rng.standard_normal(10).astype(np.float32).tolist(),
+    } for i in range(3)]
+    Dataset.from_list(rows).save_to_disk(str(root / "ds"))
+    return root, bcfg
+
+
+@pytest.mark.parametrize("name,packed", [("ECAEncoder", False),
+                                         ("ECAEncoder", True),
+                                         ("IntermediateLinearFusion", True)])
+def test_cli_embed_multimodal(mm_ws, tmp_path, name, packed):
+    root, bcfg = mm_ws
+    export = root / ("eca" if name == "ECAEncoder" else "ilf")
+    config = {
+        "model": {"class_name": name,
+                  "pretrained_model_name_or_path": str(export),
+                  "bert": bcfg, "n_faces": 2, "face_dim": 8,
+                  "image_dims": {"clip": 10}},
+        "tokenizer": str(root / "tok"),
+        "image_features": {"n_faces": 2, "face_dim": 8,
+                           "image_dims": {"clip": 10}},
+        "key": "input", "save_as": "mm_embedding", "max_length": 8,
+        "batch_size": 2, "packed": packed,
+    }
+    cfg = write(tmp_path / "cfg.json", config)
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        cli(["embed", root / "ds", cfg, "--output", tmp_path / label])
+    got = _embedding(tmp_path / "port", "mm_embedding")
+    assert got.shape == (3, 16)
+    assert len({tuple(r.round(5)) for r in got}) == 3
+    _close(got, _embedding(tmp_path / "jax", "mm_embedding"))
+
+    # a multimodal model without image_features fails with a clear error
+    del config["image_features"]
+    bad = write(tmp_path / "bad.json", config)
+    with pytest.raises(ValueError, match="image_features"):
+        port(["embed", root / "ds", bad, "--output", tmp_path / "out2"])
+
+
+# --------------------------------------------------------------------------
+# search, fuse, hp and the host-only data commands
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def qa_ws(tmp_path_factory):
+    """tests/test_cli.py's workspace: a 12-passage KB and 6 questions with
+    provenance and irrelevant indices."""
+    from datasets import Dataset
+
+    root = tmp_path_factory.mktemp("qa")
+    Dataset.from_dict({"passage": [
+        f"w{i} is famous the answer is w{i + 20}" for i in range(12)]}
+    ).save_to_disk(str(root / "kb"))
+    Dataset.from_dict({
+        "id": [f"q{i}" for i in range(6)],
+        "input": [f"what about w{i}" for i in range(6)],
+        "output": [{"original_answer": f"w{i + 20}",
+                    "answer": [f"w{i + 20}"],
+                    "provenance": [{"title": [f"T{i}"]}]}
+                   for i in range(6)],
+        "search_provenance_indices": [[i] for i in range(6)],
+    }).save_to_disk(str(root / "questions"))
+    return root
+
+
+def _dir_files(path):
+    return {p.relative_to(path).as_posix(): p.read_bytes()
+            for p in sorted(path.rglob("*")) if p.is_file()}
+
+
+def test_cli_search_bm25(qa_ws, tmp_path, capsys):
+    config = {"kb_kwargs": {str(qa_ws / "kb"): {"index_kwargs": {
+                  "bm25": {"column": "passage", "key": "input",
+                           "kind": "BM25"}}}},
+              "reference_kb_path": str(qa_ws / "kb"), "do_fusion": False}
+    cfg = write(tmp_path / "search.json", config)
+    printed = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        shutil.copytree(qa_ws / "questions", tmp_path / f"q_{label}")
+        cli(["search", tmp_path / f"q_{label}", cfg, "--k", 5,
+             "--metrics", tmp_path / label])
+        printed[label] = capsys.readouterr().out
+    assert "bm25" in printed["port"]
+    assert json.loads((tmp_path / "port" / "metrics.json").read_text()) \
+        == json.loads((tmp_path / "jax" / "metrics.json").read_text())
+    assert_runs_equal(
+        json.loads((tmp_path / "jax" / "bm25.json").read_text()),
+        json.loads((tmp_path / "port" / "bm25.json").read_text()))
+
+
+def test_cli_fuse_and_hp(qa_ws, tmp_path, capsys):
+    """`fuse fit` then `fuse test` over two runs, and the BM25 grid
+    search: the same files and printed results."""
+    rng = np.random.default_rng(0)
+    qrels = {f"q{i}": {str(i): 1} for i in range(6)}
+    runs = [{f"q{i}": {str(d): float(s) for d, s in zip(
+        rng.choice(12, 5, replace=False), rng.normal(size=5))}
+        for i in range(6)} for _ in range(2)]
+    write(tmp_path / "qrels.json", qrels)
+    for r, run in enumerate(runs):
+        write(tmp_path / f"run{r}.json", run)
+    printed = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        cfg = write(tmp_path / f"fuse_{label}.json", {
+            "qrels": str(tmp_path / "qrels.json"),
+            "runs": [str(tmp_path / f"run{r}.json") for r in range(2)],
+            "output": str(tmp_path / f"fused_{label}"), "norm": "zmuv"})
+        cli(["fuse", "fit", "--config", cfg])
+        best = next((tmp_path / f"fused_{label}").glob("*best_params.json"))
+        cli(["fuse", "test", "--config", cfg, "--best_params", best])
+        hp_cfg = write(tmp_path / f"hp_{label}.json", {
+            "kb": str(qa_ws / "kb"), "dataset": str(qa_ws / "questions"),
+            "qrels": str(tmp_path / "qrels.json"), "k": 5,
+            "grid": {"b": [0.3, 0.75], "k1": [0.5, 1.2]}})
+        cli(["hp", hp_cfg])
+        printed[label] = capsys.readouterr().out
+    assert printed["port"] == printed["jax"]
+    assert "best_params" in printed["port"]
+    assert _dir_files(tmp_path / "fused_port") == \
+        _dir_files(tmp_path / "fused_jax")
+
+
+def test_cli_passages_mapping_relevant(tmp_path, capsys):
+    from datasets import Dataset, load_from_disk
+
+    articles = {
+        "wikipedia_title": ["Ada", "Bizet", "Carmen"],
+        "text": [{"paragraph": ["Ada wrote notes.\n", "BEGIN_SECTION x",
+                                "She met Babbage.\n"]},
+                 {"paragraph": ["Bizet composed Carmen.\n"]},
+                 {"paragraph": ["Carmen is an opera.\n", "Short.\n"]}],
+    }
+    questions = {"id": ["q0", "q1"], "input": ["who wrote notes",
+                                               "who composed carmen"],
+                 "output": [{"original_answer": "Ada", "answer": ["Ada"],
+                             "provenance": [{"title": ["Ada"]}]},
+                            {"original_answer": "Bizet",
+                             "answer": ["Bizet"],
+                             "provenance": [{"title": ["Bizet"]}]}]}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        d = tmp_path / label
+        Dataset.from_dict(articles).save_to_disk(str(d / "articles"))
+        Dataset.from_dict(questions).save_to_disk(str(d / "questions"))
+        cli(["passages", d / "articles", d / "passages", "--config",
+             write(tmp_path / "passages.json",
+                   {"method": "uniform_sents", "n": 4})])
+        cli(["mapping", d / "articles", "wikipedia_title",
+             "title2index.json", "--inverse"])
+        cli(["mapping", d / "passages", "index", "article2passage.json",
+             "--one2many"])
+        cli(["relevant", d / "questions", d / "passages",
+             d / "articles" / "title2index.json", "--article2passage",
+             d / "passages" / "article2passage.json"])
+    assert capsys.readouterr().out.count("Dataset") == 2
+    for name in ("articles", "passages", "questions"):
+        a = load_from_disk(str(tmp_path / "jax" / name))
+        b = load_from_disk(str(tmp_path / "port" / name))
+        assert a.to_dict() == b.to_dict(), name
+    for path in ("articles/title2index.json",
+                 "passages/article2passage.json"):
+        assert (tmp_path / "port" / path).read_text() == \
+            (tmp_path / "jax" / path).read_text()
+    assert any(load_from_disk(str(tmp_path / "port" / "questions"))[
+        "provenance_indices"])
+
+
+def test_cli_sentences_face_box_infoseek(tmp_path, capsys, monkeypatch):
+    """The aux host commands (tests/test_cli_aux.py's cases) print and
+    write the same in both packages."""
+    from datasets import Dataset, load_from_disk
+    from PIL import Image
+
+    (tmp_path / "imgs").mkdir()
+    Image.new("RGB", (200, 100)).save(tmp_path / "imgs" / "im0.jpg")
+    monkeypatch.setenv("VIQUAE_IMAGES_PATH", str(tmp_path / "imgs"))
+    refs = [{"data_id": "i0", "question_type": "String",
+             "answer_eval": ["paris"]},
+            {"data_id": "i1", "question_type": "Numerical",
+             "answer_eval": [1.0, 3.0]}]
+    preds = [{"data_id": "i0", "prediction": "Paris"},
+             {"data_id": "i1", "prediction": "7"}]
+    (tmp_path / "refs.jsonl").write_text("\n".join(map(json.dumps, refs)))
+    (tmp_path / "preds.jsonl").write_text("\n".join(map(json.dumps, preds)))
+    printed = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        d = tmp_path / label
+        Dataset.from_dict({"text": [
+            "First sentence here. Second one! A third?"]}).save_to_disk(
+            str(d / "text"))
+        Dataset.from_list([{
+            "image": "im0.jpg", "face_box": [[20.0, 10.0, 120.0, 60.0]],
+            "face_landmarks": [[[40.0, 20.0], [80.0, 20.0], [60.0, 30.0],
+                                [50.0, 45.0], [70.0, 45.0]]],
+        }]).save_to_disk(str(d / "faces"))
+        cli(["sentences", d / "text"])
+        cli(["face-box", d / "faces"])
+        cli(["infoseek", tmp_path / "preds.jsonl", tmp_path / "refs.jsonl"])
+        printed[label] = capsys.readouterr().out
+    assert printed["port"] == printed["jax"]
+    assert json.loads(printed["port"].splitlines()[-1])["score"] == 50.0
+    for name in ("text", "faces"):
+        assert load_from_disk(str(tmp_path / "port" / name)).to_dict() == \
+            load_from_disk(str(tmp_path / "jax" / name)).to_dict()
+
+
+# --------------------------------------------------------------------------
+# image and face stages
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def img_ws(tmp_path_factory):
+    """Three random RGB images of several sizes and a dataset naming them."""
+    from datasets import Dataset
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("img")
+    (root / "imgs").mkdir()
+    rng = np.random.default_rng(0)
+    names = []
+    for i, (h, w) in enumerate(((100, 80), (64, 96), (130, 130))):
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8),
+                        "RGB").save(root / "imgs" / f"im{i}.png")
+        names.append(f"im{i}.png")
+    Dataset.from_dict({"image": names}).save_to_disk(str(root / "ds"))
+    return root
+
+
+def _copy_ds(img_ws, tmp_path, label):
+    shutil.copytree(img_ws / "ds", tmp_path / label)
+    return tmp_path / label
+
+
+def test_cli_resize(img_ws, tmp_path, capsys):
+    printed = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        cli(["resize", img_ws / "ds", img_ws / "imgs", tmp_path / label,
+             "--size", 48])
+        printed[label] = capsys.readouterr().out
+    assert printed["port"] == printed["jax"] == "resized 3 images\n"
+    assert _dir_files(tmp_path / "port") == _dir_files(tmp_path / "jax")
+
+
+def test_cli_embed_image(img_ws, tmp_path, monkeypatch):
+    """embed-image: CLIP ViT from an HF CLIPModel state dict and
+    ImageNet-RN50 from a torchvision-layout one (the same files for both
+    packages); then the HF alias conflict refused."""
+    from transformers import CLIPConfig, CLIPModel
+
+    from test_torch_image_models import _torchvision_state_dict
+    from viquae_torch.models import resnet as tresnet
+    from torch_helpers import jax_tree, randomize_batch_norm_
+
+    monkeypatch.setenv("VIQUAE_IMAGES_PATH", str(img_ws / "imgs"))
+    vision = dict(hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
+                  intermediate_size=32, image_size=32, patch_size=16)
+    hf = CLIPModel(CLIPConfig(
+        text_config=dict(vocab_size=50, hidden_size=16, num_hidden_layers=1,
+                         num_attention_heads=2, intermediate_size=32,
+                         max_position_embeddings=16),
+        vision_config=vision, projection_dim=8)).eval()
+    torch.save(hf.state_dict(), tmp_path / "clip.pt")
+    rcfg = tresnet.ResNetConfig(stage_sizes=(1, 1), width=8)
+    tree = jax_tree(randomize_batch_norm_(tresnet.init(rcfg, seed=0,
+                                                       device="cpu")))
+    torch.save(_torchvision_state_dict(tree, rcfg), tmp_path / "rn.pt")
+    configs = {
+        "clip": {"model": "clip-vit", "weights": str(tmp_path / "clip.pt"),
+                 "model_config": {**vision, "projection_dim": 8},
+                 "save_as": "clip", "image_size": 32, "batch_size": 2},
+        "imagenet": {"model": "imagenet-RN50",
+                     "weights": str(tmp_path / "rn.pt"),
+                     "model_config": {"stage_sizes": [1, 1], "width": 8},
+                     "save_as": "imagenet", "image_size": 32,
+                     "batch_size": 2},
+    }
+    for name, config in configs.items():
+        for label, cli in (("jax", jax_cli), ("port", port)):
+            cfg = write(tmp_path / f"{name}_{label}.json", config)
+            ds = (tmp_path / label if name != "clip"
+                  else _copy_ds(img_ws, tmp_path, label))
+            cli(["embed-image", ds, cfg])
+        got = _embedding(tmp_path / "port", name)
+        assert got.shape[0] == 3
+        _close(got, _embedding(tmp_path / "jax", name), 1e-4)
+
+    bad = dict(configs["clip"], model_config={**vision, "num_layers": 3,
+                                              "projection_dim": 8})
+    with pytest.raises(ValueError, match="num_hidden_layers"):
+        port(["embed-image", img_ws / "ds", write(tmp_path / "bad.json",
+                                                  bad)])
+
+
+def test_cli_faces_and_face_embed(img_ws, tmp_path, monkeypatch):
+    """faces (MTCNN from a facenet-layout checkpoint, thresholds 0 so the
+    seeded cascade keeps candidates) then face-embed (ArcFace from an
+    insightface-layout checkpoint) on the same files in both packages:
+    the same detections (probabilities within 1e-4, boxes and landmarks
+    within 1e-2 px, as tests/test_torch_face.py) and, from the same
+    detections, embeddings within 1e-4 of their scale."""
+    from viquae_torch.models import arcface as tarc
+    from viquae_torch.models import mtcnn as tm
+    from torch_helpers import jax_tree, randomize_batch_norm_
+
+    monkeypatch.setenv("VIQUAE_IMAGES_PATH", str(img_ws / "imgs"))
+    sd = {k: torch.from_numpy(v) for k, v in convert.state_dict_from_tree(
+        jax_tree(tm.init(seed=3, device="cpu"))).items()}
+    torch.save(sd, tmp_path / "mtcnn.pt")
+    acfg = {"stage_sizes": [1, 1, 1, 1], "width": 8, "embedding_size": 16}
+    atree = jax_tree(randomize_batch_norm_(tarc.init(
+        tarc.ArcFaceConfig(stage_sizes=(1, 1, 1, 1), width=8,
+                           embedding_size=16), seed=4, device="cpu"),
+        seed=9))
+    asd = {}
+    for name, a in convert.state_dict_from_tree(atree).items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer{int(parts[1]) + 1}", parts[2]] + parts[3:]
+        name = (".".join(parts).replace("downsample_conv", "downsample.0")
+                .replace("downsample_bn", "downsample.1")
+                .replace("features_bn", "features"))
+        asd[name] = torch.from_numpy(a)
+    torch.save(asd, tmp_path / "arcface.pt")
+    faces_cfg = write(tmp_path / "faces.json", {
+        "weights": str(tmp_path / "mtcnn.pt"),
+        "mtcnn": {"canvas": 128, "min_face_size": 40, "max_faces": 2,
+                  "k_per_scale": 8, "k_stage1": 16, "k_stage2": 8,
+                  "thresholds": [0.0, 0.0, 0.0]},
+        "batch_size": 2})
+    embed_cfg = write(tmp_path / "embed.json", {
+        "weights": str(tmp_path / "arcface.pt"), "arcface": acfg,
+        "batch_size": 2})
+    from datasets import load_from_disk
+
+    out = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        ds = _copy_ds(img_ws, tmp_path, label)
+        cli(["faces", ds, "--config", faces_cfg])
+        out[label] = load_from_disk(str(ds)).to_dict()
+    # face-embed on the JAX package's detections in both packages: a
+    # landmark 1e-3 px apart moves the aligned crop, not the tower
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        ds = tmp_path / f"embed_{label}"
+        shutil.copytree(tmp_path / "jax", ds)
+        cli(["face-embed", ds, "--config", embed_cfg])
+        out[f"embed_{label}"] = load_from_disk(str(ds)).to_dict()
+    assert out["port"].keys() == out["jax"].keys()
+    assert "face_embedding" in out["embed_port"]
+    for col, atol in (("face_prob", 1e-4), ("face_box", 1e-2),
+                      ("face_landmarks", 1e-2)):
+        for a, b in zip(out["jax"][col], out["port"][col]):
+            assert (a is None) == (b is None), col
+            if a is not None:
+                np.testing.assert_allclose(np.asarray(b, np.float64),
+                                           np.asarray(a, np.float64),
+                                           rtol=0, atol=atol, err_msg=col)
+    got = [np.asarray(e, np.float32)
+           for e in out["embed_port"]["face_embedding"] if e is not None]
+    ref = [np.asarray(e, np.float32)
+           for e in out["embed_jax"]["face_embedding"] if e is not None]
+    assert len(got) == len(ref) > 0
+    _close(np.concatenate(got), np.concatenate(ref), 1e-4)

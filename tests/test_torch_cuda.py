@@ -1032,3 +1032,141 @@ def test_face_query_encoder_on_gpu_matches_cpu(cuda):
     ref = cpu._align_embed(cpu.embedder.params, canvas.float(), lms_g)
     scale = float(ref[has_g].abs().max())
     assert float((emb_g - ref)[has_g].abs().max()) <= 1e-3 * scale
+
+
+# --------------------------------------------------------------------------
+# bf16 convolutions (C6), the multimodal encoders, the CLI
+# --------------------------------------------------------------------------
+CONV_KINDS = {"1x1": (64, 128, 1, 1, 0, 28), "1x1_stride2": (64, 128, 1, 2,
+                                                             0, 28),
+              "3x3": (64, 64, 3, 1, 1, 28), "3x3_stride2": (64, 64, 3, 2, 1,
+                                                            29),
+              "7x7_stride2": (3, 64, 7, 2, 3, 112),
+              "vit_patch": (3, 768, 32, 32, 0, 224)}
+
+
+@pytest.mark.parametrize("route", ["gemm", "upcast"])
+@pytest.mark.parametrize("kind", sorted(CONV_KINDS))
+def test_bf16_conv_route_keeps_the_f32_sum_on_gpu(cuda, kind, route):
+    """``resnet.conv2d_f32`` on bf16 operands (and ``_conv_upcast``, the
+    reference phase 17 times it against) against the f64 convolution on
+    the card: within the f32 reordering bound 2 g_n sum |x w| (n = cin kh
+    kw), which a result rounded to bf16 fails."""
+    from viquae_torch.models import resnet as tres
+
+    cin, cout, k, stride, pad, side = CONV_KINDS[kind]
+    gen = torch.Generator(device=cuda).manual_seed(len(kind))
+    x = torch.randn((8, cin, side, side), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    w = torch.randn((cout, cin, k, k), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    got = (tres._conv_upcast(x, w, stride, pad) if route == "upcast"
+           else tres.conv2d_f32(x, w, stride, pad, torch.bfloat16))
+    ref = torch.nn.functional.conv2d(x.double(), w.double(), None, stride,
+                                     pad)
+    n = cin * k * k
+    gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    bound = 2 * gamma * torch.nn.functional.conv2d(
+        x.double().abs(), w.double().abs(), None, stride, pad)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    rounded = got.to(torch.bfloat16).double()
+    assert not bool(((rounded - ref).abs() <= bound).all())
+
+
+def _mm_case(dev, name):
+    from viquae_torch.models import mm
+
+    cfg = mm.mm_config(
+        bert={"vocab_size": 100, "hidden_size": 64, "num_hidden_layers": 2,
+              "num_attention_heads": 4, "intermediate_size": 128,
+              "max_position_embeddings": 64, "add_pooler": False},
+        n_faces=2, face_dim=16, image_dims={"clip": 24}, gating=True)
+    cls = mm.ECA if name == "eca" else mm.ILF
+    model = mm.init(cls, cfg, seed=0, device=dev)
+    for mod in model.modules():
+        if isinstance(mod, mm.TanhGate):
+            mod.gate.fill_(0.7)
+    rng = np.random.default_rng(0)
+    b = 6
+    lens = rng.integers(3, 20, b)
+    ids = np.zeros((b, 24), np.int32)
+    mask = np.zeros((b, 24), np.int32)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.integers(1, 100, n)
+        mask[i, :n] = 1
+    batch = {
+        "text_inputs": {"input_ids": ids, "attention_mask": mask},
+        "face_inputs": {
+            "face": rng.standard_normal((b, 1, 2, 16)).astype(np.float32),
+            "bbox": rng.standard_normal((b, 1, 2, 7)).astype(np.float32),
+            "attention_mask": (rng.random((b, 1, 2)) < 0.6).astype(
+                np.int32)},
+        "image_inputs": {"clip": {
+            "input": rng.standard_normal((b, 1, 24)).astype(np.float32),
+            "attention_mask": (rng.random((b, 1)) < 0.7).astype(np.int32)}},
+    }
+    return cfg, model, batch
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(tree).to(dev)
+
+
+@pytest.mark.parametrize("name", ["eca", "ilf"])
+def test_mm_encoders_on_gpu_equal_cpu(cuda, name):
+    """ECA / ILF padded and packed in f32 on the card (TF32 off) against
+    the same module on the CPU: within 1e-4 of the output scale."""
+    from viquae_torch.models import mm
+    from viquae_torch.train import data as tdata
+
+    cfg, model, batch = _mm_case(cuda, name)
+    cpu = copy.deepcopy(model).to("cpu")
+    fwd = mm.eca_apply if name == "eca" else mm.ilf_apply
+    args = (batch["text_inputs"], batch["face_inputs"], batch["image_inputs"])
+    got = fwd(model, cfg, *(_to(a, cuda) for a in args)).pooler_output
+    ref = fwd(cpu, cfg, *(_to(a, "cpu") for a in args)).pooler_output
+    scale = float(ref.abs().max())
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4 * scale
+    needs_vis = name == "eca"
+    t_vis = tdata.mm_visual_mask(batch["face_inputs"],
+                                 batch["image_inputs"]).shape[1]
+    canvas = tdata.pack_mm_text_inputs(batch, 24 + t_vis * needs_vis,
+                                       needs_vis=needs_vis)
+    names = ["input_ids", "segment_ids", "position_ids", "cls_rows",
+             "cls_cols"] + (["vis_rows", "vis_cols"] if needs_vis else [])
+    packed = mm.eca_apply_packed if needs_vis else mm.ilf_apply_packed
+    out = packed(model, cfg, *(_to(canvas[f"canvas_{n}"], cuda)
+                               for n in names),
+                 _to(batch["face_inputs"], cuda),
+                 _to(batch["image_inputs"], cuda))[:6]
+    assert float((out.cpu() - ref).abs().max()) <= 1e-4 * scale
+
+
+def test_visual_scatter_with_out_of_range_pointers_on_gpu(cuda):
+    """The ECA packed scatter on the card: pointers past the canvas (and
+    negative ones beyond it) are dropped, others land, as on the CPU; no
+    device-side assert."""
+    from viquae_torch.models import mm
+
+    gen = torch.Generator().manual_seed(0)
+    hidden = torch.randn((5, 7, 3), generator=gen)
+    rows = torch.tensor([[0, 4, 5, 90], [-1, 2, -6, 3]], dtype=torch.int32)
+    cols = torch.tensor([[1, 6, 0, 2], [0, -2, 3, 70]], dtype=torch.int32)
+    tokens = torch.randn((2, 4, 3), generator=gen)
+    ref = mm.scatter_visual_tokens(hidden, rows, cols, tokens)
+    got = mm.scatter_visual_tokens(*(t.to(cuda) for t in
+                                     (hidden, rows, cols, tokens)))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    assert not torch.equal(ref, hidden)
+
+
+def test_cli_default_device_is_the_gpu(cuda, tmp_path):
+    from viquae_torch.cli import parse_args
+
+    cfg = tmp_path / "c.json"
+    cfg.write_text("{}")
+    assert parse_args(["hp", str(cfg)]).device == torch.device("cuda")

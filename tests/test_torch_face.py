@@ -64,7 +64,12 @@ def _close(got, ref, rel):
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("compute_dtype", ["f32", "bf16"])
 def test_arcface_matches_jax(arcface_pair, compute_dtype):
-    """f32 within 1e-4 of the output scale, bf16 within 3e-2."""
+    """f32 within 1e-4 of the output scale, bf16 within 1e-2: both
+    packages keep every sum in f32, but the sums differ in the order of
+    their additions, and the bf16 casts before each convolution and the
+    embedding layer turn a few last-bit differences into one-ulp bf16 flips
+    (the port's two convolution routes read 1e-3 apart, the JAX package
+    2.7e-3 from either)."""
     tree, model = arcface_pair
     x = np.random.default_rng(0).uniform(-1, 1, (3, 112, 112, 3)).astype(
         np.float32)
@@ -72,7 +77,7 @@ def test_arcface_matches_jax(arcface_pair, compute_dtype):
     ref = np.asarray(jarc.apply(tree, ARC_CFG, jnp.asarray(x),
                                 jnp.bfloat16 if bf16 else None))
     got = tarc.apply(model, ARC_CFG, _t(x), torch.bfloat16 if bf16 else None)
-    _close(got, ref, 3e-2 if bf16 else 1e-4)
+    _close(got, ref, 1e-2 if bf16 else 1e-4)
 
 
 def test_arcface_insightface_loader_matches_jax(arcface_pair):

@@ -10,7 +10,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 TEXTUAL = ("data/utils", "data/sentencize", "data/loading", "data/infoseek",
            "train/metrics", "ops/bm25", "ir/metrics", "ir/hp",
-           "image/face_box", "image/resize")
+           "image/face_box", "image/resize", "interact/system",
+           "interact/__init__")
 # module -> the only lines (stripped) that the copy may add or drop
 DIFFERS = {
     "ir/fuse": {"import yaml"},
@@ -20,11 +21,6 @@ DIFFERS = {
         "transformers coupling. Counterpart of viquae_tpu/core/config.py; "
         "`yaml`",
         "is imported only where a YAML file is read.",
-        "# lazily import model packages so registration side-effects run",
-        "import viquae_torch.models  # noqa: F401",
-        "# lazily import the model modules whose import registers entries",
-        "import viquae_torch.models.qa  # noqa: F401",
-        "import viquae_torch.models.clip  # noqa: F401",
         "config = (yaml.safe_load(text) if path.suffix in "
         "(\".yaml\", \".yml\")",
         "else json.loads(text))",
@@ -69,6 +65,31 @@ def test_server_equals_reference_but_for_docstring_and_transient_block():
     for tpu_marker in ('"INTERNAL"', '"UNAVAILABLE"', '"ABORTED"',
                        '"RESOURCE_EXHAUSTED"'):
         assert tpu_marker in ref_block and tpu_marker not in ours_block
+
+
+# train/data.py: the port copies these of the JAX module, line for line
+DATA_COPIES = ("PreComputedImageFeatures", "ImageFormatter", "tokenize",
+               "pack_text_inputs", "mm_visual_mask", "pack_mm_text_inputs")
+
+
+def _top_level_sources(text):
+    import ast
+
+    lines = text.splitlines()
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            start = (node.decorator_list[0].lineno if node.decorator_list
+                     else node.lineno)
+            out[node.name] = "\n".join(lines[start - 1: node.end_lineno])
+    return out
+
+
+def test_train_data_copies_equal_the_reference_but_for_the_package_name():
+    ours, ref = (_top_level_sources(t) for t in _pair("train/data"))
+    assert sorted(ours) == sorted(DATA_COPIES)
+    for name in DATA_COPIES:
+        assert ours[name] == ref[name], name
 
 
 @pytest.mark.parametrize("name", sorted(DIFFERS))

@@ -2,8 +2,10 @@
 converted weights (JAX on the CPU): ResNet, CLIP ModifiedResNet, CLIP ViT
 and text, at tiny configs (stage sizes (1, 1, 1, 1) or (2, 2), width 8,
 32-64 px). f32: rtol 1e-4 / atol 1e-4 relative to the output scale; bf16
-compute_dtype: within 3e-2 of the output scale (the port's bf16
-convolutions round their outputs to bf16, the reference keeps them f32)."""
+compute_dtype: also within 1e-4 of the output scale, since both packages
+multiply the same bf16 operands and keep every sum in f32
+(tests/test_torch_conv_bf16.py holds each convolution to its f32
+reordering bound); the readings are ~1e-7."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,7 +75,7 @@ def test_resnet_bf16_compute_dtype(resnet_pair):
     got = tresnet.apply(model, cfg, torch.from_numpy(x),
                         compute_dtype=torch.bfloat16)
     assert got.dtype == torch.float32
-    _close(got, ref, 3e-2)
+    _close(got, ref, 1e-4)
 
 
 def _torchvision_state_dict(tree, cfg):
@@ -140,7 +142,7 @@ def test_modified_resnet_matches_jax(openai_sd, compute_dtype):
     got = tclip.modified_resnet_apply(
         model, MRN_CFG, torch.from_numpy(x),
         compute_dtype=torch.bfloat16 if compute_dtype else None)
-    _close(got, ref, 3e-2 if compute_dtype else 1e-4)
+    _close(got, ref, 1e-4)
 
 
 def test_modified_resnet_from_jax_tree_equals_loader(openai_sd):
@@ -180,9 +182,8 @@ def test_vit_matches_jax(compute_dtype):
     model = tclip.vit_from_jax(tree, VIT_CFG, device="cpu")
     got = tclip.vit_apply(model, VIT_CFG, torch.from_numpy(x),
                           compute_dtype=td)
-    rel = 1e-4 if compute_dtype == "f32" else 3e-2
     for key in ("image_embeds", "pooler_output", "last_hidden_state"):
-        _close(got[key], ref[key], rel)
+        _close(got[key], ref[key], 1e-4)
 
 
 @pytest.mark.parametrize("with_mask", [True, False])

@@ -54,8 +54,40 @@ print(json.dumps({{"modules": names, "forbidden": bad}}))
                    "models.resnet", "models.clip", "models.arcface",
                    "models.mtcnn", "image.embedding", "image.face_detection",
                    "image.face_recognition", "image.face_box",
-                   "image.resize"):
+                   "image.resize", "models.mm", "models.dpr",
+                   "train.checkpoint", "train.data", "interact.system",
+                   "cli", "cli_aux"):
         assert f"viquae_torch.{module}" in res["modules"]
+
+
+def test_cli_help_runs_with_jax_blocked():
+    """``python -m viquae_torch --help`` (``__main__``, the parser and the
+    aux registration) runs where importing jax, the JAX package or
+    ml_dtypes fails, and loads none of the lazy-only packages."""
+    code = f"""
+import importlib.abc, json, runpy, sys
+sys.path.insert(0, {str(ROOT)!r})
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {FORBIDDEN!r}:
+            raise ImportError(f"blocked: {{name}}")
+sys.meta_path.insert(0, Block())
+sys.argv = ["viquae_torch", "--help"]
+try:
+    runpy.run_module("viquae_torch", run_name="__main__")
+except SystemExit as e:
+    code = e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {FORBIDDEN + LAZY_ONLY!r})
+print(json.dumps({{"code": code, "forbidden": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert "usage: viquae_torch" in out.stdout and "serve" in out.stdout
+    res = json.loads(lines[-1])
+    assert res == {"code": 0, "forbidden": []}
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -167,3 +199,29 @@ def test_image_and_face_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
             call()
     model = resnet.init(small, device="cpu")
     assert next(model.parameters()).device == torch.device("cpu")
+
+
+def test_multimodal_and_cli_entry_points_refuse_to_fall_back_to_cpu(
+        monkeypatch):
+    """DPREncoder, the multimodal bundles and MMEmbedder resolve their
+    device as every entry point does, and so does the CLI's --device."""
+    from viquae_torch.cli import parse_args
+    from viquae_torch.ir.embedding import MMEmbedder
+    from viquae_torch.models import dpr, mm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bert = {"vocab_size": 20, "hidden_size": 8, "num_hidden_layers": 1,
+            "num_attention_heads": 2, "intermediate_size": 16,
+            "max_position_embeddings": 16}
+    for call in (lambda: dpr.DPREncoder(bert_config=bert),
+                 lambda: mm.ECAEncoder(bert=bert, n_faces=0),
+                 lambda: mm.IntermediateLinearFusion(bert=bert, n_faces=0),
+                 lambda: MMEmbedder(None, None, None, None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with pytest.raises(SystemExit):
+        parse_args(["hp", "config.json"])
+    assert parse_args(["--device", "cpu", "hp", "c.json"]).device == \
+        torch.device("cpu")
+    bundle = mm.ECAEncoder(bert=bert, n_faces=0, device="cpu")
+    assert next(bundle.params.parameters()).device == torch.device("cpu")

@@ -400,8 +400,9 @@ def test_reader_entry_points_need_a_gpu_unless_cpu_is_named():
         tqa.MultiPassageBERTReader(cfg=tcfg)
 
 
-def test_registry_bundle():
+def test_registry_bundle(tmp_path):
     from viquae_torch.core import config as tconfig
+    from viquae_torch.train.checkpoint import export_params
 
     cls = tconfig.get_class_from_name("MultiPassageBERTReader")
     assert cls is tqa.MultiPassageBERTReader
@@ -411,8 +412,21 @@ def test_registry_bundle():
     assert bundle.cfg.fuse_ir_score and not bundle.cfg.bert.add_pooler
     assert isinstance(bundle.params, tqa.Reader)
     assert bundle.params.score_proj_w.tolist() == [[1.0]]
-    with pytest.raises(NotImplementedError, match="A16"):
-        cls.from_pretrained("somewhere")
+    # an export directory (the JAX package's export_params format) loads
+    # through the registry with the configuration of the kwargs
+    tree = convert.init_reader_tree(bundle.cfg, seed=5)
+    tree["score_proj_w"] = np.full((1, 1), 0.5, np.float32)
+    export_params(tmp_path, tree)
+    loaded = tconfig.get_pretrained(
+        "MultiPassageBERTReader", str(tmp_path), device="cpu",
+        bert_config={k: v for k, v in SMALL.items() if k != "add_pooler"},
+        fuse_ir_score=True)
+    assert loaded.cfg == bundle.cfg
+    want = convert.reader_from_jax(tree, bundle.cfg, device="cpu")
+    for (na, ta), (nb, tb) in zip(loaded.params.state_dict().items(),
+                                  want.state_dict().items()):
+        assert na == nb and torch.equal(ta, tb)
+    assert loaded.params.score_proj_w.tolist() == [[0.5]]
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,351 @@
+"""Aux subcommands of the port's CLI (counterpart of the part of
+viquae_tpu/cli_aux.py whose modules are ported):
+
+  server     HTTP serving with dynamic micro-batching (ir/server.py) over a
+             serve / answer config: dense, hybrid, late fusion with online
+             image and face legs (the VQA /answer endpoint), the reader
+  interact   REPL over the serving pipelines
+  sentences  sentence-segment a text column
+  face-box   UNITER-style scaled face-box features
+  infoseek   the InfoSeek official evaluation
+
+The JAX package's other aux commands (data construction, annotation,
+viz, save-ptm, evqa) are registered and exit naming the ROADMAP item that
+ports them. Every command takes its device from the CLI's ``--device``.
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+from viquae_torch.core.config import load_config
+
+# aux commands of the JAX package not ported yet: name -> (ROADMAP item,
+# help)
+NOT_PORTED = {
+    "kilt2vqa": ("A18", "VQA generation pipeline (ner/ned/mentions/vq)"),
+    "wiki": ("A18", "Wikidata/Commons entity pipeline over a subset dir"),
+    "wikidump": ("A18", "Commons dump -> per-entity image metadata"),
+    "wit": ("A18", "WIT tsv -> MICT DatasetDict"),
+    "labelstudio": ("A18", "annotation round-trip"),
+    "mscelebs": ("A18", "MS-Celeb faces (entities/extract)"),
+    "evqa": ("A18", "Encyclopedic-VQA evaluation (EM/BEM; BEM is A15b)"),
+    "html": ("A18", "render questions + results as HTML"),
+    "plot": ("A18", "2-D projection of an embedding column"),
+    "wtl-filter": ("A18", "filter a dataset on win/tie/loss vs a run"),
+    "save-ptm": ("A16", "export a TrainState checkpoint as encoder dirs"),
+}
+
+
+def cmd_sentences(args):
+    """Sentence-segment a text column (ICT input)."""
+    from viquae_torch.data.loading import make_sentences_dataset
+
+    out = make_sentences_dataset(args.dataset, text_key=args.text_key)
+    print(json.dumps({"items": len(out)}))
+
+
+def cmd_face_box(args):
+    from viquae_torch.image.face_box import dataset_scale_face_boxes
+
+    out = dataset_scale_face_boxes(args.dataset, image_key=args.image_key)
+    print(json.dumps({"items": len(out)}))
+
+
+def _read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def cmd_infoseek(args):
+    from viquae_torch.data import infoseek
+
+    qid2example = {
+        ex["data_id"]: ex for ex in _read_jsonl(args.references)
+    }
+    if len(args.predictions) == 1 and not args.split:
+        out = infoseek.evaluate_infoseek(
+            _read_jsonl(args.predictions[0]), qid2example)
+    else:
+        splits = args.split or [Path(p).stem for p in args.predictions]
+        if len(splits) != len(args.predictions):
+            raise SystemExit(
+                f"--split names {len(splits)} splits for "
+                f"{len(args.predictions)} prediction files — zip would "
+                "silently drop files")
+        out = infoseek.evaluate_infoseek_full(
+            {s: _read_jsonl(p) for s, p in zip(splits, args.predictions)},
+            qid2example)
+    print(json.dumps(out))
+
+
+def cmd_interact(args):
+    """REPL over the serving pipelines: type a question, get passages (or
+    an answer when the config has a 'reader' block)."""
+    import sys
+
+    from datasets import load_from_disk
+
+    from viquae_torch import cli as _cli
+    from viquae_torch.core.config import get_pretrained
+    from viquae_torch.ir.serving import FusedRetrievalPipeline
+
+    config = load_config(args.config)
+    # server configs pin the canvas; honour (and consume) the key here too
+    # so the same config file drives both commands
+    tokenizer, embedder = _cli._packed_text_embedder(
+        config, args.device, args.batch,
+        fixed_rows=config.pop("fixed_rows", None))
+    reader_cfg = config.pop("reader", None)
+    if reader_cfg is not None:
+        from viquae_torch.ir.qa_serving import AnswerPipeline
+
+        index = _cli._build_dense_index(config.pop("index"), args.device,
+                                        default_mode="fused")
+        retrieval = FusedRetrievalPipeline(
+            embedder, index, batch_size=args.batch, k=args.m_passages)
+        reader = get_pretrained(**reader_cfg, device=args.device)
+        kb = load_from_disk(config.pop("passages"))
+        pipeline = AnswerPipeline(
+            retrieval, kb, reader.cfg, reader.params, tokenizer,
+            m_passages=args.m_passages, device=args.device, **config)
+
+        def respond(question):
+            result = pipeline.run([question])[0]
+            return f"answer: {result['answer']}"
+    else:
+        index = _cli._build_dense_index(config.pop("index"), args.device,
+                                        default_mode="global")
+        passages = (load_from_disk(str(config.pop("passages")))
+                    if "passages" in config else None)
+        pipeline = FusedRetrievalPipeline(
+            embedder, index, batch_size=args.batch, k=args.k)
+
+        def respond(question):
+            run = pipeline.run(["interactive"], [question])
+            hits = sorted(run["interactive"].items(),
+                          key=lambda kv: -kv[1])[:args.k]
+            lines = []
+            for pid, score in hits:
+                text = ""
+                if passages is not None:
+                    text = passages[int(pid)].get("passage", "")[:120]
+                lines.append(f"  [{pid}] {score:.3f} {text}")
+            return "\n".join(lines) or "  (no results)"
+
+    print("ready — one question per line (ctrl-D to exit)", flush=True)
+    for line in sys.stdin:
+        question = line.strip()
+        if not question:
+            continue
+        print(respond(question), flush=True)
+
+
+def _build_face_query_encoder(config, batch_size, device):
+    """FaceQueryEncoder (online MTCNN -> align -> ArcFace leg) from a
+    config block: {"mtcnn": MTCNNConfig kwargs, "mtcnn_weights": facenet
+    .pt?, "arcface": ArcFaceConfig kwargs, "arcface_weights": .pt?};
+    without weights, seeded ones ("mtcnn_seed", "arcface_seed", 0)."""
+    from viquae_torch.cli import _torch_load
+    from viquae_torch.image.face_recognition import FaceQueryEncoder
+    from viquae_torch.models import arcface, mtcnn
+
+    mtcnn_kwargs = dict(config.pop("mtcnn", {}))
+    if "thresholds" in mtcnn_kwargs:  # a JSON list; the config is frozen
+        mtcnn_kwargs["thresholds"] = tuple(mtcnn_kwargs["thresholds"])
+    m_cfg = mtcnn.MTCNNConfig(**mtcnn_kwargs)
+    m_weights = config.pop("mtcnn_weights", None)
+    m_params = (mtcnn.params_from_facenet(_torch_load(m_weights),
+                                          device=device) if m_weights
+                else mtcnn.init(seed=config.pop("mtcnn_seed", 0),
+                                device=device))
+    a_cfg = arcface.ArcFaceConfig(**config.pop("arcface", {}))
+    a_weights = config.pop("arcface_weights", None)
+    a_params = (arcface.params_from_insightface(_torch_load(a_weights),
+                                                a_cfg, device=device)
+                if a_weights
+                else arcface.init(a_cfg, seed=config.pop("arcface_seed", 0),
+                                  device=device))
+    return FaceQueryEncoder(m_params, a_params, mtcnn_cfg=m_cfg,
+                            arcface_cfg=a_cfg, batch_size=batch_size,
+                            device=device)
+
+
+def build_server_from_config(args):
+    """Construct (http_server, services) from a serve/answer config —
+    split from cmd_server so tests can drive the built server in a
+    thread. Supports plain dense ("index"), hybrid ("bm25" block),
+    multi-index fusion with online towers ("indexes" +
+    image_encoders/face_encoders -> the VQA /answer endpoint) and reader
+    ("reader" + "passages") configs."""
+    from viquae_torch import cli as _cli
+    from viquae_torch.core.config import get_pretrained
+    from viquae_torch.ir.server import (BatchedAnswerService,
+                                        BatchedRetrievalService,
+                                        BatchedVQAService, make_http_server)
+    from viquae_torch.ir.serving import FusedRetrievalPipeline
+
+    device = args.device
+    config = load_config(args.config)
+    tokenizer, embedder = _cli._packed_text_embedder(
+        config, device, args.max_batch,
+        fixed_rows=config.pop("fixed_rows", None))
+    reader_cfg = config.pop("reader", None)
+    k = args.m_passages if reader_cfg else args.k
+    image_encoder_names = []
+    if "bm25" in config:
+        # hybrid sparse+dense serving (same "bm25" schema as serve/answer)
+        retrieval_pipeline = _cli._build_hybrid_pipeline(
+            config, embedder, args.max_batch, k, device,
+            default_mode="fused" if reader_cfg else "global")
+    elif "indexes" in config:
+        # multi-index fusion with ONLINE towers: {"indexes": {...},
+        # "weights": {...}, "text_index": ..., "image_encoders": {index:
+        # embed-image model config}, "face_encoders": {index: {"mtcnn":
+        # cfg, "mtcnn_weights": pt?, "arcface": cfg, "arcface_weights":
+        # pt?}}, "reader": {...}, "passages": ...}. Every live request
+        # carries its own pixels, so non-text legs need an online encoder
+        # and a reader must consume the fusion (the /answer VQA endpoint).
+        if reader_cfg is None:
+            raise SystemExit(
+                "a fusion server config needs a 'reader' block: non-text "
+                "legs are fed by per-request images (POST /answer with "
+                "image_b64), there is no precomputed-feature path online")
+        from viquae_torch.image.embedding import ImageEmbedder
+        from viquae_torch.ir.serving import MultiIndexRetrievalPipeline
+
+        indexes = {n: _cli._build_dense_index(c, device)
+                   for n, c in config.pop("indexes").items()}
+        image_encoders = {}
+        for name, icfg in config.pop("image_encoders", {}).items():
+            icfg = dict(icfg)
+            apply_fn, params, prep = _cli.build_image_tower(icfg, device)
+            image_encoders[name] = ImageEmbedder(
+                apply_fn, params, save_as=name, preprocessing=prep,
+                batch_size=args.max_batch, device=device, **icfg)
+        face_encoders = {
+            name: _build_face_query_encoder(dict(fcfg), args.max_batch,
+                                            device)
+            for name, fcfg in config.pop("face_encoders", {}).items()
+        }
+        missing = (set(indexes) - {config.get("text_index")}
+                   - set(image_encoders) - set(face_encoders))
+        if missing:
+            raise SystemExit(
+                f"fusion server: non-text indexes {sorted(missing)} have "
+                "no online encoder (add image_encoders/face_encoders)")
+        image_encoder_names = sorted(set(image_encoders)
+                                     | set(face_encoders))
+        retrieval_pipeline = MultiIndexRetrievalPipeline(
+            embedder, indexes, config.pop("weights"),
+            text_index=config.pop("text_index"),
+            batch_size=args.max_batch, k=k,
+            norm=config.pop("norm", "gzmuv"),
+            image_encoders=image_encoders or None,
+            face_encoders=face_encoders or None,
+        )
+    else:
+        retrieval_pipeline = FusedRetrievalPipeline(
+            embedder,
+            _cli._build_dense_index(
+                config.pop("index"), device,
+                default_mode="fused" if reader_cfg else "global"),
+            batch_size=args.max_batch, k=k)
+    retrieval = answerer = vqa = None
+    max_inflight = getattr(args, "max_inflight", 1)
+    if reader_cfg is not None:
+        from datasets import load_from_disk
+
+        from viquae_torch.ir.qa_serving import AnswerPipeline
+
+        reader = get_pretrained(**reader_cfg, device=device)
+        kb = load_from_disk(config.pop("passages"))
+        pipeline = AnswerPipeline(retrieval_pipeline, kb, reader.cfg,
+                                  reader.params, tokenizer,
+                                  m_passages=args.m_passages, device=device,
+                                  **config)
+        if image_encoder_names:
+            vqa = BatchedVQAService(
+                pipeline, image_encoder_names, max_batch=args.max_batch,
+                max_wait_ms=args.max_wait_ms, max_inflight=max_inflight)
+        else:
+            answerer = BatchedAnswerService(
+                pipeline, max_batch=args.max_batch,
+                max_wait_ms=args.max_wait_ms, max_inflight=max_inflight)
+    else:
+        retrieval = BatchedRetrievalService(
+            retrieval_pipeline, max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms, max_inflight=max_inflight)
+    server = make_http_server(host=args.host, port=args.port,
+                              retrieval=retrieval, answerer=answerer,
+                              vqa=vqa)
+    return server, [s for s in (retrieval, answerer, vqa) if s is not None]
+
+
+def cmd_server(args):
+    """HTTP serving over the dynamic micro-batcher: the `serve` config
+    schema gains live POST /search (dense or hybrid); adding a 'reader'
+    block (the `answer` schema) enables POST /answer instead."""
+    server, services = build_server_from_config(args)
+    has_answer = any(hasattr(s, "answer") for s in services)
+    print(json.dumps({
+        "listening": f"http://{args.host}:{server.server_address[1]}",
+        "endpoints": (["/answer"] if has_answer else ["/search"])
+        + ["/health"],
+        "max_batch": args.max_batch, "max_wait_ms": args.max_wait_ms,
+    }), flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+        for service in services:
+            service.close()
+
+
+def register_aux(sub, add_config_arg, add_config_positional):
+    from viquae_torch.cli import add_stub
+
+    for name, (item, help_text) in NOT_PORTED.items():
+        add_stub(sub, name, item, help_text)
+
+    p = sub.add_parser(
+        "sentences", help="sentence-segment a text column (ICT input)")
+    p.add_argument("dataset")
+    p.add_argument("--text-key", default="text")
+    p.set_defaults(fn=cmd_sentences)
+
+    p = sub.add_parser(
+        "face-box", help="UNITER-style scaled face-box features")
+    p.add_argument("dataset")
+    p.add_argument("--image-key", default="image")
+    p.set_defaults(fn=cmd_face_box)
+
+    p = sub.add_parser("infoseek", help="InfoSeek official evaluation")
+    p.add_argument("predictions", nargs="+")
+    p.add_argument("references")
+    p.add_argument("--split", nargs="*")
+    p.set_defaults(fn=cmd_infoseek)
+
+    p = sub.add_parser(
+        "server", help="HTTP serving (dynamic micro-batching) over a "
+                       "serve/answer config")
+    add_config_positional(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--k", type=int, default=100)
+    p.add_argument("--m-passages", type=int, default=24)
+    p.add_argument("--max-batch", type=int, default=64)
+    p.add_argument("--max-wait-ms", type=float, default=10.0)
+    p.add_argument("--max-inflight", type=int, default=2,
+                   help="concurrent micro-batches (cross-batch pipelining)")
+    p.set_defaults(fn=cmd_server)
+
+    p = sub.add_parser(
+        "interact", help="interactive retrieval/QA REPL over stdin")
+    add_config_positional(p)
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--m-passages", type=int, default=8)
+    p.add_argument("--batch", type=int, default=8)
+    p.set_defaults(fn=cmd_interact)

@@ -33,9 +33,8 @@ def register(name: Optional[str] = None):
 
 def get_class_from_name(class_name: str) -> Callable:
     if class_name not in _REGISTRY:
-        # lazily import the model modules whose import registers entries
-        import viquae_torch.models.clip  # noqa: F401
-        import viquae_torch.models.qa  # noqa: F401
+        # lazily import model packages so registration side-effects run
+        import viquae_torch.models  # noqa: F401
 
     try:
         return _REGISTRY[class_name]

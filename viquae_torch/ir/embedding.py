@@ -12,7 +12,8 @@ ROWS_GRANULARITY so a stable query-length distribution gives few shapes.
 Multimodal seams kept from the reference: ``map_passage_to_kb`` joins
 precomputed image features from the article KB through ``batch['index']``
 and ``expand_query`` appends the top-1 entity name of a visual run to the
-text query. The multimodal ``MMEmbedder`` is listed in ROADMAP.md (A15).
+text query. ``MMEmbedder`` embeds the multimodal ECA / ILF encoders'
+inputs: text + precomputed face/image features, padded or packed.
 """
 from __future__ import annotations
 
@@ -280,6 +281,133 @@ class PackedColumnEmbedder(PackedTextEmbedder):
             chunks.append(self._embed_numpy(sub))
         batch[self.save_as] = np.concatenate(chunks, axis=0)
         self._dim = int(batch[self.save_as].shape[-1])
+        return batch
+
+
+class MMEmbedder:
+    """Multimodal query/passage embedding (ECA / ILF encoders): tokenized
+    text + precomputed face/image feature columns -> embedding column.
+
+    ``apply_fn(params, text_inputs=, face_inputs=, image_inputs=,
+    compute_dtype=)`` is a bundle's ``apply_fn``; ``image_features`` a
+    ``train.data.PreComputedImageFeatures``. With ``kb`` and
+    ``kb_features`` the feature columns of each passage's article are
+    joined through ``batch['index']`` first. ``packed_bundle`` (an
+    ``ECAEncoder`` / ``IntermediateLinearFusion``) embeds the text at its
+    real lengths on a packed canvas (ECA's visual tokens in reserved
+    slots) instead of padding every text to ``max_length``. Every chunk is
+    padded to ``batch_size`` items with empty texts, as the JAX package
+    does. :meth:`prepare` is the host side of a chunk, :meth:`forward` the
+    device side."""
+
+    def __init__(self, apply_fn, params, tokenizer, image_features,
+                 key: str = "input", save_as: str = "mm_embedding",
+                 max_length: int = 256, batch_size: int = 64,
+                 compute_dtype=torch.float32, kb=None, kb_features=None,
+                 packed_bundle=None, device=None):
+        self.apply_fn = apply_fn
+        self.params = params
+        self.tokenizer = tokenizer
+        self.features = image_features
+        self.key = key
+        self.save_as = save_as
+        self.max_length = max_length
+        self.batch_size = batch_size
+        self.compute_dtype = compute_dtype
+        self.kb = kb                    # article KB for passage joins
+        self.kb_features = kb_features  # feature column names to join
+        self.packed_bundle = packed_bundle
+        self._needs_vis = bool(
+            getattr(packed_bundle, "PACKED_NEEDS_VIS", False))
+        self.device = resolve_device(device)
+
+    def _row_budget(self, rows: int) -> int:
+        """Sticky monotone canvas row budget (few canvas shapes)."""
+        pinned = getattr(self, "_rows_pinned", 0)
+        if rows > pinned:
+            self._rows_pinned = pinned = rows
+        return pinned
+
+    def prepare(self, chunk) -> dict:
+        """Host side of one chunk of item dicts: pad to ``batch_size``,
+        tokenize, format the features, pack (packed mode). numpy only."""
+        from viquae_torch.train.data import (mm_visual_mask,
+                                             pack_mm_text_inputs)
+
+        chunk = list(chunk) + [{self.key: ""}] * (self.batch_size
+                                                   - len(chunk))
+        enc = self.tokenizer(
+            [item.get(self.key, "") for item in chunk],
+            padding="max_length", truncation=True,
+            max_length=self.max_length, return_tensors="np",
+        )
+        text = {"input_ids": enc["input_ids"].astype(np.int32),
+                "attention_mask": enc["attention_mask"].astype(np.int32)}
+        face = self.features.get_face_inputs(chunk)
+        image = self.features.get_image_inputs(chunk)
+        out = {"face_inputs": face, "image_inputs": image}
+        if self.packed_bundle is None:
+            out["text_inputs"] = text
+            return out
+        t_vis = (mm_visual_mask(face, image).shape[1]
+                 if self._needs_vis else 0)
+        c = pack_mm_text_inputs(
+            {"text_inputs": text, "face_inputs": face,
+             "image_inputs": image},
+            self.max_length + t_vis,
+            self.packed_bundle.cfg.face_and_image_are_exclusive,
+            needs_vis=self._needs_vis, row_budget=self._row_budget)
+        names = ["input_ids", "segment_ids", "position_ids", "cls_rows",
+                 "cls_cols"] + (["vis_rows", "vis_cols"]
+                                if self._needs_vis else [])
+        out["canvas"] = [c[f"canvas_{name}"] for name in names]
+        return out
+
+    @torch.no_grad()
+    def forward(self, host: dict) -> torch.Tensor:
+        """Device side: (batch_size, D) f32 on the embedder's device."""
+        def put(tree):
+            if isinstance(tree, dict):
+                return {k: put(v) for k, v in tree.items()}
+            return upload(tree, self.device)
+
+        face, image = put(host["face_inputs"]), put(host["image_inputs"])
+        if "canvas" in host:
+            return self.packed_bundle.packed_apply_fn(
+                self.params, *(upload(a, self.device)
+                               for a in host["canvas"]),
+                face, image, compute_dtype=self.compute_dtype)
+        out = self.apply_fn(self.params, text_inputs=put(host["text_inputs"]),
+                            face_inputs=face, image_inputs=image,
+                            compute_dtype=self.compute_dtype)
+        return out.pooler_output if hasattr(out, "pooler_output") else out
+
+    def embed_items(self, items) -> np.ndarray:
+        """(len(items), D) float32 numpy."""
+        chunks = []
+        for start in range(0, len(items), self.batch_size):
+            chunk = items[start: start + self.batch_size]
+            out = self.forward(self.prepare(chunk))
+            chunks.append(out[: len(chunk)].float().cpu().numpy())
+        return np.concatenate(chunks, axis=0)
+
+    def __call__(self, batch: dict) -> dict:
+        """dataset.map(batched=True) entry — writes the ``save_as`` column."""
+        items = [{k: batch[k][i] for k in batch}
+                 for i in range(len(batch[self.key]))]
+        if len(items) == 0:
+            # empty dataset.map batch: probe the encoder ONCE with a
+            # padding-only item for the width (no article to join)
+            if not hasattr(self, "_dim"):
+                self._dim = int(self.embed_items([{self.key: ""}]).shape[-1])
+            batch[self.save_as] = np.zeros((0, self._dim), np.float32)
+            return batch
+        if self.kb is not None and self.kb_features:
+            joined = map_passage_to_kb(batch, self.kb, self.kb_features)
+            for i, item in enumerate(items):
+                for f in self.kb_features:
+                    item[f] = joined[f][i]
+        batch[self.save_as] = self.embed_items(items)
         return batch
 
 

@@ -4,7 +4,8 @@
 (``embeddings.{word,position,token_type,ln}``, ``layers[i].{attention.
 {q,k,v,o}, attention_ln, mlp.{in,out}, output_ln}``, ``pooler``) so that
 :func:`viquae_torch.models.convert.params_from_jax` maps names one to one;
-:func:`apply` is the forward. Dense FFN only; evaluation only.
+:func:`apply` is the forward. Dense FFN only (a MoE config raises,
+ROADMAP A17); evaluation only.
 """
 from __future__ import annotations
 
@@ -29,6 +30,9 @@ class BertConfig:
     hidden_act: str = "gelu"
     layer_norm_eps: float = 1e-12
     add_pooler: bool = True
+    # the JAX package's Mixture-of-Experts FFN (ops/moe.py) is not ported:
+    # a config with moe_experts > 0 raises when its weights are built
+    moe_experts: int = 0
 
     @classmethod
     def from_hf(cls, hf_config, add_pooler: bool = True) -> "BertConfig":
@@ -50,6 +54,10 @@ class Bert(nn.Module):
 
     def __init__(self, cfg: BertConfig, **factory):
         super().__init__()
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "moe_experts > 0: the Mixture-of-Experts FFN is not ported "
+                "yet (ROADMAP.md A17)")
         self.cfg = cfg
         h = cfg.hidden_size
         self.embeddings = nn.ModuleDict({

@@ -181,9 +181,8 @@ def vit_apply(params: CLIPVision, cfg: CLIPVisionConfig,
               compute_dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """images: (B, H, W, 3) CLIP-normalized."""
     b = images.shape[0]
-    patches = F.conv2d(R.nchw(images).to(compute_dtype),
-                       params.patch_embedding.weight.to(compute_dtype),
-                       stride=cfg.patch_size).float()
+    patches = R.conv2d_f32(R.nchw(images), params.patch_embedding.weight,
+                           cfg.patch_size, 0, compute_dtype)
     x = patches.flatten(2).transpose(1, 2)            # (B, h*w, D)
     cls = params.class_embedding.expand(b, 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1)

@@ -106,20 +106,25 @@ def mha(
     bias: Optional[torch.Tensor] = None,
     n_heads: int = 12,
     compute_dtype: Optional[torch.dtype] = torch.float32,
+    kv: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Scaled dot-product self-attention.
+    """Scaled dot-product attention of the queries of ``x`` over the keys
+    and values of ``kv`` (default ``x``: self-attention).
 
-    x: (B, L, D); bias: additive f32 bias broadcastable to (B, H, L, L).
+    x: (B, Lq, D); kv: (B, Lk, Dkv); bias: additive f32 bias broadcastable
+    to (B, H, Lq, Lk).
     """
+    if kv is None:
+        kv = x
     b, length, dim = x.shape
     head_dim = dim // n_heads
 
     def heads(t):  # (B, L, D) -> (B, H, L, hd)
-        return t.reshape(b, length, n_heads, head_dim).transpose(1, 2)
+        return t.reshape(b, -1, n_heads, head_dim).transpose(1, 2)
 
     q = heads(dense(attn["q"], x, compute_dtype))
-    k = heads(dense(attn["k"], x, compute_dtype))
-    v = heads(dense(attn["v"], x, compute_dtype))
+    k = heads(dense(attn["k"], kv, compute_dtype))
+    v = heads(dense(attn["v"], kv, compute_dtype))
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim)
     if bias is not None:
         scores = scores + bias

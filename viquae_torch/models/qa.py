@@ -307,14 +307,7 @@ class MultiPassageBERTReader:
                  seed: int = 0, bert_config=None,
                  fuse_ir_score: bool = False, device=None,
                  dtype: torch.dtype = torch.float32):
-        if cfg is None:
-            bcfg = (
-                bert.BertConfig(**{**bert_config, "add_pooler": False})
-                if bert_config is not None
-                else bert.BertConfig(add_pooler=False)
-            )
-            cfg = ReaderConfig(bert=bcfg, fuse_ir_score=fuse_ir_score)
-        self.cfg = cfg
+        self.cfg = cfg = cfg or self.config(bert_config, fuse_ir_score)
         if params is None:
             from viquae_torch.models import convert
 
@@ -324,9 +317,22 @@ class MultiPassageBERTReader:
         self.params = params
 
     @classmethod
-    def from_pretrained(cls, path, **kwargs):
-        """Load from an export_params dir (train.checkpoint contract)."""
-        raise NotImplementedError(
-            "loading an export_params directory needs train/checkpoint.py, "
-            "which is not ported yet (ROADMAP.md A16); load an HF "
-            "save_pretrained directory with params_from_pretrained_dir")
+    def from_pretrained(cls, path, device=None,
+                        dtype: torch.dtype = torch.float32, **kwargs):
+        """Load from an export_params dir (train.checkpoint contract); the
+        configuration comes from ``kwargs`` as for the constructor."""
+        from viquae_torch.models import convert
+        from viquae_torch.train.checkpoint import import_params
+
+        cfg = kwargs.pop("cfg", None) or cls.config(
+            kwargs.pop("bert_config", None),
+            kwargs.pop("fuse_ir_score", False))
+        return cls(cfg=cfg, params=convert.reader_from_jax(
+            import_params(path), cfg, device=device, dtype=dtype), **kwargs)
+
+    @staticmethod
+    def config(bert_config=None, fuse_ir_score: bool = False
+               ) -> ReaderConfig:
+        """The reader configuration of a kwargs tree (no pooler)."""
+        bcfg = bert.BertConfig(**{**(bert_config or {}), "add_pooler": False})
+        return ReaderConfig(bert=bcfg, fuse_ir_score=fuse_ir_score)

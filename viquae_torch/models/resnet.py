@@ -11,8 +11,8 @@ layout cuDNN's fast convolutions take. Modules are named as the JAX param
 tree (``conv1``, ``bn1``, ``layers.{stage}.{block}.conv1`` ...,
 ``downsample_conv`` / ``downsample_bn``), so :func:`from_jax` is
 ``convert.module_from_tree``. ``compute_dtype=torch.bfloat16`` runs the
-convolutions in bf16 (cuDNN accumulates in f32, and rounds each output to
-bf16, where the reference keeps it in f32); batch norm stays f32.
+convolutions on bf16 operands and keeps each sum in f32, as the reference
+does (:func:`conv2d_f32`); batch norm stays f32.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from viquae_torch.models import convert
-from viquae_torch.models.layers import BatchNorm, batch_norm, seeded
+from viquae_torch.models.layers import (BatchNorm, _dot_f32, batch_norm,
+                                        seeded)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,19 +37,63 @@ class ResNetConfig:
     pool: str = "avg"        # "avg" | "max" | "none" (feature map)
 
 
+def conv2d_f32(x: torch.Tensor, weight: torch.Tensor, stride: int,
+               padding: int, compute_dtype: Optional[torch.dtype] = None
+               ) -> torch.Tensor:
+    """Convolution of NCHW ``x`` with the OIHW ``weight``, no bias, with
+    an f32 result whatever ``compute_dtype``: the reference's
+    ``conv_general_dilated(..., preferred_element_type=float32)``. In bf16
+    the operands are rounded to bf16 and each sum is kept in f32 (cuDNN's
+    bf16 convolution would round it to bf16), through :func:`_conv_gemm`;
+    chip_smoke.py phase 17 times it against :func:`_conv_upcast`, which
+    computes the same sums up to their order."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return F.conv2d(x, weight, None, stride, padding).float()
+    return _conv_gemm(x.to(compute_dtype), weight.to(compute_dtype), stride,
+                      padding)
+
+
+def _conv_upcast(x: torch.Tensor, weight: torch.Tensor, stride: int,
+                 padding: int) -> torch.Tensor:
+    """The f32 convolution of the upcast operands (bf16 products are exact
+    in f32; TF32 is off)."""
+    return F.conv2d(x.float(), weight.float(), None, stride, padding)
+
+
+def _conv_gemm(x: torch.Tensor, weight: torch.Tensor, stride: int,
+               padding: int) -> torch.Tensor:
+    """im2col + one GEMM with an f32 result. A 1x1 kernel is a product
+    over the (strided) pixels; a larger one takes its patches from the
+    NHWC view with ``Tensor.unfold`` (columns in the kernel's (C, kh, kw)
+    order, so the OIHW kernel flattens as it lies). Returns an NCHW view
+    with channels-last memory."""
+    b = x.shape[0]
+    cout, cin, kh, kw = weight.shape
+    h = x.permute(0, 2, 3, 1)
+    if padding:
+        h = F.pad(h, (0, 0, padding, padding, padding, padding))
+    if kh == kw == 1:
+        h = h[:, ::stride, ::stride]
+        ho, wo = h.shape[1:3]
+        cols = h.reshape(-1, cin)
+    else:
+        patches = h.unfold(1, kh, stride).unfold(2, kw, stride)
+        ho, wo = patches.shape[1:3]
+        cols = patches.reshape(-1, cin * kh * kw)
+    out = _dot_f32(cols, weight.reshape(cout, -1))
+    return out.view(b, ho, wo, cout).permute(0, 3, 1, 2)
+
+
 def conv(c: nn.Conv2d, x: torch.Tensor, stride: int = 1,
          padding: Optional[int] = None,
          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """2D convolution of NCHW ``x`` with ``c.weight`` (OIHW), no bias,
-    'same' padding for odd kernels unless given; f32 result."""
+    'same' padding for odd kernels unless given; f32 result
+    (:func:`conv2d_f32`)."""
     kh = c.weight.shape[2]
     if padding is None:
         padding = (kh - 1) // 2
-    weight = c.weight
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-        weight = weight.to(compute_dtype)
-    return F.conv2d(x, weight, None, stride, padding).float()
+    return conv2d_f32(x, c.weight, stride, padding, compute_dtype)
 
 
 def _conv(cin, cout, k, **factory):
