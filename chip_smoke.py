@@ -133,6 +133,24 @@ raises on failure:
    dispatch, each response against the direct call on its own batch of
    one; wall, start-up (and its first steps) and batch seconds.
 
+21. training at full width, f32, seeded weights, synthetic data through
+   the port's collators and Trainer.fit (AdamW with each config's
+   schedule and clipping, dropout on): the DPR biencoder of
+   configs/dpr_train.yaml (two BERT-base towers, 256 questions x 2
+   passages, packed, max_length 256; run as shipped and, if that runs out
+   of device memory, with the trainee's remat_layers, both printed), the
+   multimodal ICT of configs/experiments/ict/eca.yaml (ECA question tower
+   with a CLIP-RN50 token, DPR context tower, 512 items, remat, BERT
+   layers 6-11 frozen: every frozen leaf bitwise unchanged) and the reader
+   of configs/experiments/rc/viquae.yaml (4 questions x 24 passages x 256,
+   packed): step ms over 5 steps after a warm-up step, items/s, peak
+   memory, the deterministic loss on the repeated batch falling; each
+   trainee's step at 2 layers on the card against the CPU's (card_vs_cpu);
+   then ``python -m viquae_torch train fit`` (checkpoints, resume, export)
+   and ``save-ptm`` as subprocesses on a synthetic dataset saved with
+   ``datasets``. No kernel is on the training path: B1's and B2's counts
+   over the phase are printed (0).
+
 Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
 uploads staged through pinned memory and, for comparison, from pageable
 memory, and print each call's place on the run's timeline.
@@ -3116,6 +3134,490 @@ def phase_cli(dev, main, tokenizer, workdir, cfg=dpr.DPRConfig()) -> dict:
             "cli_server": report["b1_launches"]}
 
 
+# --------------------------------------------------------------------------
+# phase 21: training
+# --------------------------------------------------------------------------
+TRAIN_STEPS = 5          # timed steps, after one warm-up step
+DPR_TRAIN_QUESTIONS = 256
+ICT_TRAIN_ITEMS = 512
+READER_TRAIN_QUESTIONS = 4
+SMALL_DEPTH = 2          # layers of the card-against-CPU step
+SMALL_BATCH = 16         # questions of that step (DPR)
+SMALL_ICT_ITEMS = 8      # ICT items of that step: its CPU half is the
+                         # slowest (47 s at 16 items on the card's host)
+GRAD_RTOL = 1e-3         # of the largest gradient entry (see card_vs_cpu)
+# configs/dpr_train.yaml, configs/experiments/ict/eca.yaml and
+# configs/experiments/rc/viquae.yaml, as the JAX package ships them
+DPR_TRAIN_OPT = dict(lr=2e-5, warmup_steps=100, total_steps=40000,
+                     grad_clip=1.0)
+ICT_TRAIN_OPT = dict(lr=2e-5, warmup_steps=100, total_steps=10000,
+                     grad_clip=2.0,
+                     freeze_regex=".*/layers/(6|7|8|9|10|11)/.*")
+READER_TRAIN_OPT = dict(lr=1e-5, warmup_steps=1000, total_steps=30000,
+                        grad_clip=1.0)
+
+
+def words(ids) -> str:
+    return " ".join(f"w{int(j)}" for j in ids)
+
+
+def passage_lengths(rng, n):
+    """Passage token counts: normal(125, 8) clipped to [100, 160]."""
+    return np.clip(np.round(rng.normal(125, 8, n)), 100, 160).astype(int)
+
+
+def dpr_train_items(rng, n_questions):
+    """BM25-mined DPR training items over a KB of 2 passages a question:
+    lognormal-length questions, normal(125, 8)-length passages, ids in
+    [1000, 10000)."""
+    kb = [{"passage": words(rng.integers(1000, 10_000, m))}
+          for m in passage_lengths(rng, 2 * n_questions)]
+    items = [{"id": f"q{i}", "input": q,
+              "BM25_provenance_indices": [i],
+              "BM25_irrelevant_indices": [n_questions + i]}
+             for i, q in enumerate(lognormal_questions(
+                 rng, n_questions, special=0))]
+    return kb, items
+
+
+def ict_train_items(rng, n_items, dim=1024):
+    """WIT-like ICT items: 5 sentences of normal(125, 8) / 4 tokens (a
+    pseudo-question of one sentence, a target of about four), a unit
+    CLIP-RN50 feature for the question and one for the context."""
+    feats = rng.standard_normal((2, n_items, dim)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=2, keepdims=True)
+    return [{"title": f"w{1000 + i}",
+             "sentences": [{"text": words(rng.integers(1000, 10_000, m))}
+                           for m in passage_lengths(rng, 5) // 4],
+             "clip-RN50": feats[0, i].tolist(),
+             "context_clip-RN50": feats[1, i].tolist()}
+            for i in range(n_items)]
+
+
+def reader_train_items(rng, n_questions, m=24, n_relevant=8):
+    """Reader items: a lognormal question, 8 relevant passages holding the
+    2-token answer at a random place, 16 irrelevant ones."""
+    kb, items = [], []
+    for i in range(n_questions):
+        answer = rng.integers(1000, 10_000, 2)
+        rel = []
+        for _ in range(m):
+            ids = rng.integers(1000, 10_000, passage_lengths(rng, 1)[0])
+            if len(rel) < n_relevant:
+                at = int(rng.integers(0, len(ids) - 2))
+                ids[at: at + 2] = answer
+                rel.append(len(kb))
+            kb.append({"passage": words(ids)})
+        items.append({"id": f"q{i}",
+                      "input": lognormal_questions(rng, 1, special=0)[0],
+                      "output": {"original_answer": words(answer),
+                                 "answer": [words(answer)]},
+                      "search_provenance_indices": rel,
+                      "search_irrelevant_indices": list(
+                          range(rel[-1] + 1, len(kb)))})
+    return kb, items
+
+
+def dpr_trainee(dev, layers_=12, seed=0, remat=False):
+    from viquae_torch.train.trainee import BiEncoderTrainee
+
+    cfg = dpr.DPRConfig(bert=dataclasses.replace(
+        dpr.DPRConfig().bert, num_hidden_layers=layers_))
+    return BiEncoderTrainee(dpr.DPREncoder(cfg=cfg, seed=seed, device=dev),
+                            dpr.DPREncoder(cfg=cfg, seed=seed + 1,
+                                           device=dev),
+                            remat_layers=remat)
+
+
+def ict_trainee(dev, layers_=12, seed=0):
+    from viquae_torch.models import mm
+    from viquae_torch.train.trainee import BiEncoderTrainee
+
+    bcfg = dataclasses.replace(dpr.DPRConfig().bert,
+                               num_hidden_layers=layers_)
+    question = mm.ECAEncoder(cfg=mm.MMConfig(
+        bert=bcfg, n_faces=0, image_dims=(("clip-RN50", 1024),)),
+        seed=seed, device=dev)
+    context = dpr.DPREncoder(cfg=dpr.DPRConfig(bert=bcfg), seed=seed + 1,
+                             device=dev)
+    return BiEncoderTrainee(question, context, remat_layers=True)
+
+
+def reader_trainee(dev, tokenizer, layers_=12, seed=0):
+    from viquae_torch.train.trainee import ReaderTrainee
+
+    cfg = qa.ReaderConfig(bert=dataclasses.replace(
+        qa.ReaderConfig().bert, num_hidden_layers=layers_))
+    return ReaderTrainee(cfg, qa.init(cfg, seed, device=dev), tokenizer,
+                         m_passages=READER_M)
+
+
+def timed_training(trainee, batch, opt_kw, questions, label) -> dict:
+    """One warm-up step, then TRAIN_STEPS steps timed with CUDA events
+    (log_every = TRAIN_STEPS: one host read in the timed run), through
+    Trainer.fit on a step-indexed source that gives the same batch every
+    step; the deterministic loss on that batch before and after; peak
+    device memory over the steps."""
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(trainee.loss_fn, trainee.params,
+                      optim.make_optimizer(trainee.params, **opt_kw),
+                      TrainerConfig(max_steps=1, log_every=0))
+    loss_before = trainer.evaluate([batch])["loss"]
+    t0 = time.perf_counter()
+    trainer.fit(lambda step: batch)
+    torch.cuda.synchronize()
+    first_step_s = time.perf_counter() - t0
+    trainer.cfg.max_steps = trainer.cfg.log_every = TRAIN_STEPS
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t0 = time.perf_counter()
+    out = trainer.fit(lambda step: batch)
+    end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    loss_after = trainer.evaluate([batch])["loss"]
+    result = {"step_ms": step_ms, "first_step_s": first_step_s,
+              "host_wall_per_step_ms": wall_s * 1e3 / TRAIN_STEPS,
+              "items_per_s": questions / (step_ms / 1e3),
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "train_loss_last_step": out["history"][-1]["loss"],
+              "eval_loss_before": loss_before, "eval_loss_after": loss_after}
+    check(all(math.isfinite(v) for v in (loss_before, loss_after,
+                                         result["train_loss_last_step"])),
+          f"{label}: a loss is not finite: {result}")
+    check(loss_after < loss_before, f"{label}: the loss did not fall on "
+          f"the repeated batch: {result}")
+    result["trainer"] = trainer
+    return result
+
+
+def canvas_tokens(side) -> int:
+    text = side.get("text_inputs", side)
+    return int((text["canvas_segment_ids"] > 0).sum())
+
+
+def card_vs_cpu(dev, make, batch, label) -> dict:
+    """One AdamW step (no warmup, clip 1.0, dropout off) of the same
+    trainee at SMALL_DEPTH layers on the card and on the CPU, from the
+    same weights and batch. Held: the loss within 1e-5 relative; every
+    gradient entry within GRAD_RTOL of the largest (the f32 sums of the
+    card's and the CPU's GEMMs come in other orders, which moves the last
+    bits of every product; at BERT's 0.02 init the in-batch softmax is
+    nearly flat and its gradient is a difference of near-equal terms, which
+    the CPU parity tests measured at ~5e-4 of the largest entry between the
+    two packages); the updated parameters within 1e-6 + 2 lr min(1, tol /
+    |g|) each (Adam moves an entry by ~lr whatever its gradient's size, so
+    one whose gradient is rounding noise moves either way)."""
+    from viquae_torch.core.device import upload_batch
+    from viquae_torch.train import optim
+
+    lr = 1e-3
+    runs = {}
+    trainee = make(dev)          # seeded on the card, then moved: one init
+    params = trainee.params.requires_grad_(True)
+    start = {k: v.clone() for k, v in params.state_dict().items()}
+    for label_, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        # the trainee's bundles hold these very modules: they move too
+        params.to(where).load_state_dict(start)
+        for p in params.parameters():
+            p.grad = None
+        opt = optim.make_optimizer(params, lr=lr, grad_clip=1.0).build(params)
+        loss, _ = trainee.loss_fn(params, upload_batch(batch, where), None,
+                                  deterministic=True)
+        loss.backward()
+        # copies: the CPU run's .cpu() would alias the gradients that the
+        # optimizer step clips in place
+        grads = {n: p.grad.detach().to("cpu", copy=True) for n, p in
+                 params.named_parameters() if p.grad is not None}
+        opt.step()
+        runs[label_] = (float(loss.detach()), grads,
+                            {n: p.detach().to("cpu", copy=True)
+                             for n, p in params.named_parameters()})
+    del trainee, params, opt, start
+    (l_cpu, g_cpu, p_cpu), (l_dev, g_dev, p_dev) = runs["cpu"], runs["card"]
+    g_max = max(float(g.abs().max()) for g in g_cpu.values())
+    g_err = max(float((g_dev[n] - g).abs().max()) for n, g in g_cpu.items())
+    tol = GRAD_RTOL * g_max
+    p_excess = 0.0
+    for n, p in p_cpu.items():
+        g = g_cpu.get(n)
+        scale = (torch.ones_like(p) if g is None
+                 else torch.clamp(tol / g.abs().clamp_min(1e-30), max=1.0))
+        bound = 1e-6 + 2 * lr * scale
+        p_excess = max(p_excess, float(((p_dev[n] - p).abs() - bound).max()))
+    out = {"loss_cpu": l_cpu, "loss_card": l_dev,
+           "loss_rel_diff": abs(l_dev - l_cpu) / abs(l_cpu),
+           "grad_max": g_max, "grad_max_abs_diff": g_err,
+           "grad_rel_to_max": g_err / g_max,
+           "params_excess_over_bound": p_excess}
+    check(out["loss_rel_diff"] <= 1e-5 and g_err <= tol and p_excess <= 0,
+          f"{label}: the card's step against the CPU's: {out}")
+    return out
+
+
+def phase_training(dev, tokenizer, workdir) -> dict:
+    """Phase 21: training at full width. Three trainees through their
+    collators and Trainer.fit (AdamW, the configs' schedules, f32, no
+    TF32), each card step held against the CPU's at SMALL_DEPTH layers,
+    then the command line (train fit, resume, export, save-ptm)."""
+    import gc
+
+    from viquae_torch.train import data as tdata
+
+    rng = np.random.default_rng(21)
+    out = {}
+    t_block = time.perf_counter()
+    # ---- DPR biencoder, configs/dpr_train.yaml --------------------------
+    kb, items = dpr_train_items(rng, DPR_TRAIN_QUESTIONS)
+    coll = tdata.BiEncoderCollator(tokenizer, kb=kb, M=2,
+                                   n_relevant_passages=1, search_key="BM25",
+                                   max_length=256, packed=True, seed=0)
+    t0 = time.perf_counter()
+    batch = coll.collate_fn(items)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    tokens = {"question": canvas_tokens(batch["question_inputs"]),
+              "context": canvas_tokens(batch["context_inputs"])}
+    dpr_run = {"collate_ms": collate_ms, "real_tokens": tokens,
+               "questions": DPR_TRAIN_QUESTIONS, "passages": 2 *
+               DPR_TRAIN_QUESTIONS, "max_length": 256, "packed": True}
+    for remat in (False, True):
+        res, t0 = None, time.perf_counter()
+        try:
+            res = timed_training(dpr_trainee(dev, remat=remat), batch,
+                                 DPR_TRAIN_OPT, DPR_TRAIN_QUESTIONS,
+                                 f"dpr remat={remat}")
+            res.pop("trainer")
+        except torch.cuda.OutOfMemoryError as e:
+            if remat:
+                raise
+            # the config as shipped does not fit: measured and reported,
+            # then the trainee's own remat_layers option is run
+            res = {"out_of_memory": str(e).splitlines()[0][:300],
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        res["seconds"] = time.perf_counter() - t0
+        dpr_run["with_remat" if remat else "without_remat"] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+        if "out_of_memory" not in res:
+            break
+    emit({"phase": "training_dpr", "config": "configs/dpr_train.yaml",
+          "optimizer": DPR_TRAIN_OPT, **dpr_run})
+    t_check = time.perf_counter()
+    dpr_run["card_vs_cpu"] = card_vs_cpu(
+        dev, lambda where: dpr_trainee(where, SMALL_DEPTH),
+        coll.collate_fn(items[:SMALL_BATCH]), "dpr")
+    emit({"phase": "training_dpr_card_vs_cpu", **dpr_run["card_vs_cpu"],
+          "check_s": time.perf_counter() - t_check,
+          "block_s": time.perf_counter() - t_block})
+    t_block = time.perf_counter()
+    out["dpr"] = dpr_run
+    del batch, coll, kb, items
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- multimodal ICT, configs/experiments/ict/eca.yaml ---------------
+    items = ict_train_items(rng, ICT_TRAIN_ITEMS)
+    feats = tdata.PreComputedImageFeatures(n_faces=0,
+                                           image_dims={"clip-RN50": 1024})
+    # M=1: the config sets no M, and the collator's default (24) would tile
+    # each target text 24 times with rolled images that the text-only DPR
+    # context tower cannot see
+    coll = tdata.ICTCollator(tokenizer, M=1, max_length=256,
+                             image_features=feats, text_mask_rate=0.5,
+                             image_mask_rate=0.0, packed=True, seed=0)
+    t0 = time.perf_counter()
+    batch = coll.collate_fn(items)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    trainee = ict_trainee(dev)
+    res = timed_training(trainee, batch, ICT_TRAIN_OPT, ICT_TRAIN_ITEMS,
+                         "ict")
+    trainer = res.pop("trainer")
+    from viquae_torch.train.optim import freeze_mask
+
+    frozen = [n for n, ok in freeze_mask(
+        trainer.state.params, ICT_TRAIN_OPT["freeze_regex"]).items() if not ok]
+    start = dict(trainee.params.named_parameters())
+    now = dict(trainer.state.params.named_parameters())
+    unchanged = all(torch.equal(start[n], now[n]) for n in frozen)
+    moved = sum(not torch.equal(start[n], now[n]) for n in now
+                if n not in frozen)
+    check(frozen and unchanged and moved > 0,
+          f"ict: {len(frozen)} frozen leaves unchanged={unchanged}, "
+          f"{moved} trainable leaves moved")
+    ict_run = {"collate_ms": collate_ms, "items": ICT_TRAIN_ITEMS,
+               "real_tokens": {"question": canvas_tokens(
+                   batch["question_inputs"]), "context": canvas_tokens(
+                   batch["context_inputs"])},
+               "remat_layers": True, "frozen_leaves": len(frozen),
+               "frozen_bitwise_unchanged": unchanged,
+               "trainable_leaves_moved": moved, **res}
+    del trainer, trainee, start, now
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "training_ict_eca",
+          "config": "configs/experiments/ict/eca.yaml", "M": 1,
+          "optimizer": ICT_TRAIN_OPT, **ict_run})
+    t_check = time.perf_counter()
+    ict_run["card_vs_cpu"] = card_vs_cpu(
+        dev, lambda where: ict_trainee(where, SMALL_DEPTH),
+        coll.collate_fn(items[:SMALL_ICT_ITEMS]), "ict")
+    emit({"phase": "training_ict_eca_card_vs_cpu", **ict_run["card_vs_cpu"],
+          "check_s": time.perf_counter() - t_check,
+          "block_s": time.perf_counter() - t_block})
+    t_block = time.perf_counter()
+    out["ict"] = ict_run
+    del batch, coll, items
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- reader, configs/experiments/rc/viquae.yaml ---------------------
+    kb, items = reader_train_items(rng, READER_TRAIN_QUESTIONS)
+    coll = tdata.ReaderCollator(tokenizer, kb=kb, M=READER_M,
+                                n_relevant_passages=8, max_n_answers=10,
+                                max_length=256, packed=True, seed=0)
+    t0 = time.perf_counter()
+    batch = coll.collate_fn(items)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    check(int(batch["answer_mask"].sum()) >= READER_TRAIN_QUESTIONS * 8,
+          "reader: every relevant passage holds its answer")
+    res = timed_training(reader_trainee(dev, tokenizer), batch,
+                         READER_TRAIN_OPT, READER_TRAIN_QUESTIONS, "reader")
+    res.pop("trainer")
+    reader_run = {"collate_ms": collate_ms,
+                  "questions": READER_TRAIN_QUESTIONS, "m_passages": READER_M,
+                  "max_length": 256, "packed": True,
+                  "real_tokens": int((batch["canvas_segment_ids"] > 0).sum()),
+                  "canvas": list(batch["canvas_input_ids"].shape), **res}
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "training_reader",
+          "config": "configs/experiments/rc/viquae.yaml",
+          "optimizer": READER_TRAIN_OPT, **reader_run})
+    t_check = time.perf_counter()
+    reader_run["card_vs_cpu"] = card_vs_cpu(
+        dev, lambda where: reader_trainee(where, tokenizer, SMALL_DEPTH),
+        coll.collate_fn(items[:1]), "reader")
+    emit({"phase": "training_reader_card_vs_cpu",
+          **reader_run["card_vs_cpu"],
+          "check_s": time.perf_counter() - t_check,
+          "block_s": time.perf_counter() - t_block})
+    out["reader"] = reader_run
+    del batch, coll, kb, items
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = phase_train_cli(dev, workdir)
+    return out
+
+
+TRAIN_CLI_QUESTIONS = 64
+TRAIN_CLI_BATCH = 16
+
+
+def train_cli(dev, *args) -> subprocess.Popen:
+    """``python -m viquae_torch --device <dev> <args>``, started."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "viquae_torch", "--device", str(dev),
+         *map(str, args)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def finished(proc, t0, label) -> tuple:
+    """(wall seconds since t0, stdout) of a started CLI process."""
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        proc.kill()
+    check(proc.returncode == 0, f"viquae_torch {label} failed: {err[-4000:]}")
+    return time.perf_counter() - t0, out
+
+
+def phase_train_cli(dev, workdir) -> dict:
+    """``train fit`` of a DPR biencoder (seeded towers at full width,
+    SMALL_DEPTH layers) on a synthetic dataset written with
+    ``datasets.save_to_disk``: 4 steps, one checkpoint and an export; then,
+    started together, ``fit --ckpt-path`` resuming to 6 steps and
+    ``save-ptm --step 4``, whose towers must equal the first export.
+    Wall, start-up (wall less the in-fit time) and step ms of each run."""
+    from datasets import Dataset
+
+    rng = np.random.default_rng(211)
+    kb, items = dpr_train_items(rng, TRAIN_CLI_QUESTIONS)
+    Dataset.from_list(items).save_to_disk(str(workdir / "train_questions"))
+    Dataset.from_list(kb).save_to_disk(str(workdir / "train_kb"))
+    ckpt = workdir / "train_ckpt"
+    tower = {"class_name": "DPREncoder",
+             "bert_config": {"num_hidden_layers": SMALL_DEPTH}}
+    config = {
+        "seed": 42,
+        "trainee": {"kind": "biencoder",
+                    "question_model": {**tower, "seed": 0},
+                    "context_model": {**tower, "seed": 1}},
+        "data": {"tokenizer": str(workdir / "tok"),
+                 "dataset": str(workdir / "train_questions"),
+                 "kb": str(workdir / "train_kb"), "M": 2,
+                 "n_relevant_passages": 1, "search_key": "BM25",
+                 "batch_size": TRAIN_CLI_BATCH, "max_length": 256,
+                 "packed": True},
+        "optimizer": DPR_TRAIN_OPT,
+        "trainer": {"max_steps": 4, "log_every": 1, "keep_ckpts": 2,
+                    "ckpt_dir": str(ckpt)},
+        "export": str(workdir / "train_export_4"),
+    }
+    (workdir / "train_fit.json").write_text(json.dumps(config))
+    config["trainer"]["max_steps"] = 6
+    del config["trainer"]["ckpt_dir"]
+    config["export"] = str(workdir / "train_export_6")
+    (workdir / "train_resume.json").write_text(json.dumps(config))
+    t0 = time.perf_counter()
+    fit_wall, _ = finished(train_cli(dev, "train", "fit",
+                                     workdir / "train_fit.json"), t0, "fit")
+    t0 = time.perf_counter()
+    resume = train_cli(dev, "train", "fit", workdir / "train_resume.json",
+                       "--ckpt-path", ckpt)
+    ptm = train_cli(dev, "save-ptm", workdir / "train_fit.json",
+                    workdir / "train_ptm", "--step", 4)
+    ptm_wall, printed = finished(ptm, t0, "save-ptm")
+    resume_wall, _ = finished(resume, t0, "fit --ckpt-path")
+    log = [json.loads(line) for line in
+           (ckpt / "log.jsonl").read_text().splitlines()]
+    steps = [e for e in log if "loss" in e]
+    check([e["step"] for e in steps] == [1, 2, 3, 4, 5, 6] and all(
+        math.isfinite(e["loss"]) for e in steps), f"train fit log: {log}")
+    check(sorted(p.name for p in ckpt.glob("step_*")) ==
+          ["step_4", "step_6"], "the fit's and the resume's checkpoints")
+    saved = json.loads(printed.strip().splitlines()[-1])
+    check(saved["step"] == 4 and len(saved["exported"]) == 2,
+          f"save-ptm: {saved}")
+    for name in ("question_model", "context_model"):
+        with np.load(workdir / "train_ptm" / name / "params.npz") as a, \
+                np.load(workdir / "train_export_4" / name / "params.npz") as b:
+            check(sorted(a.files) == sorted(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files),
+                f"save-ptm {name} equals the fit's export")
+        check((workdir / "train_export_6" / name / "params.npz").exists(),
+              f"the resumed fit exported {name}")
+
+    def step_ms(run):
+        elapsed = [e["elapsed_s"] for e in run]
+        return [1e3 * (b - a) for a, b in zip(elapsed, elapsed[1:])]
+
+    out = {"questions": TRAIN_CLI_QUESTIONS, "batch_size": TRAIN_CLI_BATCH,
+           "layers": SMALL_DEPTH, "fit_wall_s": fit_wall,
+           "resume_wall_s": resume_wall, "save_ptm_wall_s": ptm_wall,
+           "fit_start_up_s": fit_wall - steps[3]["elapsed_s"],
+           "resume_start_up_s": resume_wall - steps[5]["elapsed_s"],
+           "fit_step_ms_after_first": step_ms(steps[:4]),
+           "resume_step_ms_after_first": step_ms(steps[4:]),
+           "losses": [e["loss"] for e in steps]}
+    emit({"phase": "training_cli", "datasets_on_card": True, **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3167,8 +3669,20 @@ def main() -> int:
             dev, main_path, tokenizer)["launches"]
         launches_by_path.update(phase_cli(dev, main_path, tokenizer,
                                           workdir))
-    emit({"phase": "early_fusion_and_cli_seconds",
-          "seconds": time.perf_counter() - t0})
+        emit({"phase": "early_fusion_and_cli_seconds",
+              "seconds": time.perf_counter() - t0})
+        # phase 21 reaches no kernel: its counts are read to show it
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        mips_fused.fused_score_segmax.launches = 0
+        t0 = time.perf_counter()
+        del main_path["index"], main_path["embedder"], shared
+        torch.cuda.empty_cache()
+        phase_training(dev, tokenizer, workdir)
+        launches_by_path["training"] = {
+            "b1": mips_fused.fused_score_segmax_qmajor.launches,
+            "b2": mips_fused.fused_score_segmax.launches}
+        emit({"phase": "training_seconds",
+              "seconds": time.perf_counter() - t0})
     kernels[0]["launches_by_path"] = launches_by_path
     emit({"phase": "device_memory",
           "max_memory_allocated_reader_phases": reader_peak,

@@ -1,8 +1,9 @@
 """The port's CLI (``python -m viquae_torch --device cpu <command>``)
 against the JAX package's (``viquae_tpu.cli.main``) on the same configs
 and the same weights: the cases of tests/test_cli.py (all but training)
-and of tests/test_cli_aux.py for the aux commands the port runs, plus the
-stubs and the parsers.
+and of tests/test_cli_aux.py for the aux commands the port runs,
+``train`` (fit with checkpoints, resume and export; validate; test) and
+``save-ptm``, plus the stubs and the parsers.
 
 Weights: neither CLI draws them. Both load one export directory written
 by the JAX package's ``export_params`` (a tree drawn with numpy), or one
@@ -165,7 +166,7 @@ def test_parsers_list_the_same_commands(capsys):
     assert ours == ref and len(ours) == 31
 
 
-STUBS = {"stats": "A18", "train": "A16", "save-ptm": "A16",
+STUBS = {"stats": "A18",
          "kilt2vqa": "A18", "wiki": "A18", "wikidump": "A18", "wit": "A18",
          "labelstudio": "A18", "mscelebs": "A18", "evqa": "A18",
          "html": "A18", "plot": "A18", "wtl-filter": "A18"}
@@ -726,3 +727,198 @@ def test_cli_faces_and_face_embed(img_ws, tmp_path, monkeypatch):
            for e in out["embed_jax"]["face_embedding"] if e is not None]
     assert len(got) == len(ref) > 0
     _close(np.concatenate(got), np.concatenate(ref), 1e-4)
+
+
+# --------------------------------------------------------------------------
+# train / save-ptm
+# --------------------------------------------------------------------------
+TRAIN_BCFG = dict(BCFG, hidden_dropout_prob=0.0,
+                  attention_probs_dropout_prob=0.0)
+
+
+@pytest.fixture(scope="module")
+def train_ws(tmp_path_factory, ws):
+    """Questions (with provenance / irrelevant passage ids) over ``ws``'s
+    KB, the two DPR towers as export dirs (drawn by the port at std 0.2,
+    so that the tiny towers' embeddings differ) and an HF-layout reader
+    directory: both packages load the same weights."""
+    from datasets import Dataset
+
+    from viquae_torch.models import dpr as tdpr
+    from viquae_torch.models import qa as tqa
+    from viquae_torch.models.layers import init_weights_
+    from viquae_torch.train.checkpoint import export_params as texport
+
+    root = tmp_path_factory.mktemp("train")
+    rng = np.random.default_rng(1)
+    rows = []
+    for i in range(8):
+        rel = [int(i)]
+        rows.append({
+            "id": f"q{i}", "input": f"w{i} w{i + 1} w{i + 2}",
+            "output": {"original_answer": f"w{i + 3}",
+                       "answer": [f"w{i + 3}"]},
+            "search_provenance_indices": rel,
+            "search_irrelevant_indices": [int(j) for j in
+                                          rng.choice(np.arange(8, 40), 3,
+                                                     replace=False)],
+            "search_indices": rel + [int(j) for j in rng.choice(
+                np.arange(8, 40), 2, replace=False)],
+            "search_scores": [3.0, 2.0, 1.0],
+        })
+    Dataset.from_list(rows).save_to_disk(str(root / "questions"))
+    cfg = tdpr.DPRConfig(bert=tbert.BertConfig(**TRAIN_BCFG))
+    for seed, name in ((5, "question"), (6, "context")):
+        tower = init_weights_(tdpr.init(cfg, seed, device="cpu"), seed,
+                              linear_std=0.2, embed_std=0.2, truncated=True)
+        texport(root / name, convert.tree_from_module(tower))
+    rcfg = tqa.MultiPassageBERTReader.config(READER_BCFG)
+    reader = init_weights_(tqa.init(rcfg, 7, device="cpu"), 7,
+                           linear_std=0.2, embed_std=0.2, truncated=True)
+    sd = tbert.params_to_hf_state_dict(reader.bert, rcfg.bert,
+                                       prefix="bert.")
+    sd["qa_outputs.weight"] = reader.qa_outputs.weight.detach().clone()
+    sd["qa_outputs.bias"] = reader.qa_outputs.bias.detach().clone()
+    (root / "reader").mkdir()
+    torch.save(sd, root / "reader" / "pytorch_model.bin")
+    (root / "reader" / "config.json").write_text(json.dumps({
+        **READER_BCFG, "hidden_act": "gelu", "layer_norm_eps": 1e-12,
+        "type_vocab_size": 2, "model_type": "bert",
+        "architectures": ["BertModel"]}))
+    return root
+
+
+def biencoder_config(ws, train_ws, out, max_steps=4, **trainer):
+    def tower(name):
+        return {"class_name": "DPREncoder", "bert_config": TRAIN_BCFG,
+                "pretrained_model_name_or_path": str(train_ws / name)}
+
+    return {
+        "seed": 3,
+        "trainee": {"kind": "biencoder", "question_model": tower("question"),
+                    "context_model": tower("context")},
+        "data": {"tokenizer": str(ws / "tok"),
+                 "dataset": str(train_ws / "questions"),
+                 "kb": str(ws / "kb"), "M": 2, "batch_size": 4,
+                 "max_length": 16, "packed": True},
+        "optimizer": {"lr": 5e-3, "warmup_steps": 2, "total_steps": 10,
+                      "grad_clip": 1.0},
+        "trainer": {"max_steps": max_steps, "log_every": 1,
+                    "ckpt_every": 2, "ckpt_dir": str(out / "ckpt"),
+                    **trainer},
+        "export": str(out / "export"),
+    }
+
+
+def losses(ckpt_dir):
+    lines = (ckpt_dir / "log.jsonl").read_text().splitlines()
+    return [json.loads(x)["loss"] for x in lines
+            if "loss" in json.loads(x)]
+
+
+def test_cli_train_fit_matches_jax(ws, train_ws, tmp_path, capsys):
+    """``train fit`` on the same config, data and weights in both
+    packages: the same loss history (1e-4 relative over 4 AdamW steps with
+    warmup and clipping), checkpoints under the ckpt dir, and export
+    directories that load in the other package."""
+    from viquae_torch.models import dpr as tdpr
+    from viquae_tpu.models import bert as jbert
+    from viquae_tpu.models import dpr as jdpr
+    from viquae_tpu.train.checkpoint import import_params
+
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        cfg = write(tmp_path / f"{label}.json",
+                    biencoder_config(ws, train_ws, tmp_path / label))
+        cli(["train", "fit", cfg])
+    capsys.readouterr()
+    got, ref = losses(tmp_path / "port" / "ckpt"), losses(
+        tmp_path / "jax" / "ckpt")
+    assert len(got) == len(ref) == 4
+    np.testing.assert_allclose(got, ref, rtol=1e-4)
+    assert (tmp_path / "port" / "ckpt" / "step_4" / "state.pt").exists()
+    template = jdpr.init(jax.random.key(0), jdpr.DPRConfig(
+        bert=jbert.BertConfig(**TRAIN_BCFG)))
+    for name in ("question_model", "context_model"):
+        import_params(tmp_path / "port" / "export" / name, template)
+        tdpr.DPREncoder.from_pretrained(
+            tmp_path / "jax" / "export" / name, device="cpu",
+            bert_config=TRAIN_BCFG)
+
+
+def test_cli_train_resume_validate_test_and_save_ptm(ws, train_ws, tmp_path,
+                                                     capsys):
+    """``fit --ckpt-path`` resumes: 4 then 6 steps equal an uninterrupted
+    6-step run bitwise; ``validate`` and ``test`` (a biencoder has no test
+    protocol: both evaluate) print the JAX CLI's ``test`` metrics for the
+    same weights; ``save-ptm`` writes the towers of the last checkpoint,
+    equal to ``fit``'s export."""
+    straight = write(tmp_path / "straight.json", biencoder_config(
+        ws, train_ws, tmp_path / "straight", max_steps=6))
+    port(["train", "fit", straight])
+    first = biencoder_config(ws, train_ws, tmp_path / "resumed")
+    port(["train", "fit", write(tmp_path / "first.json", first)])
+    ckpt = tmp_path / "resumed" / "ckpt"
+    first["trainer"]["max_steps"] = 6
+    del first["trainer"]["ckpt_dir"]
+    port(["train", "fit", write(tmp_path / "second.json", first),
+          "--ckpt-path", ckpt])
+    capsys.readouterr()
+    assert losses(ckpt) == losses(tmp_path / "straight" / "ckpt")
+    for name in ("question_model", "context_model"):
+        a = np.load(tmp_path / "straight" / "export" / name / "params.npz")
+        b = np.load(tmp_path / "resumed" / "export" / name / "params.npz")
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+
+    port(["save-ptm", straight, tmp_path / "ptm"])
+    saved = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert saved["step"] == 6 and len(saved["exported"]) == 2
+    for name in ("question_model", "context_model"):
+        a = np.load(tmp_path / "ptm" / name / "params.npz")
+        b = np.load(tmp_path / "straight" / "export" / name / "params.npz")
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+
+    evals = {}
+    cfg = biencoder_config(ws, train_ws, tmp_path / "eval")
+    del cfg["trainer"]["ckpt_dir"]
+    cfg = write(tmp_path / "eval.json", cfg)
+    for label, cli, sub in (("jax", jax_cli, "test"),
+                            ("validate", port, "validate"),
+                            ("test", port, "test")):
+        capsys.readouterr()
+        cli(["train", sub, cfg])
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        evals[label] = eval(line, {"nan": float("nan")})
+    assert set(evals["validate"]) == set(evals["jax"]) >= {"loss",
+                                                          "MRR@N*M"}
+    assert evals["validate"] == evals["test"]
+    for k, v in evals["jax"].items():
+        assert evals["validate"][k] == pytest.approx(v, rel=1e-5), k
+
+
+def test_cli_train_test_reader_matches_jax(ws, train_ws, tmp_path, capsys):
+    """``train test`` of a reader initialised from an HF directory
+    (``pretrained:``): the same metrics.json and predictions.json as the
+    JAX CLI."""
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        cfg = write(tmp_path / f"{label}.json", {
+            "seed": 0,
+            "trainee": {"kind": "reader", "m_passages": 2,
+                        "pretrained": str(train_ws / "reader"),
+                        "bert_config": READER_BCFG},
+            "data": {"tokenizer": str(ws / "tok"),
+                     "dataset": str(train_ws / "questions"),
+                     "kb": str(ws / "kb"), "collator": "reader", "M": 2,
+                     "batch_size": 4, "max_length": 24,
+                     "max_n_answers": 2, "train": False},
+            "export": str(tmp_path / label),
+        })
+        cli(["train", "test", cfg])
+    capsys.readouterr()
+    for name in ("metrics.json", "predictions.json"):
+        got = json.loads((tmp_path / "port" / name).read_text())
+        assert got == json.loads((tmp_path / "jax" / name).read_text()), name
+    assert len(json.loads(
+        (tmp_path / "port" / "predictions.json").read_text())) == 8

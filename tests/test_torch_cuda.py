@@ -1170,3 +1170,118 @@ def test_cli_default_device_is_the_gpu(cuda, tmp_path):
     cfg = tmp_path / "c.json"
     cfg.write_text("{}")
     assert parse_args(["hp", str(cfg)]).device == torch.device("cuda")
+
+
+# ---- training ---------------------------------------------------------------
+def _tiny_trainees(dev, kind):
+    """(trainee, host batch) of one kind at a tiny width on ``dev``, with
+    seeded weights (the caller copies one side's state to the other)."""
+    from viquae_torch.models import mm as tmm
+    from viquae_torch.models import qa as tqa
+    from viquae_torch.train import trainee as ttrainee
+
+    bcfg = tbert.BertConfig(vocab_size=64, hidden_size=32,
+                            num_hidden_layers=2, num_attention_heads=2,
+                            intermediate_size=64, max_position_embeddings=64,
+                            add_pooler=False)
+    rng = np.random.default_rng(0)
+    if kind == "reader":
+        cfg = tqa.ReaderConfig(bert=bcfg)
+        n, m, length = 2, 3, 16
+        batch = {
+            "input_ids": rng.integers(5, 64, (n * m, length)).astype(np.int32),
+            "attention_mask": np.ones((n * m, length), np.int32),
+            "start_positions": rng.integers(1, 12, (n, m, 2)),
+            "end_positions": rng.integers(1, 12, (n, m, 2)) + 2,
+            "answer_mask": np.ones((n, m, 2), np.int32),
+        }
+        return (ttrainee.ReaderTrainee(cfg, tqa.init(cfg, 0, device=dev),
+                                       None, m_passages=m), batch)
+    dcfg = tdpr.DPRConfig(bert=bcfg)
+    context = tdpr.DPREncoder(cfg=dcfg, seed=1, device=dev)
+    ids = rng.integers(5, 64, (4, 12)).astype(np.int32)
+    cids = rng.integers(5, 64, (8, 12)).astype(np.int32)
+    text = {"input_ids": ids, "attention_mask": np.ones_like(ids)}
+    batch = {"context_inputs": {"input_ids": cids,
+                                "attention_mask": np.ones_like(cids)},
+             "labels": np.arange(4, dtype=np.int32)}
+    if kind == "dpr":
+        question = tdpr.DPREncoder(cfg=dcfg, seed=0, device=dev)
+        batch["question_inputs"] = text
+    else:
+        question = tmm.ECAEncoder(cfg=tmm.MMConfig(
+            bert=bcfg, n_faces=0, image_dims=(("clip-RN50", 8),)),
+            seed=0, device=dev)
+        batch["question_inputs"] = {
+            "text_inputs": text,
+            "face_inputs": {"face": np.zeros((4, 1, 0, 512), np.float32),
+                            "bbox": np.zeros((4, 1, 0, 7), np.float32),
+                            "attention_mask": np.zeros((4, 1, 0), np.int32)},
+            "image_inputs": {"clip-RN50": {
+                "input": rng.standard_normal((4, 1, 8)).astype(np.float32),
+                "attention_mask": np.ones((4, 1), np.int32)}}}
+    return (ttrainee.BiEncoderTrainee(question, context,
+                                      remat_layers=kind == "ict"), batch)
+
+
+@pytest.mark.parametrize("kind", ["dpr", "ict", "reader"])
+def test_training_step_card_matches_cpu(cuda, kind):
+    """One AdamW step (no warmup, clip 1.0, dropout off) of each trainee
+    of chip_smoke.py phase 21 at a tiny width, on the card and on the CPU
+    from the same weights and batch: the loss within 1e-5 relative, every
+    gradient entry within 1e-3 of the largest (the two sides' f32 GEMMs
+    sum in other orders; the phase's tolerance, see
+    chip_smoke.card_vs_cpu), the updated parameters within 1e-6 + 2 lr
+    min(1, tol / |g|)."""
+    from viquae_torch.core.device import upload_batch
+    from viquae_torch.train import optim
+
+    lr, out, state = 1e-3, {}, None
+    for label, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        trainee, batch = _tiny_trainees(dev, kind)
+        params = trainee.params.requires_grad_(True)
+        if state is None:
+            state = copy.deepcopy(params.state_dict())
+        else:
+            params.load_state_dict(state)
+        opt = optim.make_optimizer(params, lr=lr, grad_clip=1.0).build(params)
+        loss, _ = trainee.loss_fn(params, upload_batch(batch, dev), None,
+                                  deterministic=True)
+        loss.backward()
+        grads = {n: p.grad.to("cpu", copy=True)    # the step clips in place
+                 for n, p in params.named_parameters()}
+        opt.step()
+        out[label] = (float(loss.detach()), grads,
+                         {n: p.detach().cpu()
+                          for n, p in params.named_parameters()})
+    (l_cpu, g_cpu, p_cpu), (l_dev, g_dev, p_dev) = out["cpu"], out["card"]
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    tol = 1e-3 * max(float(g.abs().max()) for g in g_cpu.values())
+    for name, g in g_cpu.items():
+        assert float((g_dev[name] - g).abs().max()) <= tol, name
+        bound = 1e-6 + 2 * lr * torch.clamp(tol / g.abs().clamp_min(1e-30),
+                                            max=1.0)
+        assert bool(((p_dev[name] - p_cpu[name]).abs() <= bound).all()), name
+
+
+def test_train_step_enqueues_without_waiting_for_the_device(cuda):
+    """A Trainer step (upload, forward with dropout, backward, clipping,
+    AdamW, the schedule) makes no host read on a step that does not log:
+    under torch's sync debug mode it raises nowhere."""
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    trainee, batch = _tiny_trainees(cuda, "ict")
+    trainer = Trainer(trainee.loss_fn, trainee.params,
+                      optim.make_optimizer(trainee.params, lr=1e-3,
+                                           warmup_steps=2, grad_clip=1.0),
+                      TrainerConfig(max_steps=1, log_every=0))
+    trainer.fit(lambda step: batch)          # warm-up: allocator, handles
+    torch.cuda.synchronize()
+    trainer.cfg.max_steps = 2
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.fit(lambda step: batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert trainer.state.step == 3

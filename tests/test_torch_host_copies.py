@@ -9,7 +9,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 TEXTUAL = ("data/utils", "data/sentencize", "data/loading", "data/infoseek",
-           "train/metrics", "ops/bm25", "ir/metrics", "ir/hp",
+           "train/metrics", "train/data", "train/prefetch", "ops/bm25",
+           "ir/metrics", "ir/hp",
            "image/face_box", "image/resize", "interact/system",
            "interact/__init__")
 # module -> the only lines (stripped) that the copy may add or drop
@@ -67,9 +68,15 @@ def test_server_equals_reference_but_for_docstring_and_transient_block():
         assert tpu_marker in ref_block and tpu_marker not in ours_block
 
 
-# train/data.py: the port copies these of the JAX module, line for line
+# train/data.py: the port copies every function and class of the JAX
+# module, line for line (the collators and QADataModule with the
+# formatting helpers)
 DATA_COPIES = ("PreComputedImageFeatures", "ImageFormatter", "tokenize",
-               "pack_text_inputs", "mm_visual_mask", "pack_mm_text_inputs")
+               "pack_text_inputs", "mm_visual_mask", "pack_mm_text_inputs",
+               "step_indexed_batches", "QADataModule", "stack_microbatches",
+               "microbatch_collate", "BiEncoderCollator",
+               "JointBiEncoderAndClipCollator", "ReaderCollator", "map_run",
+               "CrossModalCollator", "ReRankerCollator", "ICTCollator")
 
 
 def _top_level_sources(text):
@@ -87,7 +94,7 @@ def _top_level_sources(text):
 
 def test_train_data_copies_equal_the_reference_but_for_the_package_name():
     ours, ref = (_top_level_sources(t) for t in _pair("train/data"))
-    assert sorted(ours) == sorted(DATA_COPIES)
+    assert sorted(ours) == sorted(ref) == sorted(DATA_COPIES)
     for name in DATA_COPIES:
         assert ours[name] == ref[name], name
 

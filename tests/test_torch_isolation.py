@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it never imports JAX, the JAX package or
-ml_dtypes; packages the GPU machine lacks (datasets, transformers, yaml,
+"""The PyTorch port stands alone: it never imports JAX, the JAX package,
+ml_dtypes or JAX's training libraries (optax, orbax, flax); packages the GPU machine lacks (datasets, transformers, yaml,
 PIL, safetensors) are imported only inside the functions that need them;
 and it owns a byte-identical copy of the native packer."""
 import ast
@@ -15,7 +15,8 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 # never imported, anywhere in the port
-FORBIDDEN = ("jax", "jaxlib", "viquae_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "viquae_tpu", "ml_dtypes", "optax", "orbax",
+             "flax")
 # imported only inside a function (the reference's runtime does the same):
 # importing every port module must load none of them
 LAZY_ONLY = ("datasets", "transformers", "yaml", "PIL", "safetensors")
@@ -56,7 +57,10 @@ print(json.dumps({{"modules": names, "forbidden": bad}}))
                    "image.face_recognition", "image.face_box",
                    "image.resize", "models.mm", "models.dpr",
                    "train.checkpoint", "train.data", "interact.system",
-                   "cli", "cli_aux"):
+                   "cli", "cli_aux", "core.prng", "models.rr",
+                   "train.objectives", "train.optim", "train.prefetch",
+                   "train.trainee", "train.trainer", "train.run",
+                   "train.save_ptm", "train.callbacks"):
         assert f"viquae_torch.{module}" in res["modules"]
 
 
@@ -135,6 +139,12 @@ def test_packer_source_is_byte_identical_copy():
     assert ours == ref
 
 
+def test_answer_span_matcher_source_is_byte_identical_copy():
+    ours = (ROOT / "viquae_torch/native/answer_spans.cpp").read_bytes()
+    ref = (ROOT / "viquae_tpu/native/answer_spans.cpp").read_bytes()
+    assert ours == ref
+
+
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     from viquae_torch.core import device
 
@@ -203,11 +213,14 @@ def test_image_and_face_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 def test_multimodal_and_cli_entry_points_refuse_to_fall_back_to_cpu(
         monkeypatch):
-    """DPREncoder, the multimodal bundles and MMEmbedder resolve their
-    device as every entry point does, and so does the CLI's --device."""
+    """DPREncoder, the multimodal bundles, MMEmbedder, the reader and
+    re-ranker inits and the training entry points (build_trainee,
+    run_from_config) resolve their device as every entry point does, and
+    so does the CLI's --device (``train``, ``save-ptm`` included)."""
     from viquae_torch.cli import parse_args
     from viquae_torch.ir.embedding import MMEmbedder
-    from viquae_torch.models import dpr, mm
+    from viquae_torch.models import dpr, mm, qa, rr
+    from viquae_torch.train import run
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     bert = {"vocab_size": 20, "hidden_size": 8, "num_hidden_layers": 1,
@@ -216,11 +229,19 @@ def test_multimodal_and_cli_entry_points_refuse_to_fall_back_to_cpu(
     for call in (lambda: dpr.DPREncoder(bert_config=bert),
                  lambda: mm.ECAEncoder(bert=bert, n_faces=0),
                  lambda: mm.IntermediateLinearFusion(bert=bert, n_faces=0),
-                 lambda: MMEmbedder(None, None, None, None)):
+                 lambda: MMEmbedder(None, None, None, None),
+                 lambda: qa.init(qa.ReaderConfig()),
+                 lambda: rr.bert_reranker_init(rr.BertReRankerConfig()),
+                 lambda: run.build_trainee({"kind": "reader"}),
+                 lambda: run.run_from_config("no-such-config.yaml")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    with pytest.raises(SystemExit):
-        parse_args(["hp", "config.json"])
+    for argv in (["hp", "config.json"], ["train", "fit", "c.yaml"],
+                 ["save-ptm", "c.yaml", "out"]):
+        with pytest.raises(SystemExit):
+            parse_args(argv)
+    assert parse_args(["--device", "cpu", "train", "fit", "c.yaml"]
+                      ).device == torch.device("cpu")
     assert parse_args(["--device", "cpu", "hp", "c.json"]).device == \
         torch.device("cpu")
     bundle = mm.ECAEncoder(bert=bert, n_faces=0, device="cpu")

@@ -210,14 +210,19 @@ def test_dense_index_default_equals_jax_default(data):
 @pytest.mark.parametrize("mode", ["exact", "fast", "global", "approx"])
 @pytest.mark.parametrize("do_l2norm", [False, True], ids=["ip", "l2norm"])
 def test_dense_index_modes_match_jax(data, mode, do_l2norm):
-    """Every f32 mode, with and without the L2 norm (normalized in f32 in
-    both packages; the norms may differ in the last bit, which moves
-    scores by ~1e-7 and no id)."""
+    """Every f32 mode, with and without the L2 norm. A host KB is
+    normalized in numpy in both packages, so the stored rows are equal bit
+    for bit; the queries are normalized on each package's device (their
+    norms may differ in the last bit, which moves scores by ~1e-7 and no
+    id)."""
     q, kb = data
     kb = kb[:3000]
     index = tm.DenseIndex(kb, do_l2norm=do_l2norm, mode=mode, chunk_size=512,
                           device="cpu")
     ref = jm.DenseIndex(kb, do_l2norm=do_l2norm, mode=mode, chunk_size=512)
+    np.testing.assert_array_equal(
+        index.reconstruct_batch(np.arange(3000)),
+        ref.reconstruct_batch(np.arange(3000)))
     s, i = index.search_batch(q, k=10)
     ref_s, ref_i = ref.search_batch(q, k=10)
     np.testing.assert_array_equal(i, ref_i)

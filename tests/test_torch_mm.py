@@ -384,12 +384,23 @@ def test_registry_round_trip_through_an_export_dir(tmp_path, name):
 
 
 def test_evaluation_only_arguments_raise():
+    """ECA and ILF train (dropout needs a CPU generator to draw its seeds
+    from); Flamant stays evaluation only; a MoE BERT names A17."""
     _, tcfg = cfgs()
     model = tmm.init(tmm.ECA, tcfg, seed=0, device="cpu")
     text, face, image = (tt(x) for x in inputs())
-    for kw in ({"deterministic": False}, {"rng": 0}, {"remat_layers": True}):
-        with pytest.raises(NotImplementedError, match="A16"):
-            tmm.eca_apply(model, tcfg, text, face, image, **kw)
+    with pytest.raises(ValueError, match="Generator"):
+        tmm.eca_apply(model, tcfg, text, face, image, deterministic=False)
+    gen = torch.Generator().manual_seed(0)
+    out = tmm.eca_apply(model, tcfg, text, face, image, deterministic=False,
+                        generator=gen, remat_layers=True).pooler_output
+    assert torch.isfinite(out).all()
+    _, fcfg = cfgs(cls="FlamantConfig", image_num_attention_heads=2,
+                   image_intermediate_size=16)
+    flamant = tmm.init(tmm.Flamant, fcfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="evaluation"):
+        tmm.flamant_apply(flamant, fcfg, text, face, image,
+                          deterministic=False)
     import dataclasses
 
     moe = dataclasses.replace(tcfg, bert=dataclasses.replace(

@@ -14,10 +14,12 @@ package's CLI (the same files drive both):
   serve      streaming retrieval over a query file -> run JSON
   answer     retrieve -> read -> answers JSON
   fuse, hp   late-fusion fit/test, BM25 grid search
+  train      config-driven training: fit (checkpoints, resume, export),
+             validate, test (train/run.py)
 
 plus the aux commands of viquae_torch/cli_aux.py (server, interact,
-sentences, face-box, infoseek). ``train`` and ``stats`` and the remaining
-aux commands are registered and exit naming the ROADMAP item that ports
+save-ptm, sentences, face-box, infoseek). ``stats`` and the remaining aux
+commands are registered and exit naming the ROADMAP item that ports
 them.
 
 ``--device`` names where everything a command builds lives; the default
@@ -594,12 +596,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_resize)
 
     add_stub(sub, "stats", "A18", "dataset statistics")
-    add_stub(sub, "train", "A16", "config-driven training")
+
+    p = sub.add_parser("train", help="config-driven training")
+    p.add_argument("subcommand", choices=["fit", "validate", "test"])
+    _add_config_positional(p)
+    p.add_argument("--ckpt-path", dest="ckpt_path", default=None,
+                   help="checkpoint dir: `test` restores it for eval "
+                        "(default: trainer.ckpt_dir best/ then latest); "
+                        "`fit` RESUMES training from its latest step")
+    p.set_defaults(fn=cmd_train)
 
     from viquae_torch.cli_aux import register_aux
 
     register_aux(sub, _add_config_arg, _add_config_positional)
     return parser
+
+
+def cmd_train(args):
+    from viquae_torch.train.run import run_from_config
+
+    run_from_config(args.config, subcommand=args.subcommand,
+                    ckpt_path=args.ckpt_path, device=args.device)
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -5,12 +5,13 @@ viquae_tpu/cli_aux.py whose modules are ported):
              serve / answer config: dense, hybrid, late fusion with online
              image and face legs (the VQA /answer endpoint), the reader
   interact   REPL over the serving pipelines
+  save-ptm   export a train-state checkpoint as encoder dirs
   sentences  sentence-segment a text column
   face-box   UNITER-style scaled face-box features
   infoseek   the InfoSeek official evaluation
 
 The JAX package's other aux commands (data construction, annotation,
-viz, save-ptm, evqa) are registered and exit naming the ROADMAP item that
+viz, evqa) are registered and exit naming the ROADMAP item that
 ports them. Every command takes its device from the CLI's ``--device``.
 """
 from __future__ import annotations
@@ -33,8 +34,27 @@ NOT_PORTED = {
     "html": ("A18", "render questions + results as HTML"),
     "plot": ("A18", "2-D projection of an embedding column"),
     "wtl-filter": ("A18", "filter a dataset on win/tie/loss vs a run"),
-    "save-ptm": ("A16", "export a TrainState checkpoint as encoder dirs"),
 }
+
+
+def cmd_save_ptm(args):
+    from viquae_torch.train.run import (_build_tokenizer, build_optimizer,
+                                        build_trainee)
+    from viquae_torch.train.save_ptm import save_ptm
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    config = load_config(args.config)
+    tokenizer = _build_tokenizer(config["data"]["tokenizer"])
+    trainee = build_trainee(dict(config["trainee"]), tokenizer=tokenizer,
+                            device=args.device)
+    trainer = Trainer(trainee.loss_fn, trainee.params,
+                      build_optimizer(config, trainee),
+                      TrainerConfig(**config.get("trainer", {})))
+    ckpt_dir = args.ckpt or config.get("trainer", {}).get("ckpt_dir")
+    if not ckpt_dir:
+        raise SystemExit("save-ptm needs --ckpt or trainer.ckpt_dir")
+    out = save_ptm(ckpt_dir, args.output, trainer.state, step=args.step)
+    print(json.dumps(out))
 
 
 def cmd_sentences(args):
@@ -309,6 +329,14 @@ def register_aux(sub, add_config_arg, add_config_positional):
 
     for name, (item, help_text) in NOT_PORTED.items():
         add_stub(sub, name, item, help_text)
+
+    p = sub.add_parser(
+        "save-ptm", help="export a TrainState checkpoint as encoder dirs")
+    add_config_positional(p)
+    p.add_argument("output")
+    p.add_argument("--ckpt", help="checkpoint dir (default: trainer.ckpt_dir)")
+    p.add_argument("--step", type=int)
+    p.set_defaults(fn=cmd_save_ptm)
 
     p = sub.add_parser(
         "sentences", help="sentence-segment a text column (ICT input)")

@@ -124,3 +124,33 @@ def upload(array, device: torch.device) -> torch.Tensor:
     if src.numel() == 0:
         return torch.empty(src.shape, dtype=src.dtype, device=device)
     return _STAGING.upload(src.contiguous(), device)
+
+
+def _is_host_only(value) -> bool:
+    """Strings and lists that are ragged or hold strings: host-side
+    bookkeeping (answer strings, ...) that no device step takes."""
+    if isinstance(value, (str, bytes)):
+        return True
+    if isinstance(value, np.ndarray):
+        return value.dtype.kind in "OUS"
+    if isinstance(value, list):
+        # rectangular numeric nested lists are array data
+        try:
+            arr = np.asarray(value)
+        except (ValueError, TypeError):
+            return True
+        return arr.dtype.kind in "OUS"
+    return False
+
+
+def upload_batch(batch, device: torch.device):
+    """A (nested) dict of host arrays as the same tree of tensors on
+    ``device``, each through :func:`upload`; host-only leaves
+    (:func:`_is_host_only`) are dropped."""
+    if isinstance(batch, dict):
+        return {k: upload_batch(v, device) for k, v in batch.items()
+                if not _is_host_only(v)}
+    if isinstance(batch, torch.Tensor) and batch.device.type != "cpu":
+        return batch.to(device)
+    return upload(batch if isinstance(batch, torch.Tensor)
+                  else np.asarray(batch), device)

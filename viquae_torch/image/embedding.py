@@ -110,7 +110,7 @@ class ImageEmbedder:
         """
         from PIL import Image as pil_image
 
-        from viquae_torch.utils.prefetch import PrefetchIterable
+        from viquae_torch.train.prefetch import PrefetchIterable
 
         # torchvision Resize interpolates BILINEAR; CLIP's transform (and
         # PIL's default) is BICUBIC

@@ -38,7 +38,7 @@ from viquae_torch.core.profiling import StageTimer
 from viquae_torch.ops import mips
 from viquae_torch.ops.fusion import fuse_topk
 from viquae_torch.rankeval import Run
-from viquae_torch.utils.prefetch import PrefetchIterable
+from viquae_torch.train.prefetch import PrefetchIterable
 
 _SINGLE_PASS = ("global", "approx", "fused")
 

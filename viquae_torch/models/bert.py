@@ -5,15 +5,23 @@
 {q,k,v,o}, attention_ln, mlp.{in,out}, output_ln}``, ``pooler``) so that
 :func:`viquae_torch.models.convert.params_from_jax` maps names one to one;
 :func:`apply` is the forward. Dense FFN only (a MoE config raises,
-ROADMAP A17); evaluation only.
+ROADMAP A17). Training arguments: ``deterministic`` (False turns dropout
+on at the config's rates, at the JAX package's four sites: embeddings,
+attention probabilities, attention output, FFN output), ``generator``
+(the CPU ``torch.Generator`` the dropout seeds are drawn from) and
+``remat_layers`` (each layer under ``torch.utils.checkpoint``, its seeds
+drawn before it, so the recomputed masks are the same).
+:func:`params_to_hf_state_dict` / :func:`save_pretrained_hf` export the
+weights as an HF ``BertModel``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from viquae_torch.models import layers as L
 
@@ -29,6 +37,8 @@ class BertConfig:
     type_vocab_size: int = 2
     hidden_act: str = "gelu"
     layer_norm_eps: float = 1e-12
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     add_pooler: bool = True
     # the JAX package's Mixture-of-Experts FFN (ops/moe.py) is not ported:
     # a config with moe_experts > 0 raises when its weights are built
@@ -38,14 +48,20 @@ class BertConfig:
     def from_hf(cls, hf_config, add_pooler: bool = True) -> "BertConfig":
         """From an HF BERT config: the dict of a ``config.json`` or an
         object with the same attributes."""
-        get = (hf_config.__getitem__ if isinstance(hf_config, dict)
-               else lambda name: getattr(hf_config, name))
+        def get(name, *default):
+            if isinstance(hf_config, dict):
+                return (hf_config.get(name, *default) if default
+                        else hf_config[name])
+            return getattr(hf_config, name, *default)
+
         names = ("vocab_size", "hidden_size", "num_hidden_layers",
                  "num_attention_heads", "intermediate_size",
                  "max_position_embeddings", "type_vocab_size", "hidden_act",
                  "layer_norm_eps")
-        return cls(**{name: get(name) for name in names},
-                   add_pooler=add_pooler)
+        values = {name: get(name) for name in names}
+        for name in ("hidden_dropout_prob", "attention_probs_dropout_prob"):
+            values[name] = get(name, 0.1)
+        return cls(**values, add_pooler=add_pooler)
 
 
 class Bert(nn.Module):
@@ -91,9 +107,11 @@ def embed(
     input_ids: torch.Tensor,
     token_type_ids: Optional[torch.Tensor] = None,
     position_ids: Optional[torch.Tensor] = None,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
     """word + position + type embeddings, summed in the PARAMETER dtype
-    (as the JAX package does), then the f32 LayerNorm -> (B, L, D) f32."""
+    (as the JAX package does), then the f32 LayerNorm and, with a
+    ``seed``, dropout -> (B, L, D) f32."""
     emb = params.embeddings
     b, l = input_ids.shape
     device = input_ids.device
@@ -104,16 +122,23 @@ def embed(
     if token_type_ids is None:
         token_type_ids = torch.zeros((b, l), dtype=torch.long, device=device)
     x = x + emb["token_type"].weight[token_type_ids.long()]
-    return L.layer_norm(emb["ln"], x, cfg.layer_norm_eps)
+    x = L.layer_norm(emb["ln"], x, cfg.layer_norm_eps)
+    return L.dropout(x, cfg.hidden_dropout_prob, seed)
 
 
 def _layer_forward(layer: nn.ModuleDict, x, bias, cfg: BertConfig,
-                   compute_dtype):
-    """One post-LN transformer block."""
+                   compute_dtype, seeds: Sequence[Optional[int]] = (
+                       None, None, None)):
+    """One post-LN transformer block; ``seeds`` = the dropout seeds of the
+    attention probabilities, the attention output and the FFN output."""
+    seed_a, seed_h, seed_b = seeds
     attn = L.mha(layer["attention"], x, bias=bias,
-                 n_heads=cfg.num_attention_heads, compute_dtype=compute_dtype)
+                 n_heads=cfg.num_attention_heads, compute_dtype=compute_dtype,
+                 dropout_rate=cfg.attention_probs_dropout_prob, seed=seed_a)
+    attn = L.dropout(attn, cfg.hidden_dropout_prob, seed_h)
     x = L.layer_norm(layer["attention_ln"], x + attn, cfg.layer_norm_eps)
     ff = L.mlp(layer["mlp"], x, cfg.hidden_act, compute_dtype)
+    ff = L.dropout(ff, cfg.hidden_dropout_prob, seed_b)
     return L.layer_norm(layer["output_ln"], x + ff, cfg.layer_norm_eps)
 
 
@@ -125,11 +150,16 @@ def encode(
     compute_dtype=torch.float32,
     segment_ids: Optional[torch.Tensor] = None,
     output_hidden_states: bool = False,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
+    remat_layers: bool = False,
 ):
     """Encoder stack over (B, L, D) hidden states. ``segment_ids`` (B, L),
     0 = padding: packed-canvas mode — attention is block-diagonal per
     segment, overriding ``attention_mask``. With ``output_hidden_states``
-    returns (final, [embedding_out, layer1_out, ...])."""
+    returns (final, [embedding_out, layer1_out, ...]). ``remat_layers``
+    recomputes each layer in the backward pass (per-layer gradient
+    checkpointing), so one layer's activations are live at a time."""
     b, l = hidden.shape[:2]
     if segment_ids is not None:
         bias = L.attention_bias_from_segments(segment_ids)
@@ -137,10 +167,21 @@ def encode(
         if attention_mask is None:
             attention_mask = torch.ones((b, l), device=hidden.device)
         bias = L.attention_bias_from_mask(attention_mask)
+    # three independent dropout sites per layer; every seed is drawn here,
+    # outside any checkpointed region
+    seeds = L.dropout_seeds(generator, 3 * len(params.layers),
+                            deterministic)
     x = hidden
     all_hidden = [x]
-    for layer in params.layers:
-        x = _layer_forward(layer, x, bias, cfg, compute_dtype)
+    for i, layer in enumerate(params.layers):
+        layer_seeds = tuple(seeds[3 * i: 3 * i + 3])
+        if remat_layers and torch.is_grad_enabled():
+            x = checkpoint(_layer_forward, layer, x, bias, cfg,
+                           compute_dtype, layer_seeds, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _layer_forward(layer, x, bias, cfg, compute_dtype,
+                               layer_seeds)
         if output_hidden_states:
             all_hidden.append(x)
     return (x, all_hidden) if output_hidden_states else x
@@ -156,6 +197,9 @@ def apply(
     compute_dtype=torch.float32,
     segment_ids: Optional[torch.Tensor] = None,
     output_hidden_states: bool = False,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
+    remat_layers: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """embed -> encode -> optional tanh pooler.
 
@@ -165,11 +209,14 @@ def apply(
     With ``segment_ids`` pass the packer's ``position_ids`` too, so
     positions restart per segment.
     """
+    (seed,) = L.dropout_seeds(generator, 1, deterministic)
     x = embed(params, cfg, input_ids, token_type_ids=token_type_ids,
-              position_ids=position_ids)
+              position_ids=position_ids, seed=seed)
     x = encode(params, cfg, x, attention_mask, compute_dtype=compute_dtype,
                segment_ids=segment_ids,
-               output_hidden_states=output_hidden_states)
+               output_hidden_states=output_hidden_states,
+               deterministic=deterministic, generator=generator,
+               remat_layers=remat_layers)
     hidden_states = None
     if output_hidden_states:
         x, hidden_states = x
@@ -216,3 +263,69 @@ def state_dict_from_hf(state_dict, cfg: BertConfig, prefix: str = ""
     if cfg.add_pooler and (prefix + "pooler.dense.weight") in state_dict:
         both("pooler", "pooler.dense")
     return out
+
+
+def params_to_hf_state_dict(params: Bert, cfg: BertConfig, prefix: str = ""
+                            ) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`state_dict_from_hf`: the weights as a torch
+    ``BertModel`` state_dict on the CPU (the save_ptm contract: HF
+    ``save_pretrained`` directories for downstream stages)."""
+    ours = params.state_dict()
+    out = {}
+
+    def put(theirs, name):
+        out[prefix + theirs] = ours[name].detach().to(
+            "cpu", torch.float32).contiguous()
+
+    put("embeddings.word_embeddings.weight", "embeddings.word.weight")
+    put("embeddings.position_embeddings.weight", "embeddings.position.weight")
+    put("embeddings.token_type_embeddings.weight",
+        "embeddings.token_type.weight")
+
+    def both(theirs, name):
+        put(f"{theirs}.weight", f"{name}.weight")
+        put(f"{theirs}.bias", f"{name}.bias")
+
+    both("embeddings.LayerNorm", "embeddings.ln")
+    for i in range(cfg.num_hidden_layers):
+        base, layer = f"encoder.layer.{i}", f"layers.{i}"
+        both(f"{base}.attention.self.query", f"{layer}.attention.q")
+        both(f"{base}.attention.self.key", f"{layer}.attention.k")
+        both(f"{base}.attention.self.value", f"{layer}.attention.v")
+        both(f"{base}.attention.output.dense", f"{layer}.attention.o")
+        both(f"{base}.intermediate.dense", f"{layer}.mlp.in")
+        both(f"{base}.output.dense", f"{layer}.mlp.out")
+        both(f"{base}.attention.output.LayerNorm", f"{layer}.attention_ln")
+        both(f"{base}.output.LayerNorm", f"{layer}.output_ln")
+    if cfg.add_pooler and params.pooler is not None:
+        both("pooler.dense", "pooler")
+    return out
+
+
+def save_pretrained_hf(params: Bert, cfg: BertConfig, path):
+    """Write an HF-loadable BertModel dir (config.json +
+    pytorch_model.bin)."""
+    import json
+    from pathlib import Path
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    hf_config = {
+        "architectures": ["BertModel"],
+        "model_type": "bert",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "intermediate_size": cfg.intermediate_size,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "type_vocab_size": cfg.type_vocab_size,
+        "hidden_act": cfg.hidden_act,
+        "layer_norm_eps": cfg.layer_norm_eps,
+        "hidden_dropout_prob": cfg.hidden_dropout_prob,
+        "attention_probs_dropout_prob": cfg.attention_probs_dropout_prob,
+    }
+    (path / "config.json").write_text(json.dumps(hf_config, indent=2))
+    torch.save(params_to_hf_state_dict(params, cfg),
+               path / "pytorch_model.bin")
+    return path

@@ -116,7 +116,6 @@ def text_from_jax(tree, cfg: CLIPTextConfig, device=None) -> CLIPText:
     return convert.module_from_tree(CLIPText, cfg, tree=tree, device=device)
 
 
-@torch.no_grad()
 def text_apply(params: CLIPText, cfg: CLIPTextConfig,
                input_ids: torch.Tensor,
                attention_mask: Optional[torch.Tensor] = None,
@@ -175,7 +174,6 @@ def vit_from_jax(tree, cfg: CLIPVisionConfig, device=None) -> CLIPVision:
     return convert.module_from_tree(CLIPVision, cfg, tree=tree, device=device)
 
 
-@torch.no_grad()
 def vit_apply(params: CLIPVision, cfg: CLIPVisionConfig,
               images: torch.Tensor,
               compute_dtype=torch.float32) -> Dict[str, torch.Tensor]:

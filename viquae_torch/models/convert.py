@@ -227,3 +227,67 @@ def module_from_tree(module_cls, *args, tree, device=None,
         for name, a in state_dict_from_tree(tree).items()}
     module.load_state_dict(sd, strict=True, assign=True)
     return module.requires_grad_(False).eval()
+
+
+# --------------------------------------------------------------------------
+# the inverse map: a module's tensors -> JAX param-tree paths
+# --------------------------------------------------------------------------
+def _leaf_name(mod: nn.Module, name: str) -> str:
+    """The JAX tree's name of ``mod``'s direct tensor ``name`` ("" for a
+    bare embedding table, which is a leaf of its own in the tree)."""
+    from viquae_torch.models.layers import BatchNorm
+
+    if isinstance(mod, nn.Embedding):
+        return ""
+    if isinstance(mod, (nn.Linear, nn.Conv2d)) and name == "weight":
+        return "kernel"
+    if isinstance(mod, (nn.LayerNorm, BatchNorm)) and name == "weight":
+        return "scale"
+    if isinstance(mod, BatchNorm):
+        return {"running_mean": "mean", "running_var": "var"}.get(name,
+                                                                   name)
+    if isinstance(mod, nn.PReLU):
+        return "alpha"
+    return name
+
+
+def jax_paths(module: nn.Module, buffers: bool = False) -> Dict[str, str]:
+    """{torch name: JAX path} for every parameter of ``module`` (and its
+    buffers with ``buffers``): the inverse of the tree -> state-dict maps
+    above. Module names become "/"-joined tree keys, a weight becomes
+    ``kernel`` (dense, convolution) or ``scale`` (norms), an embedding
+    table is its module's own path. The JAX package's freeze and decay
+    regexes are written for these paths (``layers/6/attention/q/kernel``,
+    ``ln/scale``), so the port matches them here and not on its own
+    names (``layers.6.attention.q.weight``, ``ln.weight``)."""
+    out = {}
+    for mod_name, mod in module.named_modules():
+        tensors = list(mod.named_parameters(recurse=False))
+        if buffers:
+            tensors += list(mod.named_buffers(recurse=False))
+        for name, _ in tensors:
+            parts = mod_name.split(".") if mod_name else []
+            leaf = _leaf_name(mod, name)
+            if leaf:
+                parts.append(leaf)
+            out[f"{mod_name}.{name}" if mod_name else name] = "/".join(parts)
+    return out
+
+
+def tree_from_module(module: nn.Module) -> Dict[str, Any]:
+    """A module's weights as a JAX param tree of f32 numpy arrays (dense
+    kernels (in, out), convolution kernels HWIO): what the JAX package's
+    ``export_params`` writes for the same model, so an export directory
+    of the port loads in either package; a level keyed 0 .. n-1 is a
+    list, as the JAX tree's ``layers``."""
+    from viquae_torch.train.checkpoint import _unflatten
+
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    flat = {}
+    for name, path in jax_paths(module, buffers=True).items():
+        a = tensors[name].detach().to("cpu", torch.float32).numpy()
+        if path.endswith("kernel"):
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        flat[path] = np.ascontiguousarray(a)
+    return _unflatten(flat)

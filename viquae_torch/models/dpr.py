@@ -34,12 +34,19 @@ def apply(
     attention_mask: Optional[torch.Tensor] = None,
     token_type_ids: Optional[torch.Tensor] = None,
     compute_dtype=torch.float32,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
+    remat_layers: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Returns {"pooler_output": (B, D) CLS embedding, "last_hidden_state"}."""
+    """Returns {"pooler_output": (B, D) CLS embedding, "last_hidden_state"}.
+    ``deterministic`` / ``generator`` / ``remat_layers``: see
+    :func:`viquae_torch.models.bert.apply`."""
     out = bert.apply(params, cfg.bert, input_ids,
                      attention_mask=attention_mask,
                      token_type_ids=token_type_ids,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype,
+                     deterministic=deterministic, generator=generator,
+                     remat_layers=remat_layers)
     out["pooler_output"] = out["last_hidden_state"][:, 0]
     return out
 
@@ -53,17 +60,25 @@ def apply_packed(
     cls_rows: torch.Tensor,
     cls_cols: torch.Tensor,
     compute_dtype=torch.float32,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
+    remat_layers: bool = False,
+    return_aux: bool = False,
 ) -> torch.Tensor:
     """Packed-canvas forward (ops/packing.py): block-diagonal attention per
     segment; each question's embedding is its own [CLS] hidden state,
     gathered at (cls_rows, cls_cols). Returns (n_cls, D) f32; entries past
     the packer's ``n_seqs`` come from the (0, 0) pad pointer — slice them
-    off."""
+    off. With ``return_aux``, (cls, None): the MoE term of the JAX
+    signature, always None here."""
     out = bert.apply(params, cfg.bert, input_ids,
                      position_ids=position_ids, segment_ids=segment_ids,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype,
+                     deterministic=deterministic, generator=generator,
+                     remat_layers=remat_layers)
     hidden = out["last_hidden_state"]
-    return hidden[cls_rows.long(), cls_cols.long()]
+    cls = hidden[cls_rows.long(), cls_cols.long()]
+    return (cls, None) if return_aux else cls
 
 
 def make_packed_apply(cfg: DPRConfig):
@@ -79,8 +94,10 @@ def make_packed_apply(cfg: DPRConfig):
 
 def init(cfg: DPRConfig, seed: int = 0, device=None) -> bert.Bert:
     """Seeded random tower on ``device`` (default: the GPU), drawn with a
-    ``torch.Generator`` (other values than the JAX ``init``)."""
-    return L.seeded(bert.Bert, cfg.bert, seed=seed, device=device)
+    ``torch.Generator`` from the JAX ``init``'s distribution (truncated
+    normal, std 0.02), not its values."""
+    return L.seeded(bert.Bert, cfg.bert, seed=seed, device=device,
+                    truncated=True)
 
 
 def params_from_hf_dpr(state_dict, cfg: DPRConfig, device=None,

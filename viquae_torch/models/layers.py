@@ -18,13 +18,18 @@ forward math and keep the JAX rounding points:
   its softmax into NaN, which the next layer spreads to every real token
   sharing the row.
 
-Evaluation only: dropout is not ported. :func:`init_weights_` draws
-seeded random weights for a module built from a config.
+Dropout (:func:`dropout`, and on the attention probabilities in
+:func:`mha`) takes one integer seed per site, drawn from the caller's
+``torch.Generator`` by :func:`dropout_seeds` before the forward: a layer
+recomputed under ``torch.utils.checkpoint`` then draws the same masks
+again (checkpoint restores only the global RNG, not a generator passed
+in by hand). :func:`init_weights_` draws seeded random weights for a
+module built from a config.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +38,42 @@ from torch import nn
 _F32_MIN = torch.finfo(torch.float32).min
 
 
+# ---- dropout --------------------------------------------------------------
+def dropout_seeds(generator: Optional[torch.Generator], n: int,
+                  deterministic: bool) -> List[Optional[int]]:
+    """``n`` dropout-site seeds drawn from a CPU ``generator`` (host only:
+    no device work, no wait), or ``n`` Nones when ``deterministic``."""
+    if deterministic:
+        return [None] * n
+    if generator is None or generator.device.type != "cpu":
+        raise ValueError("deterministic=False needs a CPU torch.Generator "
+                         "(core.prng.SeedBundle.split)")
+    return torch.randint(0, 1 << 62, (n,), generator=generator).tolist()
+
+
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int]
+            ) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability 1 - rate and
+    scale it by 1 / (1 - rate); the identity for ``seed`` None or rate 0.
+    The mask is a function of ``seed`` and the shape alone."""
+    if seed is None or rate == 0.0:
+        return x
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return x * keep / (1.0 - rate)
+
+
 # ---- dense ----------------------------------------------------------------
+def truncated_normal_(tensor: torch.Tensor, std: float = 0.02,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+    """In place: N(0, std) truncated to +-2 std, the distribution of the
+    JAX package's ``truncated_normal_init`` (not its bits)."""
+    return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
 def dense_init(d_in: int, d_out: int, **factory) -> nn.Linear:
     return nn.Linear(d_in, d_out, **factory)
 
@@ -107,12 +147,15 @@ def mha(
     n_heads: int = 12,
     compute_dtype: Optional[torch.dtype] = torch.float32,
     kv: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention of the queries of ``x`` over the keys
     and values of ``kv`` (default ``x``: self-attention).
 
     x: (B, Lq, D); kv: (B, Lk, Dkv); bias: additive f32 bias broadcastable
-    to (B, H, Lq, Lk).
+    to (B, H, Lq, Lk). With a ``seed``, dropout at ``dropout_rate`` on the
+    f32 attention probabilities.
     """
     if kv is None:
         kv = x
@@ -128,7 +171,7 @@ def mha(
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim)
     if bias is not None:
         scores = scores + bias
-    probs = torch.softmax(scores.float(), dim=-1)
+    probs = dropout(torch.softmax(scores.float(), dim=-1), dropout_rate, seed)
     probs = probs.to(compute_dtype or probs.dtype).float()
     ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, length, dim)
     return dense(attn["o"], ctx, compute_dtype)
@@ -209,16 +252,25 @@ def seeded(module_cls, *args, seed: int = 0, device=None,
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, seed: int, linear_std: float = 0.02,
-                  embed_std: float = 0.02) -> nn.Module:
+                  embed_std: float = 0.02, truncated: bool = False
+                  ) -> nn.Module:
     """Draw every weight of ``module`` in place from a ``torch.Generator``
     on the module's device, in the kinds of the JAX package's inits:
     convolution kernels He-normal (std sqrt(2 / fan_in)), dense kernels
     and bare embedding tables N(0, std), biases 0, norm scales 1 and shifts
-    0, running means 0 and variances 1, PReLU slopes 0.25. The draws are
-    not the JAX package's (another generator), so parity runs go through
-    converted weights."""
+    0, running means 0 and variances 1, PReLU slopes 0.25. ``truncated``
+    clips the dense and embedding draws to +-2 std (the BERT-family inits
+    of the JAX package). The draws are not the JAX package's (another
+    generator), so parity runs go through converted weights."""
     device = next(iter(module.parameters())).device
     gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(t, std):
+        if truncated:
+            truncated_normal_(t, std, gen)
+        else:
+            t.normal_(0.0, std, generator=gen)
+
     done = set()
     for mod in module.modules():
         params = dict(mod.named_parameters(recurse=False))
@@ -226,7 +278,7 @@ def init_weights_(module: nn.Module, seed: int, linear_std: float = 0.02,
             fan_in = mod.weight[0].numel()
             mod.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=gen)
         elif isinstance(mod, nn.Linear):
-            mod.weight.normal_(0.0, linear_std, generator=gen)
+            draw(mod.weight, linear_std)
         elif isinstance(mod, (BatchNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             if isinstance(mod, BatchNorm):
@@ -236,7 +288,7 @@ def init_weights_(module: nn.Module, seed: int, linear_std: float = 0.02,
             mod.weight.fill_(0.25)
         else:
             for p in params.values():
-                p.normal_(0.0, embed_std, generator=gen)
+                draw(p, embed_std)
         if isinstance(mod, (nn.Conv2d, nn.Linear, BatchNorm, nn.LayerNorm)) \
                 and getattr(mod, "bias", None) is not None:
             mod.bias.zero_()

@@ -1,5 +1,4 @@
-"""Multimodal fusion encoders (counterpart of viquae_tpu/models/mm.py),
-evaluation only.
+"""Multimodal fusion encoders (counterpart of viquae_tpu/models/mm.py).
 
 - :func:`eca_apply` / :func:`eca_apply_packed` — **ECAEncoder**: faces and
   images are projected into token space, appended AFTER the text
@@ -15,9 +14,11 @@ evaluation only.
 
 The weights live in modules named as the JAX param trees (:class:`ECA`,
 :class:`ILF`, :class:`Flamant`), so :func:`from_jax` converts a tree one
-name to one name. The forwards are deterministic: dropout and remat come
-with training (ROADMAP A16), so ``deterministic=False``, an ``rng`` or
-``remat_layers`` raise, and a Mixture-of-Experts BERT raises (A17).
+name to one name. ECA and ILF train: ``deterministic=False`` turns on
+dropout at the JAX package's sites (each visual projection, the text
+embeddings, the BERT layers, ILF's fused output), its seeds drawn from
+the CPU ``generator``; ``remat_layers`` checkpoints each BERT layer.
+Flamant is evaluation only, and a Mixture-of-Experts BERT raises (A17).
 Masks stay finite additive biases (``layers.attention_bias_from_*``).
 """
 from __future__ import annotations
@@ -60,13 +61,7 @@ class FlamantConfig(MMConfig):
     image_intermediate_size: int = 3072
 
 
-def _evaluation_only(cfg: MMConfig, deterministic=True, rng=None,
-                     remat_layers=False):
-    if not deterministic or rng is not None or remat_layers:
-        raise NotImplementedError(
-            "the multimodal encoders are ported for evaluation: dropout "
-            "(deterministic=False, rng) and remat_layers come with training "
-            "(ROADMAP.md A16)")
+def _no_moe(cfg: MMConfig):
     if cfg.bert.moe_experts > 0:
         raise NotImplementedError(
             "moe_experts > 0: the Mixture-of-Experts FFN is not ported yet "
@@ -84,11 +79,12 @@ class FaceEmbedding(nn.Module):
 
 
 def face_embedding_apply(p: FaceEmbedding, cfg: MMConfig, face, bbox,
-                         type_embedding=None):
+                         type_embedding=None, seed=None):
     x = L.dense(p.face_proj, face) + L.dense(p.bbox_proj, bbox)
     if type_embedding is not None:
         x = x + type_embedding
-    return L.layer_norm(p.ln, x, cfg.bert.layer_norm_eps)
+    x = L.layer_norm(p.ln, x, cfg.bert.layer_norm_eps)
+    return L.dropout(x, cfg.bert.hidden_dropout_prob, seed)
 
 
 class ImageEmbedding(nn.Module):
@@ -102,14 +98,14 @@ class ImageEmbedding(nn.Module):
 
 
 def image_embedding_apply(p: ImageEmbedding, cfg: MMConfig, x,
-                          type_embedding=None):
+                          type_embedding=None, seed=None):
     x = L.dense(p.linear, x)
     if type_embedding is not None:
         # the LayerNorm exists (and applies) only with a type embedding,
         # that is when n_images > 1
         x = x + type_embedding
         x = L.layer_norm(p.ln, x, cfg.bert.layer_norm_eps)
-    return x
+    return L.dropout(x, cfg.bert.hidden_dropout_prob, seed)
 
 
 class TanhGate(nn.Module):
@@ -199,8 +195,10 @@ class Flamant(ECA):
 
 def init(module_cls, cfg: MMConfig, seed: int = 0, device=None) -> nn.Module:
     """Seeded random weights (``layers.seeded``: another generator than
-    the JAX inits) with every tanh gate at 0, as the JAX inits set it."""
-    model = L.seeded(module_cls, cfg, seed=seed, device=device)
+    the JAX inits, the same truncated-normal dense and embedding draws)
+    with every tanh gate at 0, as the JAX inits set it."""
+    model = L.seeded(module_cls, cfg, seed=seed, device=device,
+                     truncated=True)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, TanhGate):
@@ -251,12 +249,15 @@ def _type_embedding(params: ECA, n_images: int, device):
     return params.image_type_embeddings[torch.arange(n_images, device=device)]
 
 
-def _visual_tokens(params, cfg: MMConfig, face_inputs, image_inputs):
+def _visual_tokens(params, cfg: MMConfig, face_inputs, image_inputs,
+                   deterministic: bool = True, generator=None):
     """Project faces + images to (B, T_vis, D) tokens + (B, T_vis) mask:
     faces (n_images * n_faces) first, then each image kind (n_images each)
-    in ``image_inputs``' order."""
+    in ``image_inputs``' order. One dropout seed per projection branch."""
     faces = face_inputs["face"]  # (B, n_images, n_faces, face_dim)
     b, n_images, n_faces, _ = faces.shape
+    seeds = L.dropout_seeds(generator, 1 + len(image_inputs or {}),
+                            deterministic)
     tokens, masks = [], []
     face_mask = face_inputs["attention_mask"].reshape(b, n_images * n_faces)
     if n_faces > 0:
@@ -266,20 +267,22 @@ def _visual_tokens(params, cfg: MMConfig, face_inputs, image_inputs):
                                        faces.device)[None, :, None]
         face_out = face_embedding_apply(
             params.face_embedding, cfg, faces, face_inputs["bbox"],
-            type_embedding=type_emb).reshape(b, n_images * n_faces, -1)
+            type_embedding=type_emb, seed=seeds[0]
+        ).reshape(b, n_images * n_faces, -1)
         if cfg.gating:
             face_out = tanh_gate(params.face_gate, face_out)
         tokens.append(face_out)
         masks.append(face_mask)
 
     image_mask_parts = []
-    for name, image in (image_inputs or {}).items():
+    for img_i, (name, image) in enumerate((image_inputs or {}).items()):
         type_emb = None
         if cfg.n_images > 1:
             type_emb = _type_embedding(params, n_images, faces.device)[None]
         out = image_embedding_apply(
             params.image_embeddings[name], cfg,
-            image["input"].reshape(b, n_images, -1), type_embedding=type_emb)
+            image["input"].reshape(b, n_images, -1), type_embedding=type_emb,
+            seed=seeds[1 + img_i])
         if cfg.gating:
             out = tanh_gate(params.image_gates[name], out)
         tokens.append(out)
@@ -300,14 +303,14 @@ def _visual_tokens(params, cfg: MMConfig, face_inputs, image_inputs):
 # --------------------------------------------------------------------------
 # ECA encoder
 # --------------------------------------------------------------------------
-@torch.no_grad()
 def eca_apply(params: ECA, cfg: MMConfig, text_inputs, face_inputs,
-              image_inputs=None, deterministic: bool = True, rng=None,
+              image_inputs=None, deterministic: bool = True, generator=None,
               compute_dtype=torch.float32,
               remat_layers: bool = False) -> ECAEncoderOutput:
-    _evaluation_only(cfg, deterministic, rng, remat_layers)
+    _no_moe(cfg)
     vis_tokens, vis_mask = _visual_tokens(params, cfg, face_inputs,
-                                          image_inputs)
+                                          image_inputs, deterministic,
+                                          generator)
     input_ids = text_inputs["input_ids"]
     attention_mask = text_inputs["attention_mask"]
     token_type_ids = text_inputs.get("token_type_ids")
@@ -316,13 +319,16 @@ def eca_apply(params: ECA, cfg: MMConfig, text_inputs, face_inputs,
         attention_mask = attention_mask[:, :1]
         if token_type_ids is not None:
             token_type_ids = token_type_ids[:, :1]
+    (seed,) = L.dropout_seeds(generator, 1, deterministic)
     text_emb = bert.embed(params.bert, cfg.bert, input_ids,
-                          token_type_ids=token_type_ids)
+                          token_type_ids=token_type_ids, seed=seed)
     hidden = torch.cat([text_emb, vis_tokens], dim=1)
     mask = torch.cat([attention_mask, vis_mask.to(attention_mask.dtype)],
                      dim=1)
     sequence = bert.encode(params.bert, cfg.bert, hidden, mask,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype,
+                           deterministic=deterministic, generator=generator,
+                           remat_layers=remat_layers)
     return ECAEncoderOutput(pooler_output=sequence[:, 0],
                             last_hidden_state=sequence)
 
@@ -348,11 +354,21 @@ def scatter_visual_tokens(hidden: torch.Tensor, vis_rows: torch.Tensor,
     return canvas[: r * c].view(r, c, d)
 
 
-@torch.no_grad()
+def mask_visual_slots(segment_ids: torch.Tensor, vis_rows: torch.Tensor,
+                      vis_cols: torch.Tensor) -> torch.Tensor:
+    """``segment_ids`` with every reserved visual slot set to 0 (padding),
+    pointers outside the canvas dropped as in :func:`scatter_visual_tokens`:
+    a text-only tower reads an ECA canvas as the packed text alone."""
+    zeros = torch.zeros(vis_rows.shape + (1,), dtype=segment_ids.dtype,
+                        device=segment_ids.device)
+    return scatter_visual_tokens(segment_ids[..., None], vis_rows, vis_cols,
+                                 zeros)[..., 0]
+
+
 def eca_apply_packed(params: ECA, cfg: MMConfig, input_ids, segment_ids,
                      position_ids, cls_rows, cls_cols, vis_rows, vis_cols,
                      face_inputs, image_inputs=None,
-                     deterministic: bool = True, rng=None,
+                     deterministic: bool = True, generator=None,
                      compute_dtype=torch.float32, remat_layers: bool = False,
                      return_aux: bool = False):
     """Packed-canvas ECA forward: many samples per row (ops/packing.py).
@@ -369,13 +385,15 @@ def eca_apply_packed(params: ECA, cfg: MMConfig, input_ids, segment_ids,
     Returns (n_cls, D) CLS states; entries past the packer's n_seqs are
     garbage — slice them off. With ``return_aux``, (cls, None): the MoE
     term of the JAX signature, always None here."""
-    _evaluation_only(cfg, deterministic, rng, remat_layers)
+    _no_moe(cfg)
     if cfg.no_text:
         raise NotImplementedError(
             "packed ECA assumes text tokens; use eca_apply for no_text")
-    vis_tokens, _ = _visual_tokens(params, cfg, face_inputs, image_inputs)
+    vis_tokens, _ = _visual_tokens(params, cfg, face_inputs, image_inputs,
+                                   deterministic, generator)
+    (seed,) = L.dropout_seeds(generator, 1, deterministic)
     hidden = bert.embed(params.bert, cfg.bert, input_ids,
-                        position_ids=position_ids)
+                        position_ids=position_ids, seed=seed)
     b, t_vis = vis_tokens.shape[:2]
     # pointer arrays are n_cls-padded; visual inputs carry the true batch
     vis_rows, vis_cols = vis_rows[:b], vis_cols[:b]
@@ -383,7 +401,9 @@ def eca_apply_packed(params: ECA, cfg: MMConfig, input_ids, segment_ids,
     hidden = scatter_visual_tokens(hidden, vis_rows, vis_cols, vis_tokens)
     sequence = bert.encode(params.bert, cfg.bert, hidden,
                            compute_dtype=compute_dtype,
-                           segment_ids=segment_ids)
+                           segment_ids=segment_ids,
+                           deterministic=deterministic, generator=generator,
+                           remat_layers=remat_layers)
     cls = sequence[cls_rows.long(), cls_cols.long()]
     return (cls, None) if return_aux else cls
 
@@ -392,51 +412,60 @@ def eca_apply_packed(params: ECA, cfg: MMConfig, input_ids, segment_ids,
 # Intermediate Linear Fusion
 # --------------------------------------------------------------------------
 def _ilf_fuse_visual(params: ILF, cfg: MMConfig, output, face_inputs,
-                     image_inputs):
+                     image_inputs, deterministic: bool = True,
+                     generator=None):
     """Shared ILF fusion tail: masked face-projection sum + image-projection
-    sums + LN. Exclusivity zeroes the image INPUT (reference parity: the
-    dense bias still leaks through for face-bearing samples)."""
+    sums + LN + dropout, one seed per site. Exclusivity zeroes the image
+    INPUT (reference parity: the dense bias still leaks through for
+    face-bearing samples)."""
     faces = face_inputs["face"]
     b, n_images, n_faces, _ = faces.shape
+    # the face branch, one per image kind, the fused output
+    seeds = L.dropout_seeds(generator, 2 + len(image_inputs or {}),
+                            deterministic)
     if n_faces > 0:
         face_out = face_embedding_apply(
             params.face_embedding, cfg,
             faces.reshape(b, n_images * n_faces, -1),
-            face_inputs["bbox"].reshape(b, n_images * n_faces, -1))
+            face_inputs["bbox"].reshape(b, n_images * n_faces, -1),
+            seed=seeds[0])
         mask = face_inputs["attention_mask"].reshape(b, n_images * n_faces,
                                                      1)
         output = output + (face_out * mask).sum(dim=1)
 
     face_mask_flat = face_inputs["attention_mask"].reshape(b, -1)
     has_face = face_mask_flat.sum(dim=1, keepdim=True) > 0
-    for name, image in (image_inputs or {}).items():
+    for img_i, (name, image) in enumerate((image_inputs or {}).items()):
         inp = image["input"].reshape(b, -1)
         if cfg.face_and_image_are_exclusive:
             inp = torch.where(has_face, 0.0, inp)
         output = output + image_embedding_apply(
-            params.image_embeddings[name], cfg, inp)
-    return L.layer_norm(params.ln, output, cfg.bert.layer_norm_eps)
+            params.image_embeddings[name], cfg, inp, seed=seeds[1 + img_i])
+    output = L.layer_norm(params.ln, output, cfg.bert.layer_norm_eps)
+    return L.dropout(output, cfg.bert.hidden_dropout_prob, seeds[-1])
 
 
-@torch.no_grad()
 def ilf_apply(params: ILF, cfg: MMConfig, text_inputs, face_inputs,
-              image_inputs=None, deterministic: bool = True, rng=None,
+              image_inputs=None, deterministic: bool = True, generator=None,
               compute_dtype=torch.float32,
               remat_layers: bool = False) -> EncoderOutput:
-    _evaluation_only(cfg, deterministic, rng, remat_layers)
+    _no_moe(cfg)
     out = bert.apply(params.dpr_encoder, cfg.bert, text_inputs["input_ids"],
                      text_inputs["attention_mask"],
                      token_type_ids=text_inputs.get("token_type_ids"),
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype,
+                     deterministic=deterministic, generator=generator,
+                     remat_layers=remat_layers)
     output = L.dense(params.dpr_proj, out["last_hidden_state"][:, 0])
     return EncoderOutput(pooler_output=_ilf_fuse_visual(
-        params, cfg, output, face_inputs, image_inputs))
+        params, cfg, output, face_inputs, image_inputs, deterministic,
+        generator))
 
 
-@torch.no_grad()
 def ilf_apply_packed(params: ILF, cfg: MMConfig, input_ids, segment_ids,
                      position_ids, cls_rows, cls_cols, face_inputs,
-                     image_inputs=None, deterministic: bool = True, rng=None,
+                     image_inputs=None, deterministic: bool = True,
+                     generator=None,
                      compute_dtype=torch.float32, remat_layers: bool = False,
                      return_aux: bool = False):
     """Packed-canvas ILF forward: the text CLS comes from a packed DPR
@@ -444,15 +473,18 @@ def ilf_apply_packed(params: ILF, cfg: MMConfig, input_ids, segment_ids,
     of projections, so plain ``pack_text_inputs`` canvases work. Returns
     (B, D) for the B samples of ``face_inputs`` (or (out, None) with
     ``return_aux``)."""
-    _evaluation_only(cfg, deterministic, rng, remat_layers)
+    _no_moe(cfg)
     out = bert.apply(params.dpr_encoder, cfg.bert, input_ids,
                      position_ids=position_ids, segment_ids=segment_ids,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype,
+                     deterministic=deterministic, generator=generator,
+                     remat_layers=remat_layers)
     text = out["last_hidden_state"][cls_rows.long(), cls_cols.long()]
     b = face_inputs["face"].shape[0]
     output = _ilf_fuse_visual(params, cfg, L.dense(params.dpr_proj,
                                                    text[:b]),
-                              face_inputs, image_inputs)
+                              face_inputs, image_inputs, deterministic,
+                              generator)
     return (output, None) if return_aux else output
 
 
@@ -463,7 +495,11 @@ def ilf_apply_packed(params: ILF, cfg: MMConfig, input_ids, segment_ids,
 def flamant_apply(params: Flamant, cfg: FlamantConfig, text_inputs,
                   face_inputs, image_inputs=None, deterministic: bool = True,
                   rng=None, compute_dtype=torch.float32) -> ECAEncoderOutput:
-    _evaluation_only(cfg, deterministic, rng)
+    if not deterministic or rng is not None:
+        raise NotImplementedError(
+            "Flamant is ported for evaluation: no trainee builds it, so its "
+            "dropout sites are not ported")
+    _no_moe(cfg)
     vis_tokens, vis_mask = _visual_tokens(params, cfg, face_inputs,
                                           image_inputs)
     x = bert.embed(params.bert, cfg.bert, text_inputs["input_ids"],
@@ -578,7 +614,6 @@ class IntermediateLinearFusion(_MMEncoderBundle):
 # --------------------------------------------------------------------------
 # CLIPForIR
 # --------------------------------------------------------------------------
-@torch.no_grad()
 def clip_for_ir_apply(clip_params, text_cfg, vision_cfg, input_ids,
                       attention_mask, pixel_values,
                       compute_dtype=torch.float32) -> EncoderOutput:

@@ -60,6 +60,18 @@ class Reader(nn.Module):
         return reader_apply(self, self.cfg, input_ids, **kw)
 
 
+def init(cfg: ReaderConfig, seed: int = 0, device=None) -> Reader:
+    """Seeded random reader on ``device`` (default: the GPU) from the JAX
+    ``init``'s distribution (truncated normal, std 0.02; identity
+    ``score_proj_w/b``), not its values."""
+    model = L.seeded(Reader, cfg, seed=seed, device=device, truncated=True)
+    if cfg.fuse_ir_score:
+        with torch.no_grad():
+            model.score_proj_w.fill_(1.0)
+            model.score_proj_b.zero_()
+    return model
+
+
 def load_reader(cfg: ReaderConfig, tensors, device, dtype) -> Reader:
     """A :class:`Reader` on ``device`` holding ``tensors`` (its state-dict
     names) in ``dtype``; absent ``score_proj_*`` keep their identity
@@ -167,12 +179,15 @@ def reader_apply(
     answer_mask: Optional[torch.Tensor] = None,
     m_passages: int = 24,
     compute_dtype=torch.float32,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
 ) -> ReaderOutput:
     bert_out = bert.apply(
         params.bert, cfg.bert, input_ids,
         attention_mask=attention_mask,
         token_type_ids=token_type_ids,
         compute_dtype=compute_dtype,
+        deterministic=deterministic, generator=generator,
     )
     sequence = bert_out["last_hidden_state"]
     logits = L.dense(params.qa_outputs, sequence)  # (N*M, L, 2)
@@ -204,6 +219,8 @@ def reader_apply_packed(
     answer_mask: Optional[torch.Tensor] = None,
     m_passages: int = 24,
     compute_dtype=torch.float32,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
 ) -> ReaderOutput:
     """Packed Multi-passage BERT: (question, passage) pairs packed many-
     per-row onto one canvas (ops/packing.py — the reference's passages are
@@ -220,6 +237,7 @@ def reader_apply_packed(
         position_ids=position_ids,
         segment_ids=segment_ids,
         compute_dtype=compute_dtype,
+        deterministic=deterministic, generator=generator,
     )
     sequence = bert_out["last_hidden_state"]     # (R, Lc, D)
     logits = L.dense(params.qa_outputs, sequence)  # (R, Lc, 2)

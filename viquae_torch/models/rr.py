@@ -1,0 +1,75 @@
+"""BERT cross-encoder re-ranker (counterpart of the BERT part of
+viquae_tpu/models/rr.py).
+
+Scores a (question [SEP] passage) pair with one logit from its [CLS]
+representation; training reshapes the (N*M,) logits to (N, M) for the CE
+objective (train.objectives.reranker_loss). :class:`BertReRanker` holds
+the weights named as the JAX tree (``bert``, ``classifier``). The ECA and
+Flamant re-rankers are listed in ROADMAP.md (A15b).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from viquae_torch.models import bert
+from viquae_torch.models import layers as L
+from viquae_torch.models.outputs import ReRankerOutput
+
+
+@dataclasses.dataclass(frozen=True)
+class BertReRankerConfig:
+    bert: bert.BertConfig = dataclasses.field(
+        default_factory=lambda: bert.BertConfig(add_pooler=False)
+    )
+
+
+class BertReRanker(nn.Module):
+    def __init__(self, cfg: BertReRankerConfig, **factory):
+        super().__init__()
+        self.bert = bert.Bert(cfg.bert, **factory)
+        self.classifier = L.dense_init(cfg.bert.hidden_size, 1, **factory)
+
+
+def bert_reranker_init(cfg: BertReRankerConfig, seed: int = 0,
+                       device=None) -> BertReRanker:
+    """Seeded random re-ranker on ``device`` (default: the GPU), from the
+    JAX init's distribution (truncated normal, std 0.02)."""
+    return L.seeded(BertReRanker, cfg, seed=seed, device=device,
+                    truncated=True)
+
+
+def bert_reranker_apply(params: BertReRanker, cfg: BertReRankerConfig,
+                        input_ids, attention_mask=None, token_type_ids=None,
+                        deterministic: bool = True,
+                        generator: Optional[torch.Generator] = None,
+                        compute_dtype=torch.float32) -> ReRankerOutput:
+    out = bert.apply(params.bert, cfg.bert, input_ids,
+                     attention_mask=attention_mask,
+                     token_type_ids=token_type_ids,
+                     deterministic=deterministic, generator=generator,
+                     compute_dtype=compute_dtype)
+    logits = L.dense(params.classifier, out["last_hidden_state"][:, 0])
+    return ReRankerOutput(logits=logits[..., 0])
+
+
+def bert_reranker_apply_packed(params: BertReRanker, cfg: BertReRankerConfig,
+                               input_ids, segment_ids, position_ids,
+                               token_type_ids, cls_rows, cls_cols,
+                               deterministic: bool = True,
+                               generator: Optional[torch.Generator] = None,
+                               compute_dtype=torch.float32
+                               ) -> ReRankerOutput:
+    """Packed cross-encoder: pairs packed many-per-row (ops/packing.py);
+    each pair's logit comes from its own [CLS] at (cls_rows, cls_cols)."""
+    out = bert.apply(params.bert, cfg.bert, input_ids,
+                     token_type_ids=token_type_ids,
+                     position_ids=position_ids, segment_ids=segment_ids,
+                     deterministic=deterministic, generator=generator,
+                     compute_dtype=compute_dtype)
+    cls = out["last_hidden_state"][cls_rows.long(), cls_cols.long()]
+    logits = L.dense(params.classifier, cls)
+    return ReRankerOutput(logits=logits[..., 0])

@@ -1,10 +1,11 @@
 """Build and load the port's host-side native code (ctypes over g++).
 
 Counterpart of viquae_tpu/native/build.py for the sources the port owns
-(``packer.cpp`` and ``bm25_scorer.cpp``, byte-identical copies of the JAX
-package's). The shared library is compiled at first use next to its source
-(mtime-checked; the ``_*.so`` files are git-ignored). Set
-``VIQUAE_NO_NATIVE=1`` to force the pure-Python paths.
+(``packer.cpp``, ``bm25_scorer.cpp`` and ``answer_spans.cpp``,
+byte-identical copies of the JAX package's). The shared library is
+compiled at first use next to its source (mtime-checked; the ``_*.so``
+files are git-ignored). Set ``VIQUAE_NO_NATIVE=1`` to force the
+pure-Python paths.
 """
 from __future__ import annotations
 
@@ -52,6 +53,30 @@ def _load(name: str) -> Optional[ctypes.CDLL]:
         lib = None
     _CACHE[name] = lib
     return lib
+
+
+def load_answer_span_matcher():
+    """ctypes handle to match_batch, or None (fallback to numpy)."""
+    lib = _load("answer_spans")
+    if lib is None:
+        return None
+    import numpy as np
+    from numpy.ctypeslib import ndpointer
+
+    fn = lib.match_batch
+    fn.restype = None
+    fn.argtypes = [
+        ndpointer(np.int32, flags="C_CONTIGUOUS"),    # input_ids
+        ctypes.c_int64, ctypes.c_int64,               # n_rows, seq_len
+        ndpointer(np.int32, flags="C_CONTIGUOUS"),    # answer_tokens
+        ndpointer(np.int64, flags="C_CONTIGUOUS"),    # answer_offsets
+        ndpointer(np.int64, flags="C_CONTIGUOUS"),    # row_answer_offsets
+        ctypes.c_int32,                               # max_n
+        ndpointer(np.int32, flags="C_CONTIGUOUS"),    # out_starts
+        ndpointer(np.int32, flags="C_CONTIGUOUS"),    # out_ends
+        ndpointer(np.int32, flags="C_CONTIGUOUS"),    # out_counts
+    ]
+    return fn
 
 
 def _bm25_entry(name: str, term_ub: bool = False, n_threads: bool = False):

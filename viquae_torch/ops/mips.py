@@ -275,14 +275,25 @@ def _store_rows(matrix: torch.Tensor, start: int, src: torch.Tensor,
         matrix[start + lo: start + lo + block.shape[0]] = block
 
 
-def _as_rows(vectors, device) -> torch.Tensor:
-    """(N, d) vectors (numpy or a tensor) as a float tensor on ``device``:
-    bf16 and f32 stay as they are, any other type becomes f32 first (the
-    reference stores through f32)."""
+def _as_rows(vectors, device, do_l2norm: bool = False):
+    """(N, d) vectors (numpy or a tensor) as (a float tensor on ``device``,
+    whether it is already L2-normalized): bf16 and f32 tensors stay as they
+    are, any other type becomes f32 first (the reference stores through
+    f32). With ``do_l2norm``, HOST vectors are normalized here in numpy
+    exactly as the reference normalizes its KB (``np.linalg.norm`` in f32,
+    one thread), so the stored rows are the reference's bit for bit and
+    do not depend on torch's CPU thread pool; device tensors are
+    normalized by ``_store_rows``."""
+    if do_l2norm and not isinstance(vectors, torch.Tensor):
+        v = np.asarray(vectors, np.float32)
+        if v.ndim == 2:
+            v = v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True),
+                               1e-12)
+            return torch.as_tensor(v, device=device), True
     src = torch.as_tensor(vectors, device=device)
     if src.dtype not in (torch.float32, torch.bfloat16):
         src = src.float()
-    return src
+    return src, False
 
 
 class DenseIndex:
@@ -313,14 +324,14 @@ class DenseIndex:
         self.approx_recall_target = approx_recall_target
         # the B1 kernel is bf16-only (the f32 contract lives on the others)
         self.dtype = torch.bfloat16 if mode == "fused" else dtype
-        src = _as_rows(vectors, self.device)
+        src, normalized = _as_rows(vectors, self.device, do_l2norm)
         if src.ndim != 2:
             raise ValueError(
                 f"expected (N, d) vectors, got {tuple(src.shape)}")
         n, self.d = src.shape
         self.matrix = torch.zeros((_aligned_rows(n), self.d),
                                   dtype=self.dtype, device=self.device)
-        _store_rows(self.matrix, 0, src, do_l2norm)
+        _store_rows(self.matrix, 0, src, do_l2norm and not normalized)
         self.n = n
 
     def snapshot(self) -> Tuple[int, torch.Tensor]:
@@ -388,7 +399,7 @@ class DenseIndex:
         them half written. Growth beyond the padding builds a new aligned
         matrix. Either way the matrix is bound first and the count last
         (``snapshot`` reads the count first)."""
-        v = _as_rows(vectors, self.device)
+        v, normalized = _as_rows(vectors, self.device, self.do_l2norm)
         if v.ndim != 2 or v.shape[1] != self.d:
             raise ValueError(
                 f"expected (m, {self.d}) vectors, got {tuple(v.shape)}")
@@ -402,7 +413,7 @@ class DenseIndex:
                                 dtype=self.dtype, device=self.device)
             grown[:n] = mat[:n]
             mat = grown
-        _store_rows(mat, n, v, self.do_l2norm)
+        _store_rows(mat, n, v, self.do_l2norm and not normalized)
         self.matrix = mat
         self.n = new_n
 
@@ -458,7 +469,7 @@ class StreamingDenseIndex:
     def __init__(self, vectors, chunk_rows: int = 262144,
                  do_l2norm: bool = False, dtype=torch.bfloat16, device=None):
         self.device = resolve_device(device)
-        src = _as_rows(vectors, None)
+        src, normalized = _as_rows(vectors, None, do_l2norm)
         self.n, self.d = 0, src.shape[1]
         self.do_l2norm = do_l2norm
         self.dtype = dtype
@@ -468,12 +479,12 @@ class StreamingDenseIndex:
         self._pin = self.device.type == "cuda"
         self._chunks = []
         for lo in range(0, src.shape[0], self.chunk_rows):
-            self._append(src[lo: lo + self.chunk_rows])
+            self._append(src[lo: lo + self.chunk_rows], normalized)
 
-    def _append(self, rows: torch.Tensor) -> None:
+    def _append(self, rows: torch.Tensor, normalized: bool) -> None:
         """Write rows at ids [n, n + m) on the host (in place in the tail
         chunk's padding, new chunks as needed), then bind the count."""
-        if self.do_l2norm:
+        if self.do_l2norm and not normalized:
             rows = l2_normalize(rows.float())
         rows = rows.to(self.dtype).cpu()
         done = 0
@@ -492,12 +503,12 @@ class StreamingDenseIndex:
         """Append rows (FAISS IndexFlat.add contract, the same id semantics
         as DenseIndex.add). A search that holds the old count masks the
         padding rows written here."""
-        v = _as_rows(vectors, None)
+        v, normalized = _as_rows(vectors, None, self.do_l2norm)
         if v.ndim != 2 or v.shape[1] != self.d:
             raise ValueError(
                 f"expected (m, {self.d}) vectors, got {tuple(v.shape)}")
         if len(v):
-            self._append(v)
+            self._append(v, normalized)
 
     def _device_chunks(self, n_chunks: int):
         """Yield chunks 0..n_chunks-1 on the device. On a GPU, chunk c+1's

@@ -1,1 +1,2 @@
-"""Reader loss and host-side QA metrics."""
+"""Training: trainer, trainees, objectives, optimizer, collators,
+checkpoints, the config-driven entry point and the QA metrics."""

@@ -1,22 +1,67 @@
-"""Params-only export: the JAX package's inter-stage checkpoint contract
-(counterpart of viquae_tpu/train/checkpoint.py ``export_params`` /
-``import_params``), numpy only.
+"""Checkpoint / resume / export (counterpart of
+viquae_tpu/train/checkpoint.py).
+
+:func:`save_state` writes a trainer's whole state (parameters, optimizer
+and schedule, step) with ``torch.save`` under ``<dir>/step_<n>/state.pt``
+and keeps the newest ``keep``; :func:`restore_state` loads the newest (or
+a given) step into a template that has ``load_state_dict``.
 
 An export directory holds ``params.npz``, one array per leaf of a param
 tree named by its path ("/"-joined dict keys and list indices, as
 ``jax.tree_util`` names them: ``layers/0/attention/q/kernel``), and an
 optional ``config.json``. A directory that either package writes loads in
 the other; the port turns the tree into its modules with the converters of
-``viquae_torch.models.convert``. The orbax train-state checkpoints
-(``save_state`` / ``restore_state``) come with training (ROADMAP A16).
+``viquae_torch.models.convert`` (``tree_from_module`` goes back).
 """
 from __future__ import annotations
 
 import json
+import shutil
 from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+
+
+def save_state(ckpt_dir, state, step: int, keep: Optional[int] = None):
+    """``state.state_dict()`` to ``ckpt_dir/step_<step>``; with ``keep``,
+    only the newest ``keep`` steps stay."""
+    ckpt_dir = Path(ckpt_dir).resolve()
+    path = ckpt_dir / f"step_{step}"
+    path.mkdir(parents=True, exist_ok=True)
+    tmp = path / "state.pt.tmp"
+    torch.save(state.state_dict(), tmp)
+    tmp.replace(path / "state.pt")
+    if keep is not None:
+        for old in sorted(all_steps(ckpt_dir))[:-keep]:
+            shutil.rmtree(ckpt_dir / f"step_{old}", ignore_errors=True)
+    return path
+
+
+def all_steps(ckpt_dir):
+    ckpt_dir = Path(ckpt_dir)
+    return [
+        int(p.name.split("_")[1])
+        for p in ckpt_dir.glob("step_*") if (p / "state.pt").is_file()
+    ]
+
+
+def restore_state(ckpt_dir, template, step: Optional[int] = None,
+                  map_location="cpu"):
+    """(``template`` with the checkpoint loaded, step): ``template`` has
+    ``load_state_dict`` (a ``trainer.TrainState``); ``step`` defaults to
+    the newest."""
+    ckpt_dir = Path(ckpt_dir).resolve()
+    if step is None:
+        steps = all_steps(ckpt_dir)
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+        step = max(steps)
+    template.load_state_dict(torch.load(
+        ckpt_dir / f"step_{step}" / "state.pt", map_location=map_location,
+        weights_only=True))
+    return template, step
 
 
 def _flatten(tree, prefix=()) -> Dict[str, Any]:

@@ -1,15 +1,186 @@
-"""The multi-passage reading-comprehension loss (counterpart of
-``multi_passage_rc_loss`` in viquae_tpu/train/optim.py).
+"""Optimizer, LR schedule and the multi-passage reading-comprehension loss
+(counterpart of viquae_tpu/train/optim.py).
 
-(N*M, L) start/end logits get ONE softmax shared across the M passages of
-a question (reshape to (N, M*L)), per-answer-occurrence NLL, marginal
-log-likelihood with mean reduction, legacy ``max_pooling`` flag. A plain
-function on tensors: autograd gives its gradient. The optimizer, schedule
-and freeze masks of the JAX module are listed in ROADMAP.md (A16).
+- :func:`linear_warmup_schedule`: linear 0 -> lr over the warmup, then
+  linear lr -> 0 at ``total_steps``, in f32 as the JAX schedule;
+- :func:`decay_mask` / :func:`freeze_mask`: which parameters decay and
+  which train, by the JAX package's regexes matched on each parameter's
+  JAX path (``models.convert.jax_paths``), so a shipped config freezes
+  and decays the same tensors in both packages;
+- :func:`make_optimizer`: the JAX package's optax chain as an
+  :class:`AdamWSpec` that a trainer binds to its own parameters
+  (:class:`Optimizer`): ``torch.optim.AdamW`` over a decay and a no-decay
+  group of the trainable parameters, a ``LambdaLR`` holding the schedule,
+  and global-norm clipping over the trainable gradients only;
+- :func:`remat`: per-call gradient checkpointing;
+- :func:`multi_passage_rc_loss`: (N*M, L) start/end logits get ONE softmax
+  shared across the M passages of a question (reshape to (N, M*L)),
+  per-answer-occurrence NLL, marginal log-likelihood with mean
+  reduction, legacy ``max_pooling`` flag. A plain function on tensors:
+  autograd gives its gradient.
 """
 from __future__ import annotations
 
+import dataclasses
+import re
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+
+def remat(apply_fn):
+    """``apply_fn`` recomputed in the backward pass (activations are not
+    kept). Dropout inside it must take seeds drawn outside the call
+    (``layers.dropout_seeds``): checkpoint replays the global RNG, not a
+    ``torch.Generator`` passed in by hand."""
+    def fn(*args, **kwargs):
+        return checkpoint(apply_fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn
+
+
+def linear_warmup_schedule(lr: float, warmup_steps: int, total_steps: int):
+    """step -> learning rate: linear 0 -> lr over ``warmup_steps``, then
+    linear lr -> 0 at ``total_steps``, clipped at 0; computed in float32
+    as the JAX package's schedule."""
+    f32 = np.float32
+
+    def schedule(step) -> float:
+        step = f32(step)
+        warm = step / f32(max(1.0, warmup_steps))
+        decay = (f32(total_steps) - step) / f32(
+            max(1.0, total_steps - warmup_steps))
+        frac = warm if step < warmup_steps else decay
+        return float(f32(lr) * max(frac, f32(0.0)))
+
+    return schedule
+
+
+def _unmatched(params: nn.Module, pattern: str) -> Dict[str, bool]:
+    """{parameter name: True where ``pattern`` is found nowhere in its JAX
+    path}."""
+    from viquae_torch.models.convert import jax_paths
+
+    regex = re.compile(pattern)
+    return {name: regex.search(path) is None
+            for name, path in jax_paths(params).items()}
+
+
+def decay_mask(params: nn.Module) -> Dict[str, bool]:
+    """{parameter name: True where weight decay applies} — not biases or
+    LayerNorm scales, by the JAX package's regex on the JAX paths."""
+    return _unmatched(params, r"(bias|scale|ln\b|LayerNorm)")
+
+
+def freeze_mask(params: nn.Module, freeze_regex: Optional[str]
+                ) -> Dict[str, bool]:
+    """{parameter name: True where trainable}. The regex is searched (not
+    matched) in each JAX path: '.*/layers/(6|7)/.*' hits
+    'question/bert/layers/6/attention/q/kernel'."""
+    if freeze_regex is None:
+        return {name: True for name, _ in params.named_parameters()}
+    return _unmatched(params, freeze_regex)
+
+
+class Optimizer:
+    """An :class:`AdamWSpec` bound to a module's parameters: optax's
+    ``multi_transform({"train": chain(clip_by_global_norm, adamw),
+    "freeze": set_to_zero})``. Frozen parameters are in no group, so they
+    never move and hold no Adam state; their gradients still count in
+    the trainer's ``grad_norm``, as in the JAX trainer."""
+
+    def __init__(self, spec: "AdamWSpec", params: nn.Module):
+        self.spec = spec
+        named = dict(params.named_parameters())
+        trainable = freeze_mask(params, spec.freeze_regex)
+        decays = decay_mask(params)
+        self.trainable: List[torch.Tensor] = [
+            p for n, p in named.items() if trainable[n]]
+        groups = [
+            {"params": [p for n, p in named.items()
+                        if trainable[n] and decays[n]],
+             "weight_decay": spec.weight_decay},
+            {"params": [p for n, p in named.items()
+                        if trainable[n] and not decays[n]],
+             "weight_decay": 0.0},
+        ]
+        self.adamw = torch.optim.AdamW(
+            [g for g in groups if g["params"]], lr=spec.lr,
+            betas=spec.betas, eps=spec.eps)
+        schedule = linear_warmup_schedule(spec.lr, spec.warmup_steps,
+                                          spec.total_steps)
+        # LambdaLR multiplies the base lr; its count starts at 0, as
+        # optax's, so with warmup the first update has lr 0
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.adamw,
+            lambda step: schedule(step) / spec.lr if spec.lr else 0.0)
+
+    def step(self):
+        """Clip the trainable gradients (global norm, on the device, no
+        host read), take the AdamW step, advance the schedule."""
+        if self.spec.grad_clip:
+            clip_by_global_norm_(self.trainable, self.spec.grad_clip)
+        self.adamw.step()
+        self.scheduler.step()
+
+    def state_dict(self) -> dict:
+        return {"adamw": self.adamw.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def load_state_dict(self, state: dict):
+        self.adamw.load_state_dict(state["adamw"])
+        self.scheduler.load_state_dict(state["scheduler"])
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry (optax.global_norm)."""
+    norms = torch._foreach_norm(list(tensors))
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float):
+    """optax.clip_by_global_norm on the ``.grad`` of ``params``, in place:
+    unchanged while the global norm is below ``max_norm``, else scaled by
+    max_norm / norm (without torch's 1e-6 in the denominator)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = global_norm(grads)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWSpec:
+    """The hyperparameters of :func:`make_optimizer`; :meth:`build` binds
+    them to the parameters a trainer owns."""
+    lr: float = 2e-5
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    warmup_steps: int = 0
+    total_steps: int = 10_000
+    grad_clip: Optional[float] = None
+    freeze_regex: Optional[str] = None
+
+    def build(self, params: nn.Module) -> Optimizer:
+        return Optimizer(self, params)
+
+
+def make_optimizer(params: Optional[nn.Module] = None, **hyper
+                   ) -> AdamWSpec:
+    """The JAX package's ``make_optimizer(params, lr=..., betas=..., eps=...,
+    weight_decay=..., warmup_steps=..., total_steps=..., grad_clip=...,
+    freeze_regex=...)`` as an :class:`AdamWSpec` (``params`` is accepted
+    for its signature: the masks are taken by name when the spec is
+    bound)."""
+    if "betas" in hyper:
+        hyper["betas"] = tuple(hyper["betas"])
+    return AdamWSpec(**hyper)
 
 
 def multi_passage_rc_loss(
