@@ -167,8 +167,8 @@ def test_parsers_list_the_same_commands(capsys):
 
 
 STUBS = {"stats": "A18",
-         "kilt2vqa": "A18", "wiki": "A18", "wikidump": "A18", "wit": "A18",
-         "labelstudio": "A18", "mscelebs": "A18", "evqa": "A18",
+         "wiki": "A18", "wikidump": "A18", "wit": "A18",
+         "labelstudio": "A18", "mscelebs": "A18",
          "html": "A18", "plot": "A18", "wtl-filter": "A18"}
 
 
@@ -570,6 +570,296 @@ def test_cli_sentences_face_box_infoseek(tmp_path, capsys, monkeypatch):
     for name in ("text", "faces"):
         assert load_from_disk(str(tmp_path / "port" / name)).to_dict() == \
             load_from_disk(str(tmp_path / "jax" / name)).to_dict()
+
+
+# --------------------------------------------------------------------------
+# evqa (Exact Match, BEM) and the kilt2vqa chain
+# --------------------------------------------------------------------------
+EVQA_BERT = {"vocab_size": 40, "hidden_size": 16, "num_hidden_layers": 1,
+             "num_attention_heads": 2, "intermediate_size": 32,
+             "max_position_embeddings": 64, "type_vocab_size": 3,
+             "add_pooler": True}
+
+
+def _evqa_files(tmp_path):
+    preds = {"q0": "w1", "q1": "w5", "q2": "two", "q3": "w7 and w8",
+             "q4": "w3", "q5": "w11 w12", "q6": "w9"}
+    refs = {"q0": {"reference": "w1", "question": "what?"},
+            "q1": {"reference": "w9", "question": "which?"},
+            "q2": {"reference": "2", "question": "how many?"},
+            "q3": {"reference": "w7&&w8", "question": "who?",
+                   "question_type": "multi_answer"},
+            "q4": {"reference": "w2|w4", "question": "where?"},
+            "q5": {"reference": "w13 w14", "question": "w15 w16 w17"},
+            "q6": {"reference": "w10 w12", "question": "w18"}}
+    write(tmp_path / "pred.json", preds)
+    write(tmp_path / "ref.json", refs)
+    return tmp_path / "pred.json", tmp_path / "ref.json"
+
+
+def test_cli_evqa_exact_match(ws, tmp_path, capsys):
+    pred, ref = _evqa_files(tmp_path)
+    printed = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        cli(["evqa", pred, ref])
+        printed[label] = capsys.readouterr().out
+    assert printed["port"] == printed["jax"]
+    assert json.loads(printed["port"]) == {"accuracy": 3 / 7,
+                                           "n_evaluated": 7}
+
+
+def test_cli_evqa_bem_on_exported_params(ws, tmp_path, capsys):
+    """``evqa --scorer bem`` in both packages on one export directory of
+    BEM weights: EM hits short-circuit, the misses go through the BEM
+    forward one example at a time; the same accuracy, and a BEM that
+    decides (some misses rescued, not all)."""
+    from viquae_torch.models import bem as tbem
+    from viquae_tpu.models import bem as jbem
+    from viquae_tpu.models import bert as jbert
+
+    from torch_helpers import perturbed
+
+    cfg = jbem.BEMConfig(bert=jbert.BertConfig(**EVQA_BERT), max_length=64)
+    tree = perturbed(jax.tree.map(np.asarray, jbem.init(
+        jax.random.key(5), cfg)), seed=11, scale=0.4)
+    export_params(tmp_path / "bem", tree)
+    config = write(tmp_path / "bem.json", {
+        "tokenizer": str(ws / "tok"), "params": str(tmp_path / "bem"),
+        "bem_config": {"bert_config": EVQA_BERT, "max_length": 64}})
+    pred, ref = _evqa_files(tmp_path)
+    printed = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        cli(["evqa", pred, ref, "--scorer", "bem", "--config", config])
+        printed[label] = json.loads(capsys.readouterr().out)
+    assert printed["port"] == printed["jax"]
+    assert 3 / 7 < printed["port"]["accuracy"] < 1.0
+    # the port's scorer on the misses, against the JAX one's probabilities
+    from transformers import BertTokenizerFast
+
+    tok = BertTokenizerFast(vocab_file=str(ws / "tok" / "vocab.txt"),
+                            do_lower_case=True)
+    examples = [{"candidate": "w5", "reference": "w9", "question": "which?"},
+                {"candidate": "w11 w12", "reference": "w13 w14",
+                 "question": "w15 w16 w17"}]
+    tcfg = tbem.BEMConfig(bert=tbert.BertConfig(**EVQA_BERT), max_length=64)
+    ours = tbem.BEMScorer(tcfg, tbem.from_jax(tree, tcfg, device="cpu"),
+                          tok, max_length=64, device="cpu").score(examples)
+    theirs = jbem.BEMScorer(cfg, jax.tree.map(jax.numpy.asarray, tree), tok,
+                            max_length=64).score(examples)
+    np.testing.assert_allclose(ours, theirs, atol=1e-5)
+
+
+def test_cli_evqa_bem_with_seeded_weights(ws, tmp_path, capsys):
+    """tests/test_server.py's ``evqa --scorer bem`` case on the port: no
+    ``params``, seeded weights (not JAX's values); the protocol runs, q0
+    is an EM hit whatever BEM says."""
+    write(tmp_path / "pred.json", {"q0": "w1", "q1": "w5"})
+    write(tmp_path / "ref.json", {
+        "q0": {"reference": "w1", "question": "what?"},
+        "q1": {"reference": "w9", "question": "which?"}})
+    write(tmp_path / "bem.json", {
+        "tokenizer": str(ws / "tok"),
+        "bem_config": {"bert_config": EVQA_BERT, "max_length": 64}})
+    port(["evqa", tmp_path / "pred.json", tmp_path / "ref.json",
+          "--scorer", "bem", "--config", tmp_path / "bem.json"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["n_evaluated"] == 2
+    assert 0.5 <= out["accuracy"] <= 1.0
+
+
+def _kilt_workspace(root):
+    """tests/test_cli_aux.py's kilt2vqa workspace: two KILT-TriviaQA
+    questions and their three Wikipedia articles."""
+    from datasets import Dataset
+
+    Dataset.from_list([
+        {"id": "q0", "input": "Who married Ada Lovelace?",
+         "output": {"original_answer": "William King", "provenance": [
+             {"wikipedia_id": ["1"], "title": ["Ada Lovelace"]},
+             {"wikipedia_id": ["2"], "title": ["Mathematics"]}]}},
+        {"id": "q1", "input": "Who composed the opera Carmen?",
+         "output": {"original_answer": "Georges Bizet", "provenance": [
+             {"wikipedia_id": ["3"], "title": ["Carmen"]}]}},
+    ]).save_to_disk(str(root / "questions"))
+    Dataset.from_list([
+        {"wikipedia_id": "1", "wikipedia_title": "Ada Lovelace",
+         "wikidata_info": {"wikidata_id": "Q7259",
+                           "aliases": {"alias": ["ada king"]}}},
+        {"wikipedia_id": "2", "wikipedia_title": "Mathematics",
+         "wikidata_info": {"wikidata_id": "Q395",
+                           "aliases": {"alias": []}}},
+        {"wikipedia_id": "3", "wikipedia_title": "Carmen",
+         "wikidata_info": {"wikidata_id": "Q185968",
+                           "aliases": {"alias": ["carmen opera"]}}},
+    ]).save_to_disk(str(root / "wikipedia"))
+    return root
+
+
+def _enrich_entities(path):
+    """The counted entities with what wiki.py would add (gender,
+    occupation, heuristics-scored images), as tests/test_cli_aux.py."""
+    entities = json.loads(path.read_text())
+    entities["Q7259"].update({
+        "gender": {"value": "http://www.wikidata.org/entity/Q6581072"},
+        "instanceof": {"http://www.wikidata.org/entity/Q5": {}},
+        "occupation": {"Q121594": {"label": {"value": "mathematician"}}},
+        "images": {"File:Ada.jpg": {"heuristics": {"title": True}}},
+    })
+    entities["Q185968"].update({
+        "instanceof": {"http://www.wikidata.org/entity/Q1344": {}},
+        "instanceofLabel": {"Q1344": {"value": "opera"}},
+        "images": {"File:Carmen.jpg": {"heuristics": {"title": True}}},
+    })
+    path.write_text(json.dumps(entities))
+
+
+def test_cli_kilt2vqa_chain(tmp_path, capsys):
+    """ner (title gazetteer) -> ned -> count-entities -> generate-mentions
+    -> generate-vq -> labelstudio in both packages on the same workspace:
+    the same datasets, files and printed counts at every step."""
+    from datasets import load_from_disk
+
+    printed = {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        d = _kilt_workspace(tmp_path / label)
+        ner_cfg = write(d / "ner.json", {"titles": str(d / "wikipedia"),
+                                         "title_key": "wikipedia_title"})
+        lines = []
+
+        def run(argv):
+            cli(argv)
+            out = json.loads(capsys.readouterr().out)
+            out.pop("saved", None)
+            lines.append(out)
+
+        run(["kilt2vqa", "ner", d / "questions", "--output", d / "ner_out",
+             "--config", ner_cfg])
+        run(["kilt2vqa", "ned", d / "ner_out", "--output", d / "ned_out",
+             "--wikipedia", d / "wikipedia"])
+        run(["kilt2vqa", "count-entities", d / "ned_out", "--output",
+             d / "entities.json"])
+        _enrich_entities(d / "entities.json")
+        run(["kilt2vqa", "generate-mentions", d / "ned_out", "--output",
+             d / "mention_out", "--entities", d / "entities.json"])
+        run(["kilt2vqa", "generate-vq", d / "mention_out", "--output",
+             d / "vq_out", "--entities", d / "entities.json"])
+        run(["kilt2vqa", "labelstudio", d / "vq_out", "--output",
+             d / "tasks.json"])
+        printed[label] = lines
+    assert printed["port"] == printed["jax"]
+    assert printed["port"][0]["items"] == 2
+    for name in ("ner_out", "ned_out", "mention_out", "vq_out"):
+        assert load_from_disk(str(tmp_path / "port" / name)).to_list() == \
+            load_from_disk(str(tmp_path / "jax" / name)).to_list(), name
+    for name in ("entities.json", "tasks.json"):
+        assert (tmp_path / "port" / name).read_text() == \
+            (tmp_path / "jax" / name).read_text(), name
+    vq = load_from_disk(str(tmp_path / "port" / "vq_out"))
+    generated = {v["input"] for item in vq for v in item["vq"]}
+    assert "Who married this woman?" in generated
+    assert "Who composed this opera?" in generated
+
+
+def test_cli_kilt2vqa_download_without_the_network(tmp_path, capsys,
+                                                  monkeypatch):
+    """``kilt2vqa download`` in both packages with the one network call
+    (``wiki.request``) replaced: the same shard of images written, a
+    failed file warned about and skipped, the same count printed."""
+    import types
+
+    from datasets import Dataset
+
+    import viquae_torch.data.wiki as twiki
+    import viquae_tpu.data.wiki as jwiki
+
+    def fake_request(url, session=None, **kwargs):
+        if "bad" in url:
+            raise RuntimeError(f"{url}: no egress")
+        return types.SimpleNamespace(content=url.encode())
+
+    for module in (twiki, jwiki):
+        monkeypatch.setattr(module, "request", fake_request)
+    items = [{"vq": [{"image": f"File {i}.jpg",
+                      "url": f"http://x/{'bad' if i == 3 else i}"}]}
+             for i in range(6)]
+    Dataset.from_list(items).save_to_disk(str(tmp_path / "vq"))
+    printed, files = {}, {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        root = tmp_path / f"images_{label}"
+        with pytest.warns(UserWarning, match="no egress"):
+            cli(["kilt2vqa", "download", tmp_path / "vq", "--save-root",
+                 root, "--num-shards", 2, "--shard-index", 1])
+        printed[label] = capsys.readouterr().out
+        files[label] = {f.name: f.read_bytes() for f in root.iterdir()}
+    assert printed["port"] == printed["jax"]
+    assert json.loads(printed["port"]) == {"downloaded": 2}
+    assert files["port"] == files["jax"] == {
+        "File_1.jpg": b"http://x/1", "File_5.jpg": b"http://x/5"}
+
+
+def test_cli_kilt2vqa_requires_its_inputs(tmp_path):
+    for argv, flag in ((["ned", "ds"], "--wikipedia"),
+                       (["count-entities", "ds"], "--output"),
+                       (["generate-vq", "ds"], "--entities")):
+        with pytest.raises(SystemExit, match=flag):
+            port(["kilt2vqa", *argv])
+
+
+@pytest.fixture(scope="module")
+def ner_dir(tmp_path_factory):
+    """tests/test_cli_aux.py's tiny HF BertForTokenClassification
+    directory (saved by HF, model.safetensors) with its tokenizer."""
+    from transformers import BertConfig as HFBertConfig
+    from transformers import BertForTokenClassification, BertTokenizerFast
+
+    root = tmp_path_factory.mktemp("ner")
+    torch.manual_seed(0)
+    id2label = {0: "O", 1: "B-PER", 2: "I-PER"}
+    hf_cfg = HFBertConfig(
+        vocab_size=40, hidden_size=16, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=32,
+        max_position_embeddings=32, num_labels=3, id2label=id2label,
+        label2id={v: k for k, v in id2label.items()})
+    model = BertForTokenClassification(hf_cfg).eval()
+    with torch.no_grad():  # label margins well above f32 reordering
+        model.classifier.weight.mul_(40.0)
+    mdir = root / "ner_model"
+    model.save_pretrained(mdir)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "who",
+             "married", "composed", "the", "opera", "carmen", "ada",
+             "lovelace", "?"] + [f"w{i}" for i in range(26)]
+    (mdir / "vocab.txt").write_text("\n".join(vocab))
+    BertTokenizerFast(vocab_file=str(mdir / "vocab.txt"),
+                      do_lower_case=True).save_pretrained(mdir)
+    return mdir
+
+
+@pytest.mark.parametrize("dtype", [None, "float32"],
+                         ids=["default_bf16", "f32"])
+def test_cli_kilt2vqa_ner_neural(ner_dir, tmp_path, capsys, dtype):
+    """``kilt2vqa ner`` with a ``neural`` block loads the HF directory into
+    the port's NeuralNER. In f32 the placeholders equal the JAX CLI's; at
+    the default bf16 compute the command runs as tests/test_cli_aux.py
+    asks (a placeholder column for both questions; bf16 labels are held to
+    JAX under the margin rule in tests/test_torch_ner.py)."""
+    from datasets import load_from_disk
+
+    neural = {"path": str(ner_dir), "max_length": 16, "batch_size": 2}
+    if dtype:
+        neural["compute_dtype"] = dtype
+    cfg = write(tmp_path / "ner_neural.json", {"neural": neural})
+    clis = (("jax", jax_cli), ("port", port)) if dtype else (("port", port),)
+    out = {}
+    for label, cli in clis:
+        d = _kilt_workspace(tmp_path / label)
+        cli(["kilt2vqa", "ner", d / "questions", "--output", d / "ner_out",
+             "--config", cfg])
+        assert json.loads(capsys.readouterr().out)["items"] == 2
+        out[label] = load_from_disk(str(d / "ner_out")).to_list()
+        assert "placeholder" in out[label][0]
+    if dtype:
+        assert out["port"] == out["jax"]
+        assert any(item["placeholder"] for item in out["port"])
 
 
 # --------------------------------------------------------------------------

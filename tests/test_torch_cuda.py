@@ -1285,3 +1285,206 @@ def test_train_step_enqueues_without_waiting_for_the_device(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert trainer.state.step == 3
+
+
+# --------------------------------------------------------------------------
+# auxiliary models: ViLT, BEM, neural NER, the ECA reader, the re-rankers
+# --------------------------------------------------------------------------
+def _rel(got, ref) -> float:
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    assert torch.isfinite(got).all()
+    return float((got - ref).abs().max()) / float(ref.abs().max())
+
+
+def _bert_cfg(**kw):
+    return tbert.BertConfig(**{**dict(
+        vocab_size=200, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=128,
+        max_position_embeddings=128), **kw})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_vilt_on_gpu_matches_cpu(cuda, dtype):
+    """ViLT at 2 layers, width 64, 64-px images of 16-px patches, a padded
+    text mask and two images with one masked: the card against the CPU,
+    f32 within 1e-4 of the output scale, bf16 compute within 2e-2 (the
+    patch step stays f32 on both)."""
+    from viquae_torch.models import vilt
+
+    cfg = vilt.ViltConfig(vocab_size=200, hidden_size=64, num_layers=2,
+                          num_heads=4, intermediate_size=128,
+                          image_size=64, patch_size=16)
+    cpu = vilt.reader_init(cfg, seed=0, device="cpu")
+    model = copy.deepcopy(cpu).to(cuda)
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 200, (6, 12), generator=gen)
+    mask = torch.ones((6, 12), dtype=torch.long)
+    mask[1, 7:] = 0
+    pix = torch.randn((6, 64, 64, 3), generator=gen)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    got = vilt.apply(model.vilt, cfg, ids.to(cuda), pix.to(cuda),
+                     attention_mask=mask.to(cuda), compute_dtype=dtype)
+    ref = vilt.apply(cpu.vilt, cfg, ids, pix, attention_mask=mask,
+                     compute_dtype=dtype)
+    for key in ("last_hidden_state", "pooler_output"):
+        assert _rel(got[key], ref[key]) <= tol, key
+    two = torch.randn((6, 2, 64, 64, 3), generator=gen)
+    pixel_mask = torch.tensor([[1, 0]] * 6)
+    got = vilt.apply(model.vilt, cfg, ids.to(cuda), two.to(cuda),
+                     pixel_mask=pixel_mask.to(cuda), compute_dtype=dtype)
+    ref = vilt.apply(cpu.vilt, cfg, ids, two, pixel_mask=pixel_mask,
+                     compute_dtype=dtype)
+    assert _rel(got["pooler_output"], ref["pooler_output"]) <= tol
+    start = torch.randint(1, 6, (2, 3, 2), generator=gen)
+    kw = dict(start_positions=start, end_positions=start + 1,
+              answer_mask=torch.ones((2, 3, 2), dtype=torch.long),
+              m_passages=3, compute_dtype=dtype)
+    got = vilt.multi_passage_vilt_apply(
+        model, cfg, ids.to(cuda), pix.to(cuda), attention_mask=mask.to(cuda),
+        **{k: v.to(cuda) if torch.is_tensor(v) else v for k, v in kw.items()})
+    ref = vilt.multi_passage_vilt_apply(cpu, cfg, ids, pix,
+                                        attention_mask=mask, **kw)
+    assert _rel(got.start_logits, ref.start_logits) <= tol
+    assert abs(float(got.loss) - float(ref.loss)) <= tol * abs(float(ref.loss))
+
+
+def _bert_vocab_tokenizer(tmp_path, n_words=150):
+    from transformers import BertTokenizerFast
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        f"w{i}" for i in range(n_words)]
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab))
+    return BertTokenizerFast(vocab_file=str(tmp_path / "vocab.txt"))
+
+
+def test_bem_scorer_on_gpu_matches_cpu(cuda, tmp_path):
+    """BEMScorer at 2 layers on the card and on the CPU, the same seeded
+    weights: probabilities within 1e-5, thresholded scores equal."""
+    from viquae_torch.models import bem
+
+    cfg = bem.BEMConfig(bert=_bert_cfg(type_vocab_size=3), max_length=64)
+    tok = _bert_vocab_tokenizer(tmp_path)
+    cpu = bem.init(cfg, seed=0, device="cpu")
+    on_card = bem.BEMScorer(cfg, copy.deepcopy(cpu), tok, max_length=64,
+                            device=cuda)
+    on_cpu = bem.BEMScorer(cfg, cpu, tok, max_length=64, device="cpu")
+    rng = np.random.default_rng(0)
+
+    def words(n):
+        return " ".join(f"w{j}" for j in rng.integers(0, 150, n))
+
+    examples = [{"question": words(8), "reference": words(3),
+                 "candidate": words(2)} for _ in range(16)]
+    got, ref = on_card.score(examples), on_cpu.score(examples)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    far = np.abs(ref - 0.5) > 1e-5
+    assert ((got >= 0.5) == (ref >= 0.5))[far].all()
+
+
+def test_neural_ner_on_gpu_matches_cpu(cuda, tmp_path):
+    """NeuralNER at 2 layers on the card against the CPU: f32 labels
+    equal everywhere; bf16 logits within 2e-2 of the scale and labels
+    equal wherever the CPU's top-2 margin exceeds twice that (the margin
+    rule); a last batch that needs padding."""
+    from viquae_torch.models import ner
+
+    cfg = ner.NERConfig(bert=_bert_cfg(add_pooler=False), num_labels=5,
+                        id2label=("O", "B-PER", "I-PER", "B-LOC", "I-LOC"))
+    tok = _bert_vocab_tokenizer(tmp_path)
+    cpu = ner.init(cfg, seed=0, device="cpu")
+    with torch.no_grad():  # spread the label margins
+        cpu.classifier.weight.mul_(20.0)
+    rng = np.random.default_rng(1)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 150, n))
+             for n in rng.integers(3, 20, 13)]
+    for dtype in (torch.float32, torch.bfloat16):
+        card = ner.NeuralNER(copy.deepcopy(cpu), cfg, tok, max_length=32,
+                             batch_size=4, compute_dtype=dtype, device=cuda)
+        host = ner.NeuralNER(cpu, cfg, tok, max_length=32, batch_size=4,
+                             compute_dtype=dtype, device="cpu")
+        if dtype == torch.float32:
+            assert card.predict_batch(texts) == host.predict_batch(texts)
+            continue
+        enc = tok(texts, padding="max_length", truncation=True,
+                  max_length=32, return_tensors="pt")
+        ids, mask = enc["input_ids"], enc["attention_mask"]
+        got = ner.apply(card._params, cfg, ids.to(cuda), mask.to(cuda),
+                        compute_dtype=dtype).cpu()
+        ref = ner.apply(cpu, cfg, ids, mask, compute_dtype=dtype)
+        assert _rel(got, ref) <= 2e-2
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 4e-2 * float(ref.abs().max())
+        assert float(clear.float().mean()) > 0.5
+        assert torch.equal(got.argmax(-1)[clear], ref.argmax(-1)[clear])
+
+
+def _mm_heads_case(dev_seed=0):
+    from viquae_torch.models import mm
+
+    cfg = mm.MMConfig(bert=_bert_cfg(add_pooler=False), n_faces=2,
+                      face_dim=16, image_dims=(("clip", 24),), gating=True)
+    rng = np.random.default_rng(dev_seed)
+    n, m, length = 2, 4, 24
+    b = n * m
+    mask = np.ones((b, length), np.int32)
+    mask[:, 20:] = 0
+    batch = {
+        "text_inputs": {
+            "input_ids": rng.integers(0, 200, (b, length)).astype(np.int64),
+            "attention_mask": mask},
+        "face_inputs": {
+            "face": rng.standard_normal((b, 1, 2, 16)).astype(np.float32),
+            "bbox": rng.standard_normal((b, 1, 2, 7)).astype(np.float32),
+            "attention_mask": (rng.random((b, 1, 2)) < 0.6).astype(
+                np.int32)},
+        "image_inputs": {"clip": {
+            "input": rng.standard_normal((b, 1, 24)).astype(np.float32),
+            "attention_mask": np.ones((b, 1), np.int32)}},
+    }
+    start = rng.integers(1, 18, (n, m, 2)).astype(np.int64)
+    answers = {"start_positions": start, "end_positions": start + 1,
+               "answer_mask": np.ones((n, m, 2), np.int64)}
+    return cfg, batch, answers, m
+
+
+def _open_gates(model):
+    from viquae_torch.models import mm
+
+    with torch.no_grad():
+        for i, mod in enumerate(model.modules()):
+            if isinstance(mod, mm.TanhGate):
+                mod.gate.fill_(0.5 + 0.1 * i)
+    return model
+
+
+def test_eca_reader_and_rerankers_on_gpu_match_cpu(cuda):
+    """MultiPassageECA and the ECA and Flamant re-rankers at 2 layers in
+    f32 on the card against the CPU, gates open: logits, log-probs and
+    the loss within 1e-4 of their scale."""
+    from viquae_torch.models import mm, qa, rr
+
+    cfg, batch, answers, m = _mm_heads_case()
+    args = (batch["text_inputs"], batch["face_inputs"], batch["image_inputs"])
+    reader = _open_gates(qa.eca_reader_init(cfg, seed=0, device="cpu"))
+    card = copy.deepcopy(reader).to(cuda)
+    got = qa.eca_reader_apply(card, cfg, *(_to(a, cuda) for a in args),
+                              **_to(answers, cuda), m_passages=m)
+    ref = qa.eca_reader_apply(reader, cfg, *(_to(a, "cpu") for a in args),
+                              **_to(answers, "cpu"), m_passages=m)
+    for field in ("start_logits", "end_logits", "start_log_probs",
+                  "end_log_probs"):
+        assert _rel(getattr(got, field), getattr(ref, field)) <= 1e-4, field
+    assert abs(float(got.loss) - float(ref.loss)) <= 1e-4 * abs(
+        float(ref.loss))
+    fcfg = mm.FlamantConfig(**{**cfg.__dict__,
+                               "image_num_attention_heads": 4,
+                               "image_intermediate_size": 128})
+    for init, apply, c in (
+            (rr.eca_reranker_init, rr.eca_reranker_apply, cfg),
+            (rr.flamant_reranker_init, rr.flamant_reranker_apply, fcfg)):
+        cpu = _open_gates(init(c, seed=1, device="cpu"))
+        card = copy.deepcopy(cpu).to(cuda)
+        got = apply(card, c, *(_to(a, cuda) for a in args)).logits
+        ref = apply(cpu, c, *(_to(a, "cpu") for a in args)).logits
+        assert got.shape == (8,) and _rel(got, ref) <= 1e-4

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it never imports JAX, the JAX package,
 ml_dtypes or JAX's training libraries (optax, orbax, flax); packages the GPU machine lacks (datasets, transformers, yaml,
-PIL, safetensors) are imported only inside the functions that need them;
+PIL, safetensors, requests) are imported only inside the functions that
+need them;
 and it owns a byte-identical copy of the native packer."""
 import ast
 import json
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "viquae_tpu", "ml_dtypes", "optax", "orbax",
              "flax")
 # imported only inside a function (the reference's runtime does the same):
 # importing every port module must load none of them
-LAZY_ONLY = ("datasets", "transformers", "yaml", "PIL", "safetensors")
+LAZY_ONLY = ("datasets", "transformers", "yaml", "PIL", "safetensors",
+             "requests")
 
 
 def _port_sources():
@@ -60,7 +62,9 @@ print(json.dumps({{"modules": names, "forbidden": bad}}))
                    "cli", "cli_aux", "core.prng", "models.rr",
                    "train.objectives", "train.optim", "train.prefetch",
                    "train.trainee", "train.trainer", "train.run",
-                   "train.save_ptm", "train.callbacks"):
+                   "train.save_ptm", "train.callbacks", "models.vilt",
+                   "models.bem", "models.ner", "data.evqa", "data.wiki",
+                   "data.kilt2vqa"):
         assert f"viquae_torch.{module}" in res["modules"]
 
 
@@ -246,3 +250,56 @@ def test_multimodal_and_cli_entry_points_refuse_to_fall_back_to_cpu(
         torch.device("cpu")
     bundle = mm.ECAEncoder(bert=bert, n_faces=0, device="cpu")
     assert next(bundle.params.parameters()).device == torch.device("cpu")
+
+
+def test_auxiliary_models_and_commands_refuse_to_fall_back_to_cpu(
+        monkeypatch, tmp_path):
+    """The auxiliary models' seeded inits, BEMScorer and NeuralNER resolve
+    their device as every entry point does, and so do the ``evqa`` and
+    ``kilt2vqa ner`` commands through the CLI's --device: with no GPU and
+    no device they raise and run nothing on the CPU."""
+    from viquae_torch.cli import parse_args
+    from viquae_torch.models import bem, bert, mm, ner, qa, rr, vilt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = bert.BertConfig(vocab_size=20, hidden_size=8,
+                           num_hidden_layers=1, num_attention_heads=2,
+                           intermediate_size=16, max_position_embeddings=16,
+                           type_vocab_size=3)
+    bem_cfg = bem.BEMConfig(bert=tiny, max_length=16)
+    ner_cfg = ner.NERConfig(bert=tiny, num_labels=3,
+                            id2label=("O", "B-PER", "I-PER"))
+    mm_cfg = mm.MMConfig(bert=tiny, n_faces=0, image_dims=(("clip", 4),))
+    vilt_cfg = vilt.ViltConfig(vocab_size=20, hidden_size=8, num_layers=1,
+                               num_heads=2, intermediate_size=16,
+                               image_size=32, patch_size=16)
+    cpu_bem = bem.init(bem_cfg, device="cpu")
+    cpu_ner = ner.init(ner_cfg, device="cpu")
+    for call in (lambda: vilt.init(vilt_cfg),
+                 lambda: vilt.reader_init(vilt_cfg),
+                 lambda: bem.init(bem_cfg),
+                 lambda: ner.init(ner_cfg),
+                 lambda: rr.eca_reranker_init(mm_cfg),
+                 lambda: qa.eca_reader_init(mm_cfg),
+                 lambda: bem.BEMScorer(bem_cfg, cpu_bem, tokenizer=object()),
+                 lambda: ner.NeuralNER(cpu_ner, ner_cfg, tokenizer=None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    for argv in (["evqa", "p.json", "r.json", "--scorer", "bem",
+                  "--config", "bem.json"],
+                 ["kilt2vqa", "ner", "ds", "--config", "ner.json"]):
+        with pytest.raises(SystemExit):
+            parse_args(argv)
+        assert parse_args(["--device", "cpu", *argv]).device == \
+            torch.device("cpu")
+    scorer = bem.BEMScorer(bem_cfg, cpu_bem, tokenizer=_Tok(), device="cpu")
+    assert scorer.device == next(scorer.params.parameters()).device == \
+        torch.device("cpu")
+
+
+class _Tok:
+    """The one tokenizer method BEMScorer's constructor calls."""
+
+    @staticmethod
+    def convert_tokens_to_ids(tokens):
+        return [2, 3]

@@ -137,3 +137,34 @@ def jax_layout(module, grads: bool = False) -> dict:
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         out[path] = a
     return out
+
+
+def flat_leaves(tree, prefix="") -> dict:
+    """{"/"-joined path: numpy array} of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(flat_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def perturbed(tree, seed: int = 0, scale: float = 0.05):
+    """A copy of a param tree (numpy leaves) with N(0, scale) added to
+    every leaf: zero biases, unit LayerNorm scales and zero gates of a
+    fresh init would hide a mis-mapped or dropped tensor."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        a = np.asarray(node, np.float32)
+        return (a + scale * rng.standard_normal(a.shape)).astype(np.float32)
+
+    return walk(tree)

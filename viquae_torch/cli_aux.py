@@ -9,10 +9,15 @@ viquae_tpu/cli_aux.py whose modules are ported):
   sentences  sentence-segment a text column
   face-box   UNITER-style scaled face-box features
   infoseek   the InfoSeek official evaluation
+  evqa       the Encyclopedic-VQA evaluation protocol (Exact Match, then
+             the BEM scorer for the misses)
+  kilt2vqa   the VQA generation pipeline (ner with the title gazetteer or
+             the neural NER model / ned / count-entities /
+             generate-mentions / generate-vq / labelstudio / download)
 
 The JAX package's other aux commands (data construction, annotation,
-viz, evqa) are registered and exit naming the ROADMAP item that
-ports them. Every command takes its device from the CLI's ``--device``.
+viz) are registered and exit naming the ROADMAP item that ports them.
+Every command takes its device from the CLI's ``--device``.
 """
 from __future__ import annotations
 
@@ -24,17 +29,196 @@ from viquae_torch.core.config import load_config
 # aux commands of the JAX package not ported yet: name -> (ROADMAP item,
 # help)
 NOT_PORTED = {
-    "kilt2vqa": ("A18", "VQA generation pipeline (ner/ned/mentions/vq)"),
     "wiki": ("A18", "Wikidata/Commons entity pipeline over a subset dir"),
     "wikidump": ("A18", "Commons dump -> per-entity image metadata"),
     "wit": ("A18", "WIT tsv -> MICT DatasetDict"),
     "labelstudio": ("A18", "annotation round-trip"),
     "mscelebs": ("A18", "MS-Celeb faces (entities/extract)"),
-    "evqa": ("A18", "Encyclopedic-VQA evaluation (EM/BEM; BEM is A15b)"),
     "html": ("A18", "render questions + results as HTML"),
     "plot": ("A18", "2-D projection of an embedding column"),
     "wtl-filter": ("A18", "filter a dataset on win/tie/loss vs a run"),
 }
+
+
+def _load_dataset(path):
+    from datasets import load_from_disk
+
+    return load_from_disk(str(path))
+
+
+def _save_dataset(dataset, args):
+    out = args.output or args.dataset
+    if args.output:
+        dataset.save_to_disk(str(out))
+    else:  # Arrow forbids overwriting the open source dir in place
+        from viquae_torch.ir.embedding import save_in_place
+
+        save_in_place(dataset, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kilt2vqa
+# ---------------------------------------------------------------------------
+def _build_ner_fn(config, device):
+    from viquae_torch.data import kilt2vqa
+
+    neural_spec = config.pop("neural", None)
+    if neural_spec is not None:
+        # model-based NER: an HF BertForTokenClassification dir (e.g. a
+        # CoNLL-03 checkpoint) read as its config and raw state dict and
+        # ported to models/ner.py on ``device``
+        from transformers import AutoConfig, AutoTokenizer
+
+        from viquae_torch.models import bert as bert_lib
+        from viquae_torch.models import ner as ner_lib
+
+        path = neural_spec.pop("path")
+        cfg = ner_lib.config_from_hf(AutoConfig.from_pretrained(path))
+        params = ner_lib.params_from_hf(bert_lib.load_hf_state_dict(path),
+                                        cfg, device=device)
+        tokenizer = AutoTokenizer.from_pretrained(
+            neural_spec.pop("tokenizer", path)
+        )
+        return ner_lib.NeuralNER(params, cfg, tokenizer, device=device,
+                                 **neural_spec)
+
+    titles_spec = config.pop("titles", None)
+    if titles_spec is None:
+        return kilt2vqa.capitalized_span_ner
+    titles_path = Path(str(titles_spec))
+    if titles_path.suffix == ".json":
+        titles = json.loads(titles_path.read_text())
+        if isinstance(titles, dict):  # e.g. title2index mappings
+            titles = list(titles)
+    else:
+        kb = _load_dataset(titles_path)
+        titles = kb[config.pop("title_key", "wikipedia_title")]
+    return kilt2vqa.GazetteerNER(titles, **config.pop("gazetteer", {}))
+
+
+def _require(value, flag, command):
+    if not value:
+        raise SystemExit(f"{command} requires {flag}")
+    return value
+
+
+def cmd_kilt2vqa(args):
+    from viquae_torch.data import kilt2vqa
+
+    config = load_config(args.config) if args.config else {}
+    sub = args.subcommand
+    if sub in ("labelstudio", "count-entities"):
+        _require(args.output, "--output", f"kilt2vqa {sub}")
+    if sub == "ned":
+        _require(args.wikipedia, "--wikipedia", "kilt2vqa ned")
+    if sub in ("generate-mentions", "generate-vq"):
+        _require(args.entities, "--entities", f"kilt2vqa {sub}")
+
+    if sub == "download":
+        dataset = _load_dataset(args.dataset)
+        n = kilt2vqa.download_images(
+            dataset, args.save_root or "images",
+            image_width=args.width,
+            num_shards=args.num_shards, shard_index=args.shard_index,
+        )
+        print(json.dumps({"downloaded": n}))
+        return
+
+    if sub == "labelstudio":
+        dataset = _load_dataset(args.dataset)
+        tasks = kilt2vqa.labelstudio_export(dataset, image_width=args.width)
+        Path(args.output).write_text(json.dumps(tasks, indent=1))
+        print(json.dumps({"tasks": len(tasks)}))
+        return
+
+    if sub == "count-entities":
+        dataset = _load_dataset(args.dataset)
+        entities = kilt2vqa.count_entities(
+            dataset, wer_threshold=args.wer_threshold
+        )
+        Path(args.output).write_text(json.dumps(entities, indent=1))
+        print(json.dumps({"entities": len(entities)}))
+        return
+
+    dataset = _load_dataset(args.dataset)
+    if sub == "ner":
+        ner_fn = _build_ner_fn(config, args.device)
+        dataset = dataset.map(
+            lambda item: kilt2vqa.item2placeholder(item, ner_fn=ner_fn)
+        )
+    elif sub == "ned":
+        wikipedia = _load_dataset(args.wikipedia)
+        wid2row = {
+            str(wid): i for i, wid in enumerate(wikipedia["wikipedia_id"])
+        }
+
+        def get_wikipedia_item(wid):
+            return wikipedia[wid2row[str(wid)]]
+
+        dataset = dataset.map(
+            lambda item: kilt2vqa.disambiguate(item, get_wikipedia_item)
+        )
+    elif sub == "generate-mentions":
+        entities = json.loads(Path(args.entities).read_text())
+        feminine = (
+            json.loads(Path(args.feminine).read_text())
+            if args.feminine else None
+        )
+        dataset = dataset.map(lambda item: kilt2vqa.generate_mention(
+            item, entities, wer_threshold=args.wer_threshold,
+            feminine_labels=feminine,
+        ))
+    elif sub == "generate-vq":
+        entities = json.loads(Path(args.entities).read_text())
+        dataset = dataset.map(lambda item: kilt2vqa.generate_vq(
+            item, entities, image_width=args.width
+        ))
+    else:  # pragma: no cover - argparse choices guard this
+        raise ValueError(f"unknown kilt2vqa subcommand {sub!r}")
+    out = _save_dataset(dataset, args)
+    print(json.dumps({"items": len(dataset), "saved": str(out)}))
+
+
+# ---------------------------------------------------------------------------
+# evqa
+# ---------------------------------------------------------------------------
+def cmd_evqa(args):
+    from viquae_torch.data import evqa
+
+    predictions = json.loads(Path(args.predictions).read_text())
+    references = json.loads(Path(args.references).read_text())
+    scoring = evqa.exact_match_scoring_function
+    if args.scorer == "bem":
+        from viquae_torch.models import bem
+        from viquae_torch.train.run import _build_tokenizer
+
+        config = load_config(args.config) if args.config else {}
+        bem_kwargs = dict(config.get("bem_config", {}))
+        if "bert_config" in bem_kwargs:  # nested BertConfig as a dict
+            from viquae_torch.models import bert as bert_lib
+
+            bem_kwargs["bert"] = bert_lib.BertConfig(
+                **bem_kwargs.pop("bert_config"))
+        cfg = bem.BEMConfig(**bem_kwargs)
+        tokenizer = _build_tokenizer(config["tokenizer"])
+        if config.get("params"):  # an export directory of either package
+            from viquae_torch.train.checkpoint import import_params
+
+            params = bem.from_jax(import_params(config["params"]), cfg,
+                                  device=args.device)
+        else:
+            params = bem.init(cfg, seed=config.get("seed", 0),
+                              device=args.device)
+        scorer = bem.BEMScorer(cfg=cfg, params=params, tokenizer=tokenizer,
+                               device=args.device, **config.get("scorer", {}))
+        bem_fn = evqa.initialize_bem_scoring_function(scorer=scorer)
+
+        # the official EVQA protocol: Exact Match first, BEM rescues misses
+        def scoring(example):
+            return evqa.encyclopedic_vqa_evaluation_function(example, bem_fn)
+    out = evqa.evaluate(predictions, references, scoring_function=scoring)
+    print(json.dumps(out))
 
 
 def cmd_save_ptm(args):
@@ -329,6 +513,31 @@ def register_aux(sub, add_config_arg, add_config_positional):
 
     for name, (item, help_text) in NOT_PORTED.items():
         add_stub(sub, name, item, help_text)
+
+    p = sub.add_parser(
+        "kilt2vqa", help="VQA generation pipeline (ner/ned/mentions/vq)")
+    p.add_argument("subcommand", choices=[
+        "ner", "ned", "count-entities", "generate-mentions", "generate-vq",
+        "labelstudio", "download",
+    ])
+    p.add_argument("dataset")
+    p.add_argument("--output")
+    p.add_argument("--config")
+    p.add_argument("--wikipedia", help="KILT wikipedia dataset dir (ned)")
+    p.add_argument("--entities", help="entities.json (mentions/vq)")
+    p.add_argument("--feminine", help="feminine_labels.json")
+    p.add_argument("--wer-threshold", type=float, default=0.5)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--save-root")
+    p.add_argument("--num-shards", type=int)
+    p.add_argument("--shard-index", type=int)
+    p.set_defaults(fn=cmd_kilt2vqa)
+
+    p = sub.add_parser("evqa", help="Encyclopedic-VQA evaluation (EM/BEM)")
+    p.add_argument("predictions"), p.add_argument("references")
+    p.add_argument("--scorer", choices=["em", "bem"], default="em")
+    p.add_argument("--config", help="BEM scorer config (bem)")
+    p.set_defaults(fn=cmd_evqa)
 
     p = sub.add_parser(
         "save-ptm", help="export a TrainState checkpoint as encoder dirs")

@@ -302,9 +302,26 @@ def params_to_hf_state_dict(params: Bert, cfg: BertConfig, prefix: str = ""
     return out
 
 
-def save_pretrained_hf(params: Bert, cfg: BertConfig, path):
+def load_hf_state_dict(path) -> Dict[str, torch.Tensor]:
+    """The raw state dict of an HF ``save_pretrained`` directory
+    (``pytorch_model.bin``, else ``model.safetensors``) on the CPU."""
+    import os
+
+    bin_path = os.path.join(str(path), "pytorch_model.bin")
+    if os.path.exists(bin_path):
+        return torch.load(bin_path, map_location="cpu", weights_only=True)
+    from safetensors.torch import load_file
+
+    return load_file(os.path.join(str(path), "model.safetensors"))
+
+
+def save_pretrained_hf(params: Bert, cfg: BertConfig, path, prefix: str = "",
+                       head: Optional[Dict[str, torch.Tensor]] = None,
+                       **hf_config_extra):
     """Write an HF-loadable BertModel dir (config.json +
-    pytorch_model.bin)."""
+    pytorch_model.bin). A task model's directory passes the encoder's
+    ``prefix`` ("bert."), its ``head`` tensors under their HF names and
+    its config entries (``architectures``, ``id2label``, ...)."""
     import json
     from pathlib import Path
 
@@ -324,8 +341,11 @@ def save_pretrained_hf(params: Bert, cfg: BertConfig, path):
         "layer_norm_eps": cfg.layer_norm_eps,
         "hidden_dropout_prob": cfg.hidden_dropout_prob,
         "attention_probs_dropout_prob": cfg.attention_probs_dropout_prob,
+        **hf_config_extra,
     }
     (path / "config.json").write_text(json.dumps(hf_config, indent=2))
-    torch.save(params_to_hf_state_dict(params, cfg),
-               path / "pytorch_model.bin")
+    tensors = params_to_hf_state_dict(params, cfg, prefix=prefix)
+    tensors.update({name: t.detach().to("cpu", torch.float32).contiguous()
+                    for name, t in (head or {}).items()})
+    torch.save(tensors, path / "pytorch_model.bin")
     return path

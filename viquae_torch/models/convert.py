@@ -11,11 +11,15 @@ the same for the reader tree (``bert``, ``qa_outputs``, ``score_proj_w/b``)
 and :class:`viquae_torch.models.qa.Reader`.
 
 :func:`state_dict_from_tree` and :func:`module_from_tree` do it for any tree whose
-modules are named as its keys (the image and face towers): a node with a
-``kernel`` becomes a ``weight`` (HWIO -> OIHW, (in, out) -> (out, in)), a
-batch-norm node (scale, bias, mean, var) becomes weight, bias,
+modules are named as its keys (the image and face towers, ViLT): a node
+with a ``kernel`` becomes a ``weight`` (HWIO -> OIHW, (in, out) -> (out,
+in)), a batch-norm node (scale, bias, mean, var) becomes weight, bias,
 running_mean, running_var, a layer-norm node (scale, bias) weight and
 bias, a PReLU node (alpha) weight; bare arrays keep their names.
+:func:`module_from_tree` maps the subtree of every :class:`Bert` the
+module holds by the BERT layout above (the multimodal encoders, the
+re-rankers, the ECA reader, BEM, NER), so one call carries any of the
+JAX package's trees across; :func:`tree_from_module` is its inverse.
 """
 from __future__ import annotations
 
@@ -80,17 +84,9 @@ def params_from_jax(tree: Dict[str, Any], cfg, device=None,
     ``device`` (default: the GPU) with every weight in ``dtype``. ``cfg`` is
     a BertConfig or a DPRConfig. The weights do not require grad."""
     cfg = _bert_cfg(cfg)
-    device = resolve_device(device)
-    sd = _state_dict_from_tree(tree, cfg)
     with torch.device("meta"):
         model = Bert(cfg)
-    if model.pooler is not None and "pooler.weight" not in sd:
-        model.pooler = None
-    model.load_state_dict(
-        {name: torch.from_numpy(np.array(a, order="C")).to(
-            device=device, dtype=dtype) for name, a in sd.items()},
-        strict=True, assign=True)
-    return model.requires_grad_(False).eval()
+    return load_module(model, _state_dict_from_tree(tree, cfg), device, dtype)
 
 
 def init_tree(cfg, seed: int = 0, stddev: float = 0.02) -> Dict[str, Any]:
@@ -213,20 +209,71 @@ def state_dict_from_tree(tree) -> Dict[str, np.ndarray]:
     return out
 
 
+def _without_none(tree):
+    if isinstance(tree, dict):
+        return {k: _without_none(v) for k, v in tree.items()
+                if v is not None}
+    return tree
+
+
+def _split_off(tree: Dict[str, Any], path: str):
+    """(the subtree at the "."-joined ``path``, the tree without it)."""
+    if not path:
+        return tree, {}
+    head, _, rest = path.partition(".")
+    sub, remaining = _split_off(tree[head], rest)
+    out = dict(tree)
+    if remaining:
+        out[head] = remaining
+    else:
+        del out[head]
+    return sub, out
+
+
+def load_module(module: nn.Module, tensors: Dict[str, Any], device,
+                dtype: torch.dtype = torch.float32) -> nn.Module:
+    """``module`` (built on the meta device) holding ``tensors`` (numpy
+    arrays or tensors under its state-dict names) on ``device`` (default:
+    the GPU) in ``dtype``; strict, so a name or a shape that disagrees
+    raises. A BERT pooler the tensors lack is dropped. The weights do not
+    require grad."""
+    device = resolve_device(device)
+    for name, mod in list(module.named_modules()):
+        prefix = f"{name}." if name else ""
+        if isinstance(mod, Bert) and mod.pooler is not None \
+                and f"{prefix}pooler.weight" not in tensors:
+            mod.pooler = None
+
+    def tensor(a):
+        if isinstance(a, np.ndarray):  # a copy: .npz leaves are read-only
+            a = np.array(a, order="C")
+        return torch.as_tensor(a).contiguous().to(device=device, dtype=dtype)
+
+    module.load_state_dict({name: tensor(a) for name, a in tensors.items()},
+                           strict=True, assign=True)
+    return module.requires_grad_(False).eval()
+
+
 def module_from_tree(module_cls, *args, tree, device=None,
                      dtype: torch.dtype = torch.float32) -> nn.Module:
     """``module_cls(*args)`` built on the meta device, with the JAX param
-    tree's tensors assigned on ``device`` (default: the GPU) in ``dtype``;
-    strict, so a tree and a module that disagree on a name or a shape
-    raise. The weights do not require grad."""
-    device = resolve_device(device)
+    tree's tensors assigned on ``device`` (default: the GPU) in ``dtype``
+    (:func:`load_module`). The subtree of each :class:`Bert` submodule
+    goes through the BERT layout, the rest through
+    :func:`state_dict_from_tree`; None leaves (an absent MoE term) are
+    dropped."""
     with torch.device("meta"):
         module = module_cls(*args)
-    sd = {name: torch.from_numpy(np.array(a, order="C")).to(
-        device=device, dtype=dtype)
-        for name, a in state_dict_from_tree(tree).items()}
-    module.load_state_dict(sd, strict=True, assign=True)
-    return module.requires_grad_(False).eval()
+    rest = _without_none(tree)
+    sd: Dict[str, np.ndarray] = {}
+    for name, mod in list(module.named_modules()):
+        if isinstance(mod, Bert):
+            sub, rest = _split_off(rest, name)
+            prefix = f"{name}." if name else ""
+            sd.update({prefix + k: a for k, a in
+                       _state_dict_from_tree(sub, mod.cfg).items()})
+    sd.update(state_dict_from_tree(rest))
+    return load_module(module, sd, device, dtype)
 
 
 # --------------------------------------------------------------------------

@@ -26,12 +26,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from viquae_torch.core.config import register as _register
-from viquae_torch.core.device import resolve_device
 from viquae_torch.models import bert
 from viquae_torch.models import layers as L
 from viquae_torch.models.outputs import ECAEncoderOutput, EncoderOutput
@@ -206,38 +204,16 @@ def init(module_cls, cfg: MMConfig, seed: int = 0, device=None) -> nn.Module:
     return model
 
 
-def _without_none(tree):
-    if isinstance(tree, dict):
-        return {k: _without_none(v) for k, v in tree.items()
-                if v is not None}
-    return tree
-
-
 def from_jax(module_cls, cfg: MMConfig, tree: Dict[str, Any], device=None,
              dtype: torch.dtype = torch.float32) -> nn.Module:
     """A JAX param tree of ``eca_init`` / ``ilf_init`` / ``flamant_init``
-    (numpy leaves) -> ``module_cls`` (:class:`ECA`, :class:`ILF` or
-    :class:`Flamant`) on ``device`` (default: the GPU) in ``dtype``;
+    (or of the re-rankers and the ECA reader built on them; numpy leaves)
+    -> ``module_cls`` on ``device`` (default: the GPU) in ``dtype``;
     strict on names and shapes."""
     from viquae_torch.models import convert
 
-    tree = _without_none(tree)
-    bert_key = "dpr_encoder" if module_cls is ILF else "bert"
-    sd = {f"{bert_key}.{name}": a for name, a in
-          convert._state_dict_from_tree(tree[bert_key], cfg.bert).items()}
-    sd.update(convert.state_dict_from_tree(
-        {k: v for k, v in tree.items() if k != bert_key}))
-    device = resolve_device(device)
-    with torch.device("meta"):
-        model = module_cls(cfg)
-    encoder = getattr(model, bert_key)
-    if encoder.pooler is not None and f"{bert_key}.pooler.weight" not in sd:
-        encoder.pooler = None
-    model.load_state_dict(
-        {name: torch.from_numpy(np.array(a, order="C")).to(
-            device=device, dtype=dtype) for name, a in sd.items()},
-        strict=True, assign=True)
-    return model.requires_grad_(False).eval()
+    return convert.module_from_tree(module_cls, cfg, tree=tree,
+                                    device=device, dtype=dtype)
 
 
 # --------------------------------------------------------------------------

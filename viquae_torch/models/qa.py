@@ -10,10 +10,14 @@ viquae_tpu/models/qa.py).
   (score_proj w/b). :func:`reader_apply_packed` runs the same model on a
   packed canvas at the pairs' real lengths.
 
+- :func:`eca_reader_apply` — MultiPassageECA: the same span head and
+  global softmax over the TEXT part of an ECA sequence (``mm.eca_apply``,
+  visual tokens appended after the text).
+
 :class:`Reader` holds the weights (``bert``, ``qa_outputs``,
-``score_proj_w``/``score_proj_b``), named as the JAX reader tree. The
-multimodal ECA reader and the mesh param spec are listed in ROADMAP.md
-(A15, A17).
+``score_proj_w``/``score_proj_b``), named as the JAX reader tree;
+:class:`ECAReader` ECA's weights plus ``qa_outputs``. The mesh param
+spec is listed in ROADMAP.md (A17).
 """
 from __future__ import annotations
 
@@ -27,9 +31,9 @@ import torch
 from torch import nn
 
 from viquae_torch.core.config import register as _register
-from viquae_torch.core.device import resolve_device
 from viquae_torch.models import bert
 from viquae_torch.models import layers as L
+from viquae_torch.models import mm
 from viquae_torch.models.outputs import ReaderOutput
 from viquae_torch.train.optim import multi_passage_rc_loss
 
@@ -76,20 +80,15 @@ def load_reader(cfg: ReaderConfig, tensors, device, dtype) -> Reader:
     """A :class:`Reader` on ``device`` holding ``tensors`` (its state-dict
     names) in ``dtype``; absent ``score_proj_*`` keep their identity
     initialisation. The weights do not require grad."""
-    device = resolve_device(device)
+    from viquae_torch.models.convert import load_module
+
     with torch.device("meta"):
         model = Reader(cfg)
-    if model.bert.pooler is not None and "bert.pooler.weight" not in tensors:
-        model.bert.pooler = None
     tensors = dict(tensors)
     if cfg.fuse_ir_score:
         tensors.setdefault("score_proj_w", torch.ones((1, 1)))
         tensors.setdefault("score_proj_b", torch.zeros((1,)))
-    model.load_state_dict(
-        {name: torch.as_tensor(t).contiguous().to(device=device, dtype=dtype)
-         for name, t in tensors.items()},
-        strict=True, assign=True)
-    return model.requires_grad_(False).eval()
+    return load_module(model, tensors, device, dtype)
 
 
 def params_from_hf(state_dict, cfg: ReaderConfig, prefix: str = "",
@@ -128,13 +127,7 @@ def params_from_pretrained_dir(path, cfg: Optional[ReaderConfig] = None,
             hf_cfg, add_pooler=False))
     # raw state-dict load: the fused variant's score_proj_w/b are
     # unexpected keys to HF's from_pretrained and would be dropped there
-    bin_path = os.path.join(str(path), "pytorch_model.bin")
-    if os.path.exists(bin_path):
-        sd = torch.load(bin_path, map_location="cpu", weights_only=True)
-    else:
-        from safetensors.torch import load_file
-
-        sd = load_file(os.path.join(str(path), "model.safetensors"))
+    sd = bert.load_hf_state_dict(path)
     return params_from_hf(sd, cfg, device=device, dtype=dtype), cfg
 
 
@@ -146,8 +139,10 @@ def _fuse_ir_score(params: Reader, passage_scores: torch.Tensor
             + params.score_proj_b.float())
 
 
-def _loss_and_output(start_logits, end_logits, start_positions,
-                     end_positions, answer_mask, m_passages) -> ReaderOutput:
+def reader_output(start_logits, end_logits, start_positions, end_positions,
+                  answer_mask, m_passages) -> ReaderOutput:
+    """The reader's output: logits, and with answer positions the global
+    multi-passage loss and log-probs (``multi_passage_rc_loss``)."""
     loss = start_lp = end_lp = None
     if start_positions is not None and end_positions is not None:
         nm = start_logits.shape[0]
@@ -200,8 +195,8 @@ def reader_apply(
         start_logits = start_logits + fused
         end_logits = end_logits + fused
 
-    return _loss_and_output(start_logits, end_logits, start_positions,
-                            end_positions, answer_mask, m_passages)
+    return reader_output(start_logits, end_logits, start_positions,
+                         end_positions, answer_mask, m_passages)
 
 
 def reader_apply_packed(
@@ -256,8 +251,52 @@ def reader_apply_packed(
         start_logits = (start_logits + fused).masked_fill(invalid, -1e30)
         end_logits = (end_logits + fused).masked_fill(invalid, -1e30)
 
-    return _loss_and_output(start_logits, end_logits, start_positions,
-                            end_positions, answer_mask, m_passages)
+    return reader_output(start_logits, end_logits, start_positions,
+                         end_positions, answer_mask, m_passages)
+
+
+class ECAReader(mm.ECA):
+    """MultiPassageECA's weights: ECA's plus the ``qa_outputs`` span
+    head."""
+
+    def __init__(self, cfg: mm.MMConfig, **factory):
+        super().__init__(cfg, **factory)
+        self.qa_outputs = L.dense_init(cfg.bert.hidden_size, 2, **factory)
+
+
+def eca_reader_init(mm_cfg: mm.MMConfig, seed: int = 0,
+                    device=None) -> ECAReader:
+    """Seeded random MultiPassageECA on ``device`` (default: the GPU),
+    gates at 0 (``mm.init``)."""
+    assert not mm_cfg.no_text, "no_text is only for IR"
+    return mm.init(ECAReader, mm_cfg, seed, device)
+
+
+def eca_reader_apply(
+    params: ECAReader,
+    mm_cfg: mm.MMConfig,
+    text_inputs,
+    face_inputs,
+    image_inputs=None,
+    start_positions: Optional[torch.Tensor] = None,  # (N*M, A) or (N, M, A)
+    end_positions: Optional[torch.Tensor] = None,
+    answer_mask: Optional[torch.Tensor] = None,
+    m_passages: int = 24,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
+    compute_dtype=torch.float32,
+) -> ReaderOutput:
+    """Span extraction over the TEXT portion of the ECA sequence with the
+    global multi-passage softmax: logits (N*M, Lt) for Lt =
+    ``text_inputs["input_ids"].shape[1]``."""
+    out = mm.eca_apply(params, mm_cfg, text_inputs, face_inputs,
+                       image_inputs, deterministic=deterministic,
+                       generator=generator, compute_dtype=compute_dtype)
+    lt = text_inputs["input_ids"].shape[1]
+    logits = L.dense(params.qa_outputs, out.last_hidden_state[:, :lt])
+    return reader_output(logits[..., 0], logits[..., 1], start_positions,
+                         end_positions, answer_mask,
+                         m_passages)._replace(moe_aux=out.moe_aux)
 
 
 def get_best_spans(

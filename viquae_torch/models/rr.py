@@ -1,11 +1,14 @@
-"""BERT cross-encoder re-ranker (counterpart of the BERT part of
-viquae_tpu/models/rr.py).
+"""Cross-encoder re-rankers (counterpart of viquae_tpu/models/rr.py).
 
-Scores a (question [SEP] passage) pair with one logit from its [CLS]
-representation; training reshapes the (N*M,) logits to (N, M) for the CE
-objective (train.objectives.reranker_loss). :class:`BertReRanker` holds
-the weights named as the JAX tree (``bert``, ``classifier``). The ECA and
-Flamant re-rankers are listed in ROADMAP.md (A15b).
+Each scores a (question [SEP] passage) pair with one logit; training
+reshapes the (N*M,) logits to (N, M) for the CE objective
+(train.objectives.reranker_loss). :class:`BertReRanker` reads the BERT
+[CLS] representation; :class:`ECAReRanker` and :class:`FlamantReRanker`
+read the pooled output of the ported multimodal encoders
+(``mm.eca_apply`` / ``mm.flamant_apply``, visual tokens included). Each
+holds its weights named as the JAX tree (the encoder's, plus
+``classifier``), so ``mm.from_jax`` / ``convert.module_from_tree`` load
+them.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from torch import nn
 
 from viquae_torch.models import bert
 from viquae_torch.models import layers as L
+from viquae_torch.models import mm
 from viquae_torch.models.outputs import ReRankerOutput
 
 
@@ -72,4 +76,59 @@ def bert_reranker_apply_packed(params: BertReRanker, cfg: BertReRankerConfig,
                      compute_dtype=compute_dtype)
     cls = out["last_hidden_state"][cls_rows.long(), cls_cols.long()]
     logits = L.dense(params.classifier, cls)
+    return ReRankerOutput(logits=logits[..., 0])
+
+
+# --------------------------------------------------------------------------
+# multimodal re-rankers
+# --------------------------------------------------------------------------
+class ECAReRanker(mm.ECA):
+    """ECA's weights plus the one-logit ``classifier``."""
+
+    def __init__(self, cfg: mm.MMConfig, **factory):
+        super().__init__(cfg, **factory)
+        self.classifier = L.dense_init(cfg.bert.hidden_size, 1, **factory)
+
+
+class FlamantReRanker(mm.Flamant):
+    """Flamant's weights plus the one-logit ``classifier``."""
+
+    def __init__(self, cfg: mm.FlamantConfig, **factory):
+        super().__init__(cfg, **factory)
+        self.classifier = L.dense_init(cfg.bert.hidden_size, 1, **factory)
+
+
+def eca_reranker_init(cfg: mm.MMConfig, seed: int = 0,
+                      device=None) -> ECAReRanker:
+    """Seeded random ECA re-ranker on ``device`` (default: the GPU), its
+    gates at 0 as the JAX init sets them (``mm.init``)."""
+    return mm.init(ECAReRanker, cfg, seed, device)
+
+
+def eca_reranker_apply(params: ECAReRanker, cfg: mm.MMConfig, text_inputs,
+                       face_inputs, image_inputs=None,
+                       deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None,
+                       compute_dtype=torch.float32) -> ReRankerOutput:
+    out = mm.eca_apply(params, cfg, text_inputs, face_inputs, image_inputs,
+                       deterministic=deterministic, generator=generator,
+                       compute_dtype=compute_dtype)
+    logits = L.dense(params.classifier, out.pooler_output)
+    return ReRankerOutput(logits=logits[..., 0], moe_aux=out.moe_aux)
+
+
+def flamant_reranker_init(cfg: mm.FlamantConfig, seed: int = 0,
+                          device=None) -> FlamantReRanker:
+    return mm.init(FlamantReRanker, cfg, seed, device)
+
+
+def flamant_reranker_apply(params: FlamantReRanker, cfg: mm.FlamantConfig,
+                           text_inputs, face_inputs, image_inputs=None,
+                           deterministic: bool = True, rng=None,
+                           compute_dtype=torch.float32) -> ReRankerOutput:
+    """Evaluation only, as ``mm.flamant_apply``."""
+    out = mm.flamant_apply(params, cfg, text_inputs, face_inputs,
+                           image_inputs, deterministic=deterministic,
+                           rng=rng, compute_dtype=compute_dtype)
+    logits = L.dense(params.classifier, out.pooler_output)
     return ReRankerOutput(logits=logits[..., 0])
