@@ -165,6 +165,32 @@ raises on failure:
    against the CPU (f32 within 1e-4 of the output scale, bf16 within
    2e-2, NER labels under the margin rule). No kernel is on these paths:
    B1's and B2's counts over the phase are printed (0).
+23. the IVF-Flat index (phase_ivf, after phase 7, on phase 5's KB on the
+   card): built at the reference's defaults (nlist 1,024, 64 training
+   points a list, 10 Lloyd iterations, max_list_factor 4) in f32 and in
+   bf16 storage, the build's seconds by stage, nlist after the skew
+   split, list_cap, list sizes, bytes held; phase 5's 1,257 questions at
+   nprobe 8 and 32 (CUDA events, median of 4) with recall@100 against
+   phase 5's exact top-100 (and the share of 256 KB rows that their own
+   search finds), beside B1's exact search ms; gates: 64 questions against a brute force over
+   their probed lists, on a 65,536-row slice full probe against the exact
+   plain search, the card against the CPU on one saved state, save/load
+   bit-equal, a traced search (core.profiling.trace) holding CUDA kernel
+   events;
+24. the Mixture-of-Experts BERT (phase_moe): DPR BERT-base with 8 experts,
+   top-2, every other layer, groups of 1,024 tokens, capacity factor 1.25
+   (GShard), seeded weights: the packed question encoder on phase 5's
+   1,257 questions in bf16 beside the dense encoder (CUDA events), the
+   share of choices dropped by capacity, the aux; the card against the
+   CPU at 2 layers (f32 within 1e-4 of the scale; bf16 within 2e-2 where
+   the routing agrees, the routing equal where the router's margin clears
+   two roundings); a biencoder with MoE towers (dropout off) at
+   configs/dpr_train.yaml's shapes with remat_layers: step ms over 5
+   steps, peak memory and the aux in the loss at capacity factor 1.25,
+   then the same towers at capacity factor 4 (nothing dropped), where the
+   loss must fall. Phases 23-24
+   run after phase 7 and reach no kernel: B1's and B2's counts over each
+   are printed (0).
 
 Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
 uploads staged through pinned memory and, for comparison, from pageable
@@ -212,11 +238,13 @@ from viquae_torch.ir.serving import (FusedRetrievalPipeline,
                                      HybridRetrievalPipeline,
                                      MultiIndexRetrievalPipeline)
 from viquae_torch.kernels import build as kbuild
-from viquae_torch.models import (arcface, bem, clip, convert, dpr, layers,
-                                 mm, mtcnn, ner, qa, resnet, rr, vilt)
+from viquae_torch.models import (arcface, bem, bert, clip, convert, dpr,
+                                 layers, mm, mtcnn, ner, qa, resnet, rr,
+                                 vilt)
 from viquae_torch.native.build import load_packer
 from viquae_torch.ops import bm25 as bm25_lib
-from viquae_torch.ops import bm25_device, mips, mips_fused, packing
+from viquae_torch.ops import bm25_device, ivf, mips, mips_fused, packing
+from viquae_torch.ops import moe as moe_lib
 from viquae_torch.ops.bm25_device import DeviceBM25
 from viquae_torch.ops.fusion import fuse_topk
 
@@ -910,7 +938,8 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
             "embedder": embedder, "queries": queries, "scores": scores,
             "ids": ids, "encoder_ms": breakdown["encoder_ms"],
             "stream_queries": stream_queries,
-            "stream_launches": stream_launches}
+            "stream_launches": stream_launches,
+            "search_ms": breakdown["search_ms"]}
 
 
 def phase_kernel_table(index, q, launches):
@@ -3278,12 +3307,14 @@ def reader_trainee(dev, tokenizer, layers_=12, seed=0):
                          m_passages=READER_M)
 
 
-def timed_training(trainee, batch, opt_kw, questions, label) -> dict:
+def timed_training(trainee, batch, opt_kw, questions, label,
+                   require_fall: bool = True) -> dict:
     """One warm-up step, then TRAIN_STEPS steps timed with CUDA events
     (log_every = TRAIN_STEPS: one host read in the timed run), through
     Trainer.fit on a step-indexed source that gives the same batch every
-    step; the deterministic loss on that batch before and after; peak
-    device memory over the steps."""
+    step; the deterministic loss on that batch before and after (which
+    must fall, with ``require_fall``); peak device memory over the
+    steps."""
     from viquae_torch.train import optim
     from viquae_torch.train.trainer import Trainer, TrainerConfig
 
@@ -3316,8 +3347,8 @@ def timed_training(trainee, batch, opt_kw, questions, label) -> dict:
     check(all(math.isfinite(v) for v in (loss_before, loss_after,
                                          result["train_loss_last_step"])),
           f"{label}: a loss is not finite: {result}")
-    check(loss_after < loss_before, f"{label}: the loss did not fall on "
-          f"the repeated batch: {result}")
+    check(loss_after < loss_before or not require_fall,
+          f"{label}: the loss did not fall on the repeated batch: {result}")
     result["trainer"] = trainer
     return result
 
@@ -4072,6 +4103,456 @@ def phase_auxiliary(dev, tokenizer, workdir) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 23: the IVF-Flat index over phase 5's KB
+# --------------------------------------------------------------------------
+IVF_NPROBES = (8, 32)
+IVF_CHECK_QUERIES = 64
+IVF_SLICE_ROWS = 65_536
+IVF_SLICE_QUERIES = 256
+IVF_OWN_ROWS = 256
+
+
+def timed_ivf_build(kb, **kwargs):
+    """``IVFFlatIndex(kb, **kwargs)`` on ``kb``'s device and its build's
+    seconds by stage: k-means++, the Lloyd iterations and the assignment
+    pass are each timed with the device synchronized around them; the rest
+    of the build (the host's draw of the training sample, the sort, the
+    skew split and the cluster-sorted copy) is ``sort_and_layout_s``."""
+    stages = {"kmeanspp_s": 0.0, "lloyd_s": 0.0, "assign_s": 0.0}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stages[name] += time.perf_counter() - t0
+            return res
+        return wrapper
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(ivf, "_kmeanspp_init",
+                           timed("kmeanspp_s", ivf._kmeanspp_init)), \
+            mock.patch.object(ivf, "_kmeans_fit",
+                              timed("lloyd_s", ivf._kmeans_fit)), \
+            mock.patch.object(ivf, "_assign_chunk",
+                              timed("assign_s", ivf._assign_chunk)):
+        index = ivf.IVFFlatIndex(kb, device=kb.device, **kwargs)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    sizes = index._st.sizes.float()
+    stages.update(sort_and_layout_s=total - sum(stages.values()),
+                  total_s=total, nlist=index.nlist, list_cap=index.list_cap,
+                  mean_list_size=float(sizes.mean()),
+                  max_list_size=int(sizes.max()),
+                  empty_lists=int((sizes == 0).sum()),
+                  index_bytes=index.nbytes())
+    return index, stages
+
+
+def recall_at(ids, ref_ids) -> float:
+    """Mean share of each reference row's ids found in the same row."""
+    return float(np.mean([len(np.intersect1d(a, b)) / len(b)
+                          for a, b in zip(ids, ref_ids)]))
+
+
+def probed_brute_force(index, q, nprobe, k):
+    """Per query: ``torch.matmul`` over exactly the rows of its probed
+    lists, then the finalize_topk tail (host loop, for the gate)."""
+    st = index._st
+    probed = ivf._probe(q, st.centroids, nprobe).cpu()
+    starts, sizes = st.starts.cpu(), st.sizes.cpu()
+    out_s, out_i = [], []
+    for r in range(q.shape[0]):
+        rows = torch.cat([torch.arange(int(starts[c]),
+                                       int(starts[c] + sizes[c]))
+                          for c in probed[r]]).to(q.device)
+        cand = torch.matmul(st.matrix[rows].float(), q[r])[None]
+        s, i = mips.finalize_topk(cand, st.ids[rows][None], k)
+        out_s.append(s)
+        out_i.append(i)
+    return torch.cat(out_s).cpu().numpy(), torch.cat(out_i).cpu().numpy()
+
+
+def f32_agreement(ids, scores, ref_ids, ref_scores, q, kb_absmax) -> dict:
+    """Two f32 top-k results of the same search summed in other orders
+    (host arrays), the f32 counterpart of tie_aware_agreement: scores
+    positionwise within the reordering bound of their dot products (2 g_d
+    |q|_1 max|kb|), so that ids may differ only between near-equal
+    scores; and no id kept by one side and not the other whose score
+    clears the row's k-th score by more than that bound."""
+    d = q.shape[1]
+    gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+    bound = 2 * gamma * np.abs(q).sum(1, keepdims=True) * kb_absmax
+    finite = np.isfinite(ref_scores)
+    diff = np.abs(np.where(finite, scores, 0.0)
+                  - np.where(finite, ref_scores, 0.0))
+    kth = np.where(np.isfinite(ref_scores[:, -1:]), ref_scores[:, -1:],
+                   -np.inf)
+    clear = 0
+    for r in range(len(ids)):
+        for side_ids, side_scores, other in ((ids[r], scores[r], ref_ids[r]),
+                                             (ref_ids[r], ref_scores[r],
+                                              ids[r])):
+            lone = ~np.isin(side_ids, other)
+            clear += int((side_scores[lone] - kth[r, 0] > bound[r, 0]).sum())
+    return {"id_agreement": float((ids == ref_ids).mean()),
+            "max_score_diff_over_bound": float((diff / bound).max()),
+            "ids_apart_clear_of_kth": clear,
+            "same_infinities": bool((np.isfinite(scores) == finite).all())}
+
+
+def f32_agreement_ok(agreement: dict, id_share: float = 0.999) -> bool:
+    return (agreement["id_agreement"] >= id_share
+            and agreement["max_score_diff_over_bound"] <= 1.0
+            and agreement["ids_apart_clear_of_kth"] == 0
+            and agreement["same_infinities"])
+
+
+def phase_ivf(dev, main) -> dict:
+    """Phase 23: IVFFlatIndex built on phase 5's KB (1.5M x 768 bf16 rows,
+    on the card) at the reference's defaults (nlist 1,024, 64 training
+    points a list, 10 Lloyd iterations, max_list_factor 4), f32 storage
+    and once bf16; search of phase 5's 1,257 question vectors at nprobe 8
+    and 32 (CUDA events, median of 4) with recall@100 against phase 5's
+    exact top-100, beside B1's exact search ms of the same run; the gates
+    of ROADMAP's A17a (brute force over the probed lists, full probe =
+    exact, card = CPU on one saved state, save/load bit-equal, a traced
+    search holding CUDA kernel events)."""
+    index, n_q = main["index"], N_QUERIES
+    kb = index.matrix[: index.n]
+    q = main["q"][:n_q].float()
+    out = {"kb_rows": index.n, "queries": n_q,
+           "b1_exact_search_ms": main["search_ms"]}
+    # KB rows as their own queries: is a row found in its own search?
+    gen = torch.Generator(device=dev).manual_seed(23)
+    own = torch.randint(0, index.n, (IVF_OWN_ROWS,), generator=gen,
+                        device=dev)
+    wall = {}
+    mark = time.perf_counter()
+
+    def lap(name):
+        nonlocal mark
+        now = time.perf_counter()
+        wall[name] = now - mark
+        mark = now
+
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        built, stages = timed_ivf_build(kb, dtype=dtype)
+        res = {"build": stages}
+        for nprobe in IVF_NPROBES:
+            s, i = built.search_batch(q, K, nprobe=nprobe, sync=False)
+            res[f"nprobe_{nprobe}"] = {
+                "search_ms": time_ms(lambda: built.search_batch(
+                    q, K, nprobe=nprobe, sync=False), reps=4),
+                "recall_at_100": recall_at(i.cpu().numpy(), main["ids"]),
+                "own_row_found": recall_at(
+                    built.search_batch(kb[own].float(), K,
+                                       nprobe=nprobe)[1],
+                    own.cpu().numpy()[:, None])}
+            check(bool(torch.isfinite(s[:, 0]).all()), f"ivf {label} scores")
+        out[label] = res
+        lap(f"{label}_build_and_search_s")
+        emit({"phase": f"ivf_{label}", **res,
+              "b1_exact_search_ms": main["search_ms"]})
+        if label == "f32":
+            nprobe = IVF_NPROBES[0]
+            qc = q[:IVF_CHECK_QUERIES]
+            s, i = built.search_batch(qc, K, nprobe=nprobe)
+            bs, bi = probed_brute_force(built, qc, nprobe, K)
+            agree = f32_agreement(i, s, bi, bs, qc.cpu().numpy(),
+                                  float(kb.abs().max()))
+            out["brute_force_over_probed_lists"] = agree
+            check(f32_agreement_ok(agree), f"ivf vs brute force: {agree}")
+            lap("brute_force_s")
+        del built
+        torch.cuda.empty_cache()
+
+    # ---- a 65,536-row slice: full probe, card vs CPU, save/load, trace ---
+    part = kb[:IVF_SLICE_ROWS]
+    q = q[:IVF_SLICE_QUERIES]
+    small = ivf.IVFFlatIndex(part, device=dev)
+    s, i = small.search_batch(q, K, nprobe=small.nlist)
+    es, ei = mips.topk_single(q, part.float(), K, mode="exact")
+    lap("slice_full_probe_s")
+    part_max = float(part.abs().max())
+    full = f32_agreement(i, s, ei.cpu().numpy(), es.cpu().numpy(),
+                         q.cpu().numpy(), part_max)
+    out["slice"] = {"rows": IVF_SLICE_ROWS, "queries": IVF_SLICE_QUERIES,
+                    "nlist": small.nlist,
+                    "list_cap": small.list_cap, "full_probe_vs_exact": full}
+    check(f32_agreement_ok(full), f"ivf full probe vs exact: {full}")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        small.save(f"{tmp}/ivf")
+        lap("slice_save_s")
+        again = ivf.IVFFlatIndex.load(f"{tmp}/ivf", device=dev)
+        on_cpu = ivf.IVFFlatIndex.load(f"{tmp}/ivf", device="cpu")
+    same = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+        dataclasses.astuple(small._st), dataclasses.astuple(again._st)))
+    s2, i2 = again.search_batch(q, K, nprobe=IVF_NPROBES[0])
+    s1, i1 = small.search_batch(q, K, nprobe=IVF_NPROBES[0])
+    same = same and np.array_equal(i1, i2) and np.array_equal(s1, s2)
+    out["slice"]["save_load_bit_equal"] = same
+    check(same, "ivf save/load round trip")
+    lap("slice_load_s")
+    cs, ci = on_cpu.search_batch(q.cpu(), K, nprobe=IVF_NPROBES[0])
+    lap("slice_cpu_search_s")
+    card_cpu = f32_agreement(i1, s1, ci, cs, q.cpu().numpy(), part_max)
+    out["slice"]["card_vs_cpu"] = card_cpu
+    check(f32_agreement_ok(card_cpu), f"ivf card vs cpu: {card_cpu}")
+    from viquae_torch.core.profiling import annotate, trace
+
+    import glob
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            with annotate("ivf_search"):
+                small.search_batch(q, K, nprobe=IVF_NPROBES[0])
+        files = glob.glob(f"{tmp}/*.pt.trace.json")
+        events = json.load(open(files[0]))["traceEvents"] if files else []
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    out["slice"]["trace"] = {"files": len(files), "cuda_kernel_events":
+                             kernels, "annotated": any(
+                                 e.get("name") == "ivf_search"
+                                 for e in events)}
+    check(kernels > 0, f"the traced ivf search holds no kernel event: "
+          f"{out['slice']['trace']}")
+    lap("trace_s")
+    out["wall_s"] = wall
+    emit({"phase": "ivf_slice", **out["slice"], "wall_s": wall})
+    del small, again, on_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 24: the Mixture-of-Experts BERT
+# --------------------------------------------------------------------------
+# GShard (arXiv:2006.16668): top-2 experts in every other FFN, tokens in
+# groups; capacity factor and group size are the reference's defaults
+MOE_BERT = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+                moe_every=2, moe_group_size=1024)
+MOE_CHECK_QUESTIONS = 64
+# 4 x 2 choices x 1,024 tokens / 8 experts = 1,024 slots an expert a
+# group: a token takes each expert at most once, so nothing is dropped
+MOE_AMPLE_CAPACITY = 4.0
+
+
+def moe_dpr_config(layers_: int = 12) -> dpr.DPRConfig:
+    return dpr.DPRConfig(bert=dataclasses.replace(
+        dpr.DPRConfig().bert, num_hidden_layers=layers_, **MOE_BERT))
+
+
+class RouteLog:
+    """Patches ``moe._route`` to record every MoE layer's routing: the
+    valid choices, the ones dropped by capacity, and (with ``keep``) each
+    call's expert ids, kept flags and router logits."""
+
+    def __init__(self, keep: bool = False):
+        self.keep, self.calls = keep, []
+        self.choices = self.dropped = 0
+
+    def __enter__(self):
+        orig = moe_lib._route
+
+        def wrapper(params, tokens, valid, top_k, capacity, n_groups, tg):
+            res = orig(params, tokens, valid, top_k, capacity, n_groups, tg)
+            slots = res[3]
+            n_slots = params["in"].weight.shape[0] * n_groups * capacity
+            v = valid[:, None].expand_as(slots)
+            self.choices += int(v.sum())
+            self.dropped += int(((slots == n_slots) & v).sum())
+            if self.keep:
+                logits = torch.matmul(tokens.float(),
+                                      params["router"].weight.float().T)
+                self.calls.append({"experts": res[2].cpu(),
+                                   "kept": (slots < n_slots).cpu(),
+                                   "logits": logits.cpu(),
+                                   "valid": valid.cpu()})
+            return res
+
+        self._patch = mock.patch.object(moe_lib, "_route", wrapper)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def moe_card_vs_cpu(dev, queries) -> dict:
+    """The MoE BERT at SMALL_DEPTH layers (layer 2 is the MoE one), same
+    weights on the card and the CPU, packed questions: in f32 the last
+    hidden states within AUX_F32_TOL of the scale; in bf16 the routing
+    equal wherever the router's top-k margin (the k-th logit over the
+    next) clears two roundings (2 AUX_BF16_TOL of the largest logit), and
+    the hidden states within AUX_BF16_TOL of the scale at the tokens whose
+    routing and kept slots agree."""
+    cfg = moe_dpr_config(SMALL_DEPTH)
+    tree = convert.init_tree(cfg, seed=25)
+    canvas = PackedTextEmbedder(
+        dpr.make_packed_apply(cfg), None, WhitespaceTokenizer(),
+        row_len=ROW_LEN, batch_size=MOE_CHECK_QUESTIONS,
+        device="cpu").pack(queries[:MOE_CHECK_QUESTIONS])
+    arrays = [torch.from_numpy(np.asarray(a).astype(np.int64)) for a in
+              (canvas.input_ids, canvas.segment_ids, canvas.position_ids)]
+    real = arrays[1] > 0
+    out = {"tokens": int(real.sum())}
+    runs = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for where in (dev, torch.device("cpu")):
+            model = convert.params_from_jax(tree, cfg, device=where)
+            ids, seg, pos = (a.to(where) for a in arrays)
+            with RouteLog(keep=True) as log, torch.no_grad():
+                res = bert.apply(model, cfg.bert, ids, position_ids=pos,
+                                 segment_ids=seg, compute_dtype=dtype)
+            runs[where.type] = (res["last_hidden_state"].float().cpu(),
+                                log.calls[0])
+        (h_card, r_card), (h_cpu, r_cpu) = runs[dev.type], runs["cpu"]
+        scale = float(h_cpu[real].abs().max())
+        if label == "f32":
+            err = float((h_card[real] - h_cpu[real]).abs().max()) / scale
+            out["f32_rel_to_scale"] = err
+            check(err <= AUX_F32_TOL, f"moe f32 card vs cpu: {err}")
+            continue
+        k = cfg.bert.moe_top_k
+        top = r_cpu["logits"].sort(dim=-1, descending=True).values
+        clear = (top[:, k - 1] - top[:, k]) > 2 * AUX_BF16_TOL * float(
+            r_cpu["logits"].abs().max())
+        valid = r_cpu["valid"]
+        same_experts = (r_card["experts"] == r_cpu["experts"]).all(1)
+        held = same_experts & (r_card["kept"] == r_cpu["kept"]).all(1)
+        flat_real = real.reshape(-1)
+        n = flat_real.shape[0]
+        held_tokens = (held[:n] & flat_real).reshape(real.shape)
+        err = float((h_card[held_tokens] - h_cpu[held_tokens]).abs().max()
+                    ) / scale
+        out.update(bf16_rel_to_scale=err,
+                   bf16_margin_clear_share=float(clear[valid].float().mean()),
+                   bf16_routing_equal_share=float(
+                       same_experts[valid].float().mean()),
+                   bf16_held_token_share=float(held_tokens.sum()) / float(
+                       real.sum()))
+        check(bool(same_experts[clear & valid].all()),
+              "moe bf16 routing where the margin clears two roundings")
+        check(err <= AUX_BF16_TOL, f"moe bf16 card vs cpu: {err}")
+    return out
+
+
+def phase_moe(dev, main) -> dict:
+    """Phase 24: DPR BERT-base with MoE FFNs (MOE_BERT: 8 experts, top-2,
+    every other layer, groups of 1,024 tokens, capacity factor 1.25),
+    seeded weights: the packed question encoder on phase 5's 1,257
+    questions in bf16 against phase 5's dense encoder on the same canvas
+    (CUDA events), the share of choices dropped by capacity and the aux;
+    the card against the CPU at 2 layers; then a biencoder with MoE towers
+    (dropout off) at configs/dpr_train.yaml's shapes with remat_layers:
+    step ms over TRAIN_STEPS, peak memory and the aux in the loss at the
+    config's capacity, the loss falling at MOE_AMPLE_CAPACITY."""
+    from viquae_torch.core.device import upload_batch
+    from viquae_torch.train import data as tdata
+    from viquae_torch.train.trainee import BiEncoderTrainee
+
+    cfg = moe_dpr_config()
+    queries = main["queries"]
+    model = convert.params_from_jax(convert.init_tree(cfg, seed=24), cfg,
+                                    device=dev, dtype=torch.bfloat16)
+    embedder = PackedTextEmbedder(dpr.make_packed_apply(cfg), model,
+                                  WhitespaceTokenizer(), row_len=ROW_LEN,
+                                  batch_size=BATCH,
+                                  compute_dtype=torch.bfloat16, device=dev)
+    canvas = embedder.upload(embedder.pack(queries[:BATCH]))
+    dense = main["embedder"]
+    dense_canvas = dense.upload(dense.pack(queries[:BATCH]))
+    with RouteLog() as log, torch.no_grad():
+        cls, aux = dpr.apply_packed(model, cfg, *canvas,
+                                    compute_dtype=torch.bfloat16,
+                                    return_aux=True)
+    check(bool(torch.isfinite(cls[:N_QUERIES]).all())
+          and math.isfinite(float(aux)), "moe encoder output")
+    out = {"config": MOE_BERT, "layers": cfg.bert.num_hidden_layers,
+           "questions": N_QUERIES,
+           "real_tokens": int((canvas[1] > 0).sum()),
+           "moe_forward_ms": time_ms(lambda: embedder.forward(*canvas),
+                                     reps=4),
+           "dense_forward_ms": time_ms(lambda: dense.forward(*dense_canvas),
+                                       reps=4),
+           "dropped_share": log.dropped / max(log.choices, 1),
+           "choices": log.choices, "aux": float(aux)}
+    emit({"phase": "moe_forward", **out})
+    del model, embedder, canvas
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = moe_card_vs_cpu(dev, queries)
+    emit({"phase": "moe_card_vs_cpu", **out["card_vs_cpu"]})
+
+    # ---- training: a biencoder with MoE towers, dpr_train.yaml shapes ----
+    import tempfile
+    from pathlib import Path
+
+    rng = np.random.default_rng(24)
+    kb, items = dpr_train_items(rng, DPR_TRAIN_QUESTIONS)
+    with tempfile.TemporaryDirectory() as tmp:
+        tokenizer = bert_vocab_tokenizer(Path(tmp) / "tok",
+                                         cfg.bert.vocab_size)
+    batch = tdata.BiEncoderCollator(
+        tokenizer, kb=kb, M=2, n_relevant_passages=1, search_key="BM25",
+        max_length=256, packed=True, seed=0).collate_fn(items)
+    # dropout off: the step's objective is then the loss the check reads.
+    # At capacity factor 1.25 a seeded router drops about a quarter of the
+    # choices, and a step that moves a token across an expert's capacity
+    # changes its output by a whole expert's: the loss is not smooth
+    # there, so it is reported, and the fall is checked on the same towers
+    # with ample capacity (MOE_AMPLE_CAPACITY: no choice dropped).
+    def moe_trainee(capacity_factor):
+        bcfg = dataclasses.replace(
+            cfg.bert, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0,
+            moe_capacity_factor=capacity_factor)
+        towers = [dpr.DPREncoder(cfg=dpr.DPRConfig(bert=bcfg), seed=s,
+                                 device=dev) for s in (0, 1)]
+        return towers, BiEncoderTrainee(*towers, remat_layers=True)
+
+    towers, trainee = moe_trainee(cfg.bert.moe_capacity_factor)
+    with torch.no_grad():
+        on_card = upload_batch(batch, dev)
+        loss, outputs = trainee.loss_fn(trainee.params, on_card,
+                                        deterministic=True)
+        loss0, _ = BiEncoderTrainee(*towers, moe_aux_weight=0.0).loss_fn(
+            trainee.params, on_card, deterministic=True)
+    aux_term = float(outputs["moe_aux"])
+    in_loss = abs(float(loss) - float(loss0) - aux_term) <= 1e-5 * abs(
+        float(loss))
+    check(aux_term > 0 and in_loss, f"the moe aux is not in the loss: "
+          f"{float(loss)} {float(loss0)} {aux_term}")
+    del on_card
+    res = timed_training(trainee, batch, DPR_TRAIN_OPT, DPR_TRAIN_QUESTIONS,
+                         "moe dpr remat", require_fall=False)
+    res.pop("trainer")
+    del trainee, towers
+    torch.cuda.empty_cache()
+    towers, trainee = moe_trainee(MOE_AMPLE_CAPACITY)
+    ample = timed_training(trainee, batch, DPR_TRAIN_OPT,
+                           DPR_TRAIN_QUESTIONS, "moe dpr remat, ample "
+                           "capacity")
+    ample.pop("trainer")
+    out["training"] = {"aux_term": aux_term, "aux_in_loss": in_loss,
+                       "real_tokens": {
+                           "question": canvas_tokens(batch[
+                               "question_inputs"]),
+                           "context": canvas_tokens(batch[
+                               "context_inputs"])}, **res,
+                       "ample_capacity": {"capacity_factor":
+                                          MOE_AMPLE_CAPACITY, **ample}}
+    emit({"phase": "moe_training", "config": "configs/dpr_train.yaml + "
+          "MOE_BERT, remat_layers, dropout 0", **out["training"]})
+    del trainee, towers, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4085,16 +4566,32 @@ def main() -> int:
     kernels = [phase_kernel_table(main_path["index"], main_path["q"],
                                   main_path["launches"])]
     kernels += phase_topk_pallas(dev, main_path, err_f32)
+    launches_by_path = {}
+    # phases 23-24 reach no kernel: their counts are read to show it
+    for name, run in (("ivf", lambda: phase_ivf(dev, main_path)),
+                      ("moe", lambda: phase_moe(dev, main_path))):
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        mips_fused.fused_score_segmax.launches = 0
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        launches_by_path[name] = {
+            "b1": mips_fused.fused_score_segmax_qmajor.launches,
+            "b2": mips_fused.fused_score_segmax.launches}
+        emit({"phase": f"{name}_seconds", "seconds":
+              time.perf_counter() - t0, "peak_memory_bytes":
+              torch.cuda.max_memory_allocated(), **launches_by_path[name]})
+        torch.cuda.empty_cache()
     phase_global_serve(dev, main_path)
     phase_streaming(dev, main_path)
     phase_late_fusion(dev, main_path)
     before_reader = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     shared = phase_reader_step(dev, main_path)
-    launches_by_path = {
+    launches_by_path.update({
         "exact_retrieval": main_path["launches"],
         "exact_retrieval_stream": main_path["stream_launches"],
-        **phase_answer_path(dev, main_path, shared)}
+        **phase_answer_path(dev, main_path, shared)})
     reader_peak = torch.cuda.max_memory_allocated()
     sparse = phase_bm25(dev)
     launches_by_path.update(phase_hybrid(dev, main_path, sparse))

@@ -3,7 +3,8 @@ against the JAX package's (``viquae_tpu.cli.main``) on the same configs
 and the same weights: the cases of tests/test_cli.py (all but training)
 and of tests/test_cli_aux.py for the aux commands the port runs,
 ``train`` (fit with checkpoints, resume and export; validate; test) and
-``save-ptm``, plus the stubs and the parsers.
+``save-ptm``, the host-only data, annotation and viz commands (``wiki``
+with its one network call replaced), plus the parsers.
 
 Weights: neither CLI draws them. Both load one export directory written
 by the JAX package's ``export_params`` (a tree drawn with numpy), or one
@@ -151,7 +152,7 @@ def both_answer(ws, tmp_path, config, capsys):
 
 
 # --------------------------------------------------------------------------
-# parsers, stubs, the device
+# parsers, the device
 # --------------------------------------------------------------------------
 def _commands(main, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -164,18 +165,6 @@ def _commands(main, capsys):
 def test_parsers_list_the_same_commands(capsys):
     ours, ref = _commands(tmain, capsys), _commands(jmain, capsys)
     assert ours == ref and len(ours) == 31
-
-
-STUBS = {"stats": "A18",
-         "wiki": "A18", "wikidump": "A18", "wit": "A18",
-         "labelstudio": "A18", "mscelebs": "A18",
-         "html": "A18", "plot": "A18", "wtl-filter": "A18"}
-
-
-@pytest.mark.parametrize("command", sorted(STUBS))
-def test_stubbed_commands_exit_naming_their_roadmap_item(command):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {STUBS[command]}"):
-        port([command, "fit", "some/dataset", "--output", "x"])
 
 
 def test_cli_refuses_the_cpu_unless_named(tmp_path, capsys):
@@ -1212,3 +1201,216 @@ def test_cli_train_test_reader_matches_jax(ws, train_ws, tmp_path, capsys):
         assert got == json.loads((tmp_path / "jax" / name).read_text()), name
     assert len(json.loads(
         (tmp_path / "port" / "predictions.json").read_text())) == 8
+
+
+# --------------------------------------------------------------------------
+# the host-only data, annotation and viz commands, through both CLIs
+# --------------------------------------------------------------------------
+def _ds(path, rows=None, columns=None):
+    from datasets import Dataset
+
+    ds = Dataset.from_list(rows) if rows is not None \
+        else Dataset.from_dict(columns)
+    ds.save_to_disk(str(path))
+    return path
+
+
+def _wiki_case(tmp, monkeypatch):
+    """``wiki feminine`` with ``wiki.request`` answering the SPARQL query
+    (no network), then ``filter`` and ``heuristics`` offline."""
+    import types
+
+    import viquae_torch.data.wiki as twiki
+    import viquae_tpu.data.wiki as jwiki
+
+    bindings = [{"entity": {"value": "http://www.wikidata.org/entity/Q33999"},
+                 "entity_female_label": {"value": "actress"}}]
+
+    def fake_request(url, session=None, **kwargs):
+        return types.SimpleNamespace(
+            json=lambda: {"results": {"bindings": bindings}})
+
+    for module in (twiki, jwiki):
+        monkeypatch.setattr(module, "request", fake_request)
+    human = "http://www.wikidata.org/entity/Q5"
+    entities = {
+        "Q1": {"instanceof": {human: {}}, "occupation": {
+            "http://www.wikidata.org/entity/Q33999": {}},
+            "dateofdeath": {"value": "1900-01-01T00:00:00Z"},
+            "titles": ["Ada"], "categories": ["Ada Lovelace"]},
+        "Q2": {"instanceof": {human: {}}, "titles": ["Bob"]},
+        "Q3": {"instanceof": {"http://www.wikidata.org/entity/Q515": {}},
+               "titles": ["Paris"]},
+    }
+
+    def steps(out):
+        subset = out / "subset"
+        subset.mkdir()
+        (subset / "entities.json").write_text(json.dumps(entities))
+        return [["wiki", "feminine", subset],
+                ["wiki", "filter", subset, "--deceased", 1950, "Q515"],
+                ["wiki", "heuristics", subset]]
+    return steps
+
+
+def _wikidump_case(tmp, monkeypatch):
+    (tmp / "dump.xml").write_text(
+        '<mediawiki xmlns="http://www.mediawiki.org/xml/export-0.10/">'
+        "<page><ns>6</ns><title>File:Ada.jpg</title><revision><text>\n"
+        "{{Information\n|description = Portrait of Ada\n}}\n"
+        "[[Category:Ada Lovelace]]\n</text></revision></page></mediawiki>")
+    (tmp / "cats.json").write_text(json.dumps(
+        {"Q7259": {"categories": ["Ada Lovelace"]}}))
+    return lambda out: [["wikidump", tmp / "dump.xml", tmp / "cats.json",
+                         out / "images.json"]]
+
+
+def _wit_case(tmp, monkeypatch):
+    import csv
+
+    rows = [{"language": "en", "page_title": f"Article{a}",
+             "section_title": f"S{s}", "image_url": f"http://x/i_{a}_{s}.jpg",
+             "context_section_description": f"text {a} {s}",
+             "caption_reference_description": f"cap {a} {s}"}
+            for a in range(10) for s in range(3)]
+    with open(tmp / "wit.tsv", "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]), delimiter="\t")
+        writer.writeheader()
+        writer.writerows(rows)
+    return lambda out: [["wit", tmp / "wit.tsv", out / "mict"]]
+
+
+def _labelstudio_case(tmp, monkeypatch):
+    keep = {"from_name": "discard", "value": {"choices": ["keep"]}}
+    drop = {"from_name": "discard", "value": {"choices": ["discard"]}}
+    (tmp / "a.json").write_text(json.dumps([
+        {"id": 1, "data": {"question": "q1", "answer": "a1"},
+         "annotations": [{"result": [keep]}]}]))
+    (tmp / "b.json").write_text(json.dumps([
+        {"id": 1, "data": {"question": "q1", "answer": "a1"},
+         "annotations": [{"result": [keep]}]},
+        {"id": 2, "data": {"question": "q2", "answer": "a2"},
+         "annotations": [{"result": [drop]}]}]))
+    return lambda out: [
+        ["labelstudio", "merge", tmp / "a.json", tmp / "b.json",
+         "--output", out / "merged.json"],
+        ["labelstudio", "agreement", out / "merged.json"],
+        ["labelstudio", "vqa", out / "merged.json", "--output",
+         out / "vqa.json"],
+        ["labelstudio", "assign", out / "merged.json", "--n-annotators", 2,
+         "--overlap", 1, "--output", out / "assign.json"]]
+
+
+def _mscelebs_case(tmp, monkeypatch):
+    import base64
+
+    face = base64.b64encode(b"JPEGDATA")
+    (tmp / "faces.tsv").write_bytes(
+        b"m.0abc\timg1\t" + face + b"\nm.0def\timg2\t" + face + b"\n")
+    (tmp / "entities.json").write_text(json.dumps(
+        {"Q1": {"freebase": {"value": "/m/0abc"}}}))
+    return lambda out: [
+        ["mscelebs", "entities", tmp / "faces.tsv", "--mids",
+         tmp / "entities.json", "--output", out / "counts.json"],
+        ["mscelebs", "extract", tmp / "faces.tsv", "--mids",
+         tmp / "entities.json", "--save-root", out / "faces"]]
+
+
+def _html_case(tmp, monkeypatch):
+    _ds(tmp / "ds", rows=[
+        {"id": "q0", "input": "who is this?", "image": "im0.jpg",
+         "output": {"original_answer": "Ada"}},
+        {"id": "q1", "input": "what is that?", "image": "im1.jpg",
+         "output": {"original_answer": "Carmen"}}])
+    (tmp / "run.json").write_text(json.dumps(
+        {"q0": {"3": 2.0, "1": 1.0}, "q1": {"2": 5.0}}))
+    _ds(tmp / "passages", columns={"passage": [f"p{i}" for i in range(4)],
+                                   "index": list(range(4))})
+    return lambda out: [["html", tmp / "ds", out / "out.html", "--run",
+                         tmp / "run.json", "--passages", tmp / "passages",
+                         "--n", 2]]
+
+
+def _plot_case(tmp, monkeypatch):
+    rng = np.random.default_rng(0)
+    _ds(tmp / "ds", columns={
+        "embedding": rng.standard_normal((20, 8)).tolist(),
+        "label": ["a"] * 10 + ["b"] * 10})
+    return lambda out: [
+        ["plot", tmp / "ds", "embedding", "--labels", "label", "--method",
+         method, "--output", out / f"{method}.png"]
+        for method in ("pca", "umap")]
+
+
+def _wtl_filter_case(tmp, monkeypatch):
+    _ds(tmp / "ds", columns={"id": ["q0", "q1"], "input": ["a", "b"]})
+    (tmp / "qrels.json").write_text(json.dumps(
+        {"q0": {"d0": 1}, "q1": {"d1": 1}}))
+    (tmp / "run.json").write_text(json.dumps(
+        {"q0": {"d0": 2.0, "d9": 1.0}, "q1": {"d9": 2.0, "d1": 1.0}}))
+    return lambda out: [["wtl-filter", tmp / "ds", tmp / "qrels.json",
+                         tmp / "run.json", out / "filtered", "--filter",
+                         "win"]]
+
+
+def _stats_case(tmp, monkeypatch):
+    _ds(tmp / "ds", columns={"input": ["a b c", "d e", None],
+                             "faces": [[1, 2], [], None]})
+    return lambda out: [["stats", tmp / "ds"]]
+
+
+HOST_CASES = {"wiki": _wiki_case, "wikidump": _wikidump_case,
+              "wit": _wit_case, "labelstudio": _labelstudio_case,
+              "mscelebs": _mscelebs_case, "html": _html_case,
+              "plot": _plot_case, "wtl-filter": _wtl_filter_case,
+              "stats": _stats_case}
+
+
+def _written(out):
+    """Every file under ``out`` as bytes, except datasets saved to disk
+    (a split of a DatasetDict is one), which are compared by their rows:
+    their metadata holds fingerprints. A split saved with no rows has no
+    Arrow file to load and counts as empty."""
+    from datasets import Dataset
+
+    datasets, files = {}, {}
+    for root in sorted(p.parent for p in out.rglob("state.json")):
+        datasets[root] = (Dataset.load_from_disk(str(root)).to_dict()
+                          if any(root.glob("*.arrow")) else {})
+    for f in sorted(out.rglob("*")):
+        if f.is_file() and not any(f.is_relative_to(r) for r in datasets):
+            files[str(f.relative_to(out))] = f.read_bytes()
+    return files, {str(r.relative_to(out)): rows
+                   for r, rows in datasets.items()}
+
+
+@pytest.mark.parametrize("command", sorted(HOST_CASES))
+def test_host_commands_match_the_jax_cli(command, tmp_path, capsys,
+                                         monkeypatch):
+    """Each data-construction, annotation or viz command run through both
+    CLIs on the inputs of tests/test_cli_aux.py's case (``stats`` and
+    ``wiki`` on their own): the same lines printed (output paths aside)
+    and the same files written, byte for byte (datasets by their rows)."""
+    steps = HOST_CASES[command](tmp_path, monkeypatch)
+    printed, written = {}, {}
+    for label, cli in (("jax", jax_cli), ("port", port)):
+        out = tmp_path / label
+        out.mkdir()
+        lines = []
+        for argv in steps(out):
+            cli(argv)
+            lines.append(capsys.readouterr().out.replace(str(out), "OUT"))
+        printed[label], written[label] = lines, _written(out)
+    assert printed["port"] == printed["jax"]
+    assert written["port"] == written["jax"]
+    files, datasets = written["port"]
+    assert files or datasets or command == "stats"
+    if command == "stats":
+        assert json.loads(printed["port"][0])["n_items"] == 3
+    if command == "wtl-filter":
+        assert datasets["filtered"]["id"] == ["q0"]
+    if command == "wit":
+        assert {name.split("/")[-1] for name in datasets} == {
+            "train", "validation", "test"}
+        assert sum(len(next(iter(rows.values()), [])) for rows in
+                   datasets.values()) == 30

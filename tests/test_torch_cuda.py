@@ -1488,3 +1488,65 @@ def test_eca_reader_and_rerankers_on_gpu_match_cpu(cuda):
         got = apply(card, c, *(_to(a, cuda) for a in args)).logits
         ref = apply(cpu, c, *(_to(a, "cpu") for a in args)).logits
         assert got.shape == (8,) and _rel(got, ref) <= 1e-4
+
+
+def test_ivf_search_on_gpu_matches_cpu(cuda, tmp_path):
+    """IVFFlatIndex built on the card (a skewed KB: a split list whose
+    sublists share a centroid), saved, loaded on the CPU: the same ids
+    wherever the scores clear the row's k-th by the f32 reordering bound,
+    scores within it; f32 and bf16 storage; built on the card from a CUDA
+    tensor end to end."""
+    from viquae_torch.ops.ivf import IVFFlatIndex
+
+    rng = np.random.default_rng(3)
+    blob = rng.standard_normal((3000, 32)).astype(np.float32) * 0.05
+    far = rng.standard_normal((20, 32)).astype(np.float32) * 10.0
+    rest = (far[:, None] + 0.1 * rng.standard_normal((20, 100, 32))).astype(
+        np.float32).reshape(-1, 32)
+    kb = np.concatenate([blob, rest])
+    q = np.concatenate([blob[:20], rest[::97]]) + 0.01
+    for dtype in (torch.float32, torch.bfloat16):
+        card = IVFFlatIndex(torch.from_numpy(kb).to(cuda), nlist=16,
+                            max_list_factor=2.0, dtype=dtype, device=cuda)
+        assert card.nlist > 16 and card._st.matrix.device.type == cuda.type
+        card.save(tmp_path / "ivf")
+        host = IVFFlatIndex.load(tmp_path / "ivf", device="cpu", dtype=dtype)
+        for nprobe in (1, 3, card.nlist):
+            s, i = card.search_batch(q, k=10, nprobe=nprobe)
+            hs, hi = host.search_batch(q, k=10, nprobe=nprobe)
+            bound = 2 * 32 * 2.0 ** -24 * np.abs(q).sum(1, keepdims=True) \
+                * float(np.abs(kb).max()) * 1.01
+            assert (np.abs(s - hs) <= bound).all()
+            clear = (hs - hs[:, -1:]) > bound
+            assert (i[clear] == hi[clear]).all()
+
+
+def test_moe_bert_layer_on_gpu_matches_cpu(cuda):
+    """A MoE BERT (4 experts, every other layer, groups of 16 tokens) on
+    the card against the CPU: top-2 in f32, hidden states within 1e-4 of
+    the scale and the same aux; in bf16 every token takes all 4 experts
+    (no routing to flip between two roundings), within 2e-2."""
+    cfg = _bert_cfg(add_pooler=False)
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, moe_experts=4, moe_every=2,
+                              moe_group_size=16, moe_capacity_factor=2.0)
+    cpu = TL.seeded(tbert.Bert, cfg, seed=4, device="cpu", truncated=True)
+    TL.init_weights_(cpu, 4, linear_std=0.2, embed_std=0.2, truncated=True)
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (6, 12)))
+    mask = (torch.arange(12)[None] < torch.from_numpy(
+        rng.integers(3, 13, (6, 1)))).long()
+    for dtype, tol, top_k in ((torch.float32, 1e-4, 2),
+                              (torch.bfloat16, 2e-2, 4)):
+        run_cfg = dataclasses.replace(cfg, moe_top_k=top_k)
+        got = tbert.apply(card, run_cfg, ids.to(cuda), mask.to(cuda),
+                          compute_dtype=dtype)
+        ref = tbert.apply(cpu, run_cfg, ids, mask, compute_dtype=dtype)
+        real = mask.bool()
+        assert _rel(got["last_hidden_state"].cpu()[real],
+                    ref["last_hidden_state"][real]) <= tol
+        if dtype == torch.float32:
+            assert float(got["moe_aux"]) == pytest.approx(
+                float(ref["moe_aux"]), rel=1e-5)

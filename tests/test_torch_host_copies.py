@@ -12,7 +12,10 @@ TEXTUAL = ("data/utils", "data/sentencize", "data/loading", "data/infoseek",
            "train/metrics", "train/data", "train/prefetch", "ops/bm25",
            "ir/metrics", "ir/hp",
            "image/face_box", "image/resize", "interact/system",
-           "interact/__init__", "data/evqa", "data/wiki", "data/kilt2vqa")
+           "interact/__init__", "data/evqa", "data/wiki", "data/kilt2vqa",
+           "data/labelstudio", "data/mscelebs", "data/wikidump", "data/wit",
+           "viz/__init__", "viz/html", "viz/projection", "viz/stats",
+           "viz/umap", "viz/wtl_filter")
 # module -> the only lines (stripped) that the copy may add or drop
 DIFFERS = {
     "ir/fuse": {"import yaml"},

@@ -1,8 +1,8 @@
 """The retrieval runtime (viquae_torch/ir/search.py, ir/metrics.py,
 ir/fuse.py) against the JAX package's on the same KB and query batch: the
 same runs (ids equal, scores within 1e-5), qrels, metrics and files. The
-engines that are not ported refuse by name; the device BM25 scorer is built
-behind the BM25 seam."""
+IVF factories build the IVF index; the sharded BM25 scorer, not ported,
+refuses by name; the device BM25 scorer is built behind the BM25 seam."""
 import json
 
 import jax.numpy as jnp
@@ -353,8 +353,6 @@ def test_dense_and_bm25_indexes_save_and_load(setup, tmp_path):
 
 
 @pytest.mark.parametrize("index_kwargs,item", [
-    (dict(column="embedding", string_factory="IVF64,Flat"), "A17"),
-    (dict(column="embedding", string_factory="L2norm,IVF16,Flat"), "A17"),
     (dict(column="passage", kind="BM25", device="sharded"), "A17"),
 ])
 def test_engines_that_are_not_ported_refuse_by_name(setup, index_kwargs,
@@ -364,6 +362,30 @@ def test_engines_that_are_not_ported_refuse_by_name(setup, index_kwargs,
     with pytest.raises(NotImplementedError, match=item):
         t_search.KnowledgeBase(kb, device="cpu",
                                index_kwargs={"index": index_kwargs})
+
+
+@pytest.mark.parametrize("factory", ["IVF64,Flat", "L2norm,IVF16,Flat"])
+def test_ivf_factories_build_the_ivf_index_and_match_jax(setup, factory):
+    """The IVF string factories build ops/ivf.py's index behind the seam;
+    probing every list, the runs equal the JAX seam's."""
+    from viquae_torch.ops.ivf import IVFFlatIndex
+
+    kb, batch = setup
+    kwargs = dict(column="embedding", string_factory=factory, nprobe=64,
+                  seed=0)
+    port = t_search.KnowledgeBase(kb, device="cpu",
+                                  index_kwargs={"index": dict(kwargs)})
+    ref = j_search.KnowledgeBase(kb, index_kwargs={"index": dict(kwargs)})
+    backend = port.indexes["index"].backend
+    assert isinstance(backend, IVFFlatIndex)
+    assert backend.do_l2norm == port.indexes["index"].do_L2norm \
+        == ("L2norm" in factory)
+    queries = np.stack(batch["dense_query"])
+    s_t, i_t = port.search_batch("index", queries, k=5)
+    s_j, i_j = ref.search_batch("index", queries, k=5)
+    for a, b, x, y in zip(i_t, i_j, s_t, s_j):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        np.testing.assert_allclose(x, y, **SCORE_TOL)
 
 
 DEVICE_KWARGS = dict(n_head=8, l_small=32, l_mid=64, pool_mid=40,

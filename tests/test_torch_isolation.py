@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it never imports JAX, the JAX package,
 ml_dtypes or JAX's training libraries (optax, orbax, flax); packages the GPU machine lacks (datasets, transformers, yaml,
-PIL, safetensors, requests) are imported only inside the functions that
-need them;
+PIL, safetensors, requests, sklearn, matplotlib, scipy) are imported only
+inside the functions that need them;
 and it owns a byte-identical copy of the native packer."""
 import ast
 import json
@@ -21,7 +21,7 @@ FORBIDDEN = ("jax", "jaxlib", "viquae_tpu", "ml_dtypes", "optax", "orbax",
 # imported only inside a function (the reference's runtime does the same):
 # importing every port module must load none of them
 LAZY_ONLY = ("datasets", "transformers", "yaml", "PIL", "safetensors",
-             "requests")
+             "requests", "sklearn", "matplotlib", "scipy")
 
 
 def _port_sources():
@@ -64,7 +64,10 @@ print(json.dumps({{"modules": names, "forbidden": bad}}))
                    "train.trainee", "train.trainer", "train.run",
                    "train.save_ptm", "train.callbacks", "models.vilt",
                    "models.bem", "models.ner", "data.evqa", "data.wiki",
-                   "data.kilt2vqa"):
+                   "data.kilt2vqa", "ops.ivf", "ops.moe", "data.labelstudio",
+                   "data.mscelebs", "data.wikidump", "data.wit", "viz",
+                   "viz.html", "viz.projection", "viz.stats", "viz.umap",
+                   "viz.wtl_filter"):
         assert f"viquae_torch.{module}" in res["modules"]
 
 
@@ -295,6 +298,36 @@ def test_auxiliary_models_and_commands_refuse_to_fall_back_to_cpu(
     scorer = bem.BEMScorer(bem_cfg, cpu_bem, tokenizer=_Tok(), device="cpu")
     assert scorer.device == next(scorer.params.parameters()).device == \
         torch.device("cpu")
+
+
+def test_ivf_index_and_moe_encoders_refuse_to_fall_back_to_cpu(
+        monkeypatch, tmp_path):
+    """IVFFlatIndex (built or loaded) and a Mixture-of-Experts encoder
+    resolve their device as every entry point does: with no GPU and no
+    device they raise; named, the CPU runs them."""
+    import numpy as np
+
+    from viquae_torch.models import bert, dpr
+    from viquae_torch.ops.ivf import IVFFlatIndex
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kb = np.random.default_rng(0).standard_normal((64, 8)).astype(
+        np.float32)
+    moe = dpr.DPRConfig(bert=bert.BertConfig(
+        vocab_size=20, hidden_size=8, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=16,
+        max_position_embeddings=16, moe_experts=2, moe_every=2))
+    built = IVFFlatIndex(kb, nlist=4, device="cpu")
+    built.save(tmp_path / "ivf")
+    for call in (lambda: IVFFlatIndex(kb, nlist=4),
+                 lambda: IVFFlatIndex.load(tmp_path / "ivf"),
+                 lambda: dpr.DPREncoder(cfg=moe)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert IVFFlatIndex.load(tmp_path / "ivf", device="cpu").device == \
+        torch.device("cpu")
+    encoder = dpr.DPREncoder(cfg=moe, device="cpu")
+    assert "moe_aux" in encoder(torch.ones((1, 4), dtype=torch.long))
 
 
 class _Tok:

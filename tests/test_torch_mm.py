@@ -385,7 +385,7 @@ def test_registry_round_trip_through_an_export_dir(tmp_path, name):
 
 def test_evaluation_only_arguments_raise():
     """ECA and ILF train (dropout needs a CPU generator to draw its seeds
-    from); Flamant stays evaluation only; a MoE BERT names A17."""
+    from); Flamant stays evaluation only."""
     _, tcfg = cfgs()
     model = tmm.init(tmm.ECA, tcfg, seed=0, device="cpu")
     text, face, image = (tt(x) for x in inputs())
@@ -401,14 +401,39 @@ def test_evaluation_only_arguments_raise():
     with pytest.raises(NotImplementedError, match="evaluation"):
         tmm.flamant_apply(flamant, fcfg, text, face, image,
                           deterministic=False)
+
+
+@pytest.mark.parametrize("kind", ["eca", "ilf"])
+def test_moe_eca_and_ilf_match_jax(kind):
+    """A MoE BERT inside ECA / ILF (top-2 of 4 experts in every other
+    layer): the JAX tree converts, the pooled output equals the JAX
+    encoder's and the load-balance term is surfaced, equal to JAX's; the
+    registry bundle builds one."""
     import dataclasses
 
-    moe = dataclasses.replace(tcfg, bert=dataclasses.replace(
-        tcfg.bert, moe_experts=4))
-    with pytest.raises(NotImplementedError, match="A17"):
-        tmm.eca_apply(model, moe, text, face, image)
-    with pytest.raises(NotImplementedError, match="A17"):
-        tmm.ECAEncoder(cfg=moe, device="cpu")
+    jcfg, tcfg = cfgs(gating=True)
+    moe_kw = dict(moe_experts=4, moe_every=2, moe_capacity_factor=2.0)
+    jcfg = dataclasses.replace(jcfg, bert=dataclasses.replace(jcfg.bert,
+                                                              **moe_kw))
+    tcfg = dataclasses.replace(tcfg, bert=dataclasses.replace(tcfg.bert,
+                                                              **moe_kw))
+    init, apply, module = {
+        "eca": (jmm.eca_init, (jmm.eca_apply, tmm.eca_apply), tmm.ECA),
+        "ilf": (jmm.ilf_init, (jmm.ilf_apply, tmm.ilf_apply), tmm.ILF),
+    }[kind]
+    tree = set_gates(np_tree(init(jax.random.key(5), jcfg)))
+    assert "moe" in tree[{"eca": "bert", "ilf": "dpr_encoder"}[kind]][
+        "layers"][1]
+    text, face, image = inputs()
+    ref = apply[0](tree, jcfg, jx(text), jx(face), jx(image))
+    model = tmm.from_jax(module, tcfg, tree, device="cpu")
+    got = apply[1](model, tcfg, tt(text), tt(face), tt(image))
+    close(got.pooler_output, ref.pooler_output)
+    assert float(got.moe_aux) == pytest.approx(float(ref.moe_aux), rel=1e-5)
+    bundle = {"eca": tmm.ECAEncoder,
+              "ilf": tmm.IntermediateLinearFusion}[kind](cfg=tcfg,
+                                                         device="cpu")
+    assert any(".moe." in name for name in bundle.params.state_dict())
 
 
 # --------------------------------------------------------------------------

@@ -135,15 +135,36 @@ def test_eca_reader_matches_jax(gating):
     np.testing.assert_allclose(float(got.loss), float(ref.loss), rtol=1e-5)
 
 
-def test_eca_reader_refuses_no_text_and_moe():
+def test_eca_reader_refuses_no_text_and_runs_moe():
+    """no_text has no text span to read; a MoE BERT runs and its reader
+    output carries the load-balance term, equal to the JAX reader's on
+    the same tree."""
     _, tcfg = cfgs(no_text=True)
     with pytest.raises(AssertionError, match="no_text"):
         tqa.eca_reader_init(tcfg, device="cpu")
-    _, moe = cfgs()
-    moe = dataclasses.replace(moe, bert=dataclasses.replace(
-        moe.bert, moe_experts=2))
-    with pytest.raises(NotImplementedError, match="A17"):
-        tqa.eca_reader_init(moe, device="cpu")
+    jcfg, tcfg = cfgs(image_dims=(("clip", 10),))
+    jcfg = dataclasses.replace(jcfg, bert=dataclasses.replace(
+        jcfg.bert, moe_experts=2, moe_capacity_factor=2.0))
+    tcfg = dataclasses.replace(tcfg, bert=dataclasses.replace(
+        tcfg.bert, moe_experts=2, moe_capacity_factor=2.0))
+    tree = with_head(jqa.eca_reader_init(jax.random.key(3), jcfg),
+                     "qa_outputs", 3)
+    n, m, length, answers = 2, 2, 7, 2
+    text, face, image, start, end, answer_mask = _reader_batch(
+        n, m, length, answers)
+    ref = jqa.eca_reader_apply(
+        tree, jcfg, jx(text), jx(face), jx(image),
+        start_positions=jnp.asarray(start), end_positions=jnp.asarray(end),
+        answer_mask=jnp.asarray(answer_mask), m_passages=m)
+    model = tmm.from_jax(tqa.ECAReader, tcfg, tree, device="cpu")
+    got = tqa.eca_reader_apply(
+        model, tcfg, tt(text), tt(face), tt(image),
+        start_positions=torch.from_numpy(start),
+        end_positions=torch.from_numpy(end),
+        answer_mask=torch.from_numpy(answer_mask), m_passages=m)
+    close(got.start_logits, ref.start_logits)
+    np.testing.assert_allclose(float(got.loss), float(ref.loss), rtol=1e-5)
+    assert float(got.moe_aux) == pytest.approx(float(ref.moe_aux), rel=1e-5)
 
 
 @pytest.mark.parametrize("kind", ["eca_reranker", "flamant_reranker",

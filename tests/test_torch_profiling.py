@@ -1,0 +1,36 @@
+"""core/profiling.py's ``trace`` and ``annotate`` (the counterparts of
+the JAX package's XPlane trace and TraceAnnotation): a ``torch.profiler``
+trace of the block, written as a Chrome trace file into the directory,
+holding the annotated range and the ops run inside it. On the CPU the
+trace holds host events only; chip_smoke.py phase 23 checks that a traced
+search on the card holds CUDA kernel events."""
+import json
+
+import torch
+
+from viquae_torch.core import profiling
+
+torch.set_num_threads(2)
+
+
+def _events(log_dir):
+    files = sorted(log_dir.glob("*.pt.trace.json"))
+    assert len(files) == 1, files
+    return json.loads(files[0].read_text())["traceEvents"]
+
+
+def test_trace_writes_a_chrome_trace_with_the_annotated_range(tmp_path):
+    x = torch.randn(64, 64)
+    with profiling.trace(tmp_path / "trace") as prof:
+        with profiling.annotate("ivf_search"):
+            y = x @ x
+    assert prof is not None and y.shape == (64, 64)
+    events = _events(tmp_path / "trace")
+    names = {e.get("name") for e in events}
+    assert "ivf_search" in names
+    assert any(name and name.startswith("aten::mm") for name in names)
+
+
+def test_annotate_outside_a_trace_is_a_plain_range():
+    with profiling.annotate("outside"):
+        assert torch.ones(2).sum() == 2

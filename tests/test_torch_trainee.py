@@ -25,7 +25,7 @@ tolerance and |g| its smallest JAX gradient over the steps.
 
 The JAX tests that need the 8-device mesh (a sharded batch or
 ``param_spec``) have no counterpart here: sharded training is A17.
-``test_moe_biencoder_packed_training`` is: MoE towers raise by name (A17).
+The MoE trainees' parity runs are in test_torch_moe_trainee.py.
 """
 import json
 
@@ -303,7 +303,7 @@ def test_ict_eca_question_with_text_only_context(tokenizer):
     from viquae_torch.core.device import upload_batch
 
     tb = upload_batch(batch, torch.device("cpu"))
-    q, c = tt._encode_pair(tparams, tb, None, True)
+    q, c, _ = tt._encode_pair(tparams, tb, None, True)
     text = batch["context_inputs"]["text_inputs"]
     ref = jdpr.apply(jc.params, jc.cfg, text["input_ids"],
                      text["attention_mask"])["pooler_output"]
@@ -623,11 +623,44 @@ def test_reader_trainee_eval_fn_with_trainer(tokenizer):
     assert {k: metrics[k] for k in ref} == pytest.approx(ref)
 
 
-def test_moe_biencoder_packed_training():
-    """MoE towers are not ported: building one names A17."""
-    with pytest.raises(NotImplementedError, match="A17"):
-        tdpr.DPREncoder(cfg=tdpr.DPRConfig(bert=tbert.BertConfig(
-            **TINY, moe_experts=2)), device="cpu")
+def test_moe_biencoder_packed_training(tokenizer):
+    """MoE towers through the packed trainee path (tests/test_trainee.py's
+    case): with the aux weight zeroed, packed == padded loss (ample
+    capacity: per-token routing does not see the other pad-token sets);
+    with it on, the loss carries the term; equal to the JAX trainee on the
+    same weights."""
+    from viquae_torch.core.device import upload_batch
+
+    moe = dict(moe_experts=2, moe_capacity_factor=8.0)
+    tcfg = tdpr.DPRConfig(bert=tbert.BertConfig(**TINY, **moe))
+    jcfg = jdpr.DPRConfig(bert=jbert.BertConfig(**TINY, **moe))
+    towers = [tdpr.DPREncoder(cfg=tcfg, seed=s, device="cpu")
+              for s in (0, 1)]
+    jtowers = [jdpr.DPREncoder(cfg=jcfg, params=jtree(t.params))
+               for t in towers]
+    kb, items = kb_items()
+    b_packed, b_padded = (tdata.BiEncoderCollator(
+        tokenizer, kb=kb, M=2, max_length=16, seed=0,
+        packed=packed).collate_fn(items) for packed in (True, False))
+    cpu = torch.device("cpu")
+    be0 = ttrainee.BiEncoderTrainee(*towers, moe_aux_weight=0.0)
+    lp, op = be0.loss_fn(be0.params, upload_batch(b_packed, cpu),
+                         deterministic=True)
+    lu, _ = be0.loss_fn(be0.params, upload_batch(b_padded, cpu),
+                        deterministic=True)
+    assert float(lp) == pytest.approx(float(lu), rel=1e-5)
+    assert "moe_aux" in op
+    be = ttrainee.BiEncoderTrainee(*towers, moe_aux_weight=0.05)
+    lw, ow = be.loss_fn(be.params, upload_batch(b_packed, cpu),
+                        deterministic=True)
+    aux = float(ow["moe_aux"])
+    assert aux > 0.0
+    assert float(lw) == pytest.approx(float(lp) + aux, rel=1e-6)
+    jbe = jtrainee.BiEncoderTrainee(*jtowers, moe_aux_weight=0.05)
+    jl, jo = jbe.loss_fn(jbe.params, to_jax(b_packed), jax.random.key(0),
+                         deterministic=True)
+    assert float(lw) == pytest.approx(float(jl), rel=1e-5)
+    assert aux == pytest.approx(float(jo["moe_aux"]), rel=1e-5)
 
 
 def test_ilf_remat_through_trainee():

@@ -122,7 +122,8 @@ def randomize_batch_norm_(module, seed: int = 0):
 def jax_layout(module, grads: bool = False) -> dict:
     """{JAX path: f32 numpy array} of a port module's parameters (or of
     their ``.grad`` with ``grads``) in the JAX package's layouts (dense
-    kernels (in, out), convolution kernels HWIO), keyed as
+    kernels (in, out), convolution kernels HWIO, expert stacks as they
+    are), keyed as
     ``jax.tree_util`` paths of the JAX param tree, so a test can compare
     leaf by leaf."""
     from viquae_torch.models.convert import jax_paths
@@ -133,7 +134,7 @@ def jax_layout(module, grads: bool = False) -> dict:
         t = named[name].grad if grads else named[name]
         a = (np.zeros(tuple(named[name].shape), np.float32) if t is None
              else t.detach().cpu().float().numpy())
-        if path.endswith("kernel"):
+        if path.endswith("kernel") and a.ndim != 3:  # 3-D: expert stacks
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         out[path] = a
     return out

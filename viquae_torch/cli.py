@@ -14,13 +14,13 @@ package's CLI (the same files drive both):
   serve      streaming retrieval over a query file -> run JSON
   answer     retrieve -> read -> answers JSON
   fuse, hp   late-fusion fit/test, BM25 grid search
+  stats      dataset statistics
   train      config-driven training: fit (checkpoints, resume, export),
              validate, test (train/run.py)
 
 plus the aux commands of viquae_torch/cli_aux.py (server, interact,
-save-ptm, sentences, face-box, infoseek). ``stats`` and the remaining aux
-commands are registered and exit naming the ROADMAP item that ports
-them.
+save-ptm, sentences, face-box, infoseek, evqa, kilt2vqa, and the data
+construction, annotation and viz commands).
 
 ``--device`` names where everything a command builds lives; the default
 is the GPU (``core.device.resolve_device``), and without one the CLI
@@ -45,22 +45,6 @@ def _add_config_positional(p):
                    help="JSON/YAML kwargs-tree (also accepted as --config)")
     p.add_argument("--config", dest="config_opt", default=None,
                    help=argparse.SUPPRESS)
-
-
-def _not_ported(command: str, item: str):
-    def fn(args):
-        raise SystemExit(f"viquae_torch {command}: not ported yet "
-                         f"(ROADMAP.md {item})")
-    return fn
-
-
-def add_stub(sub, command: str, item: str, help_text: str):
-    """A registered command that exits naming the ROADMAP item porting it;
-    it accepts whatever arguments the JAX command takes."""
-    p = sub.add_parser(command, help=f"{help_text} [not ported: {item}]")
-    p.add_argument("rest", nargs=argparse.REMAINDER)
-    p.set_defaults(fn=_not_ported(command, item))
-    return p
 
 
 def _tokenizer(name):
@@ -595,7 +579,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--size", type=int, default=512)
     p.set_defaults(fn=cmd_resize)
 
-    add_stub(sub, "stats", "A18", "dataset statistics")
+    p = sub.add_parser("stats", help="dataset statistics")
+    p.add_argument("dataset")
+    p.set_defaults(fn=cmd_stats)
 
     p = sub.add_parser("train", help="config-driven training")
     p.add_argument("subcommand", choices=["fit", "validate", "test"])
@@ -610,6 +596,15 @@ def build_parser() -> argparse.ArgumentParser:
 
     register_aux(sub, _add_config_arg, _add_config_positional)
     return parser
+
+
+def cmd_stats(args):
+    from datasets import load_from_disk
+
+    from viquae_torch.viz.stats import dataset_stats
+
+    print(json.dumps(dataset_stats(load_from_disk(args.dataset)), indent=2,
+                     default=str))
 
 
 def cmd_train(args):

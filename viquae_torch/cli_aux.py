@@ -14,9 +14,16 @@ viquae_tpu/cli_aux.py whose modules are ported):
   kilt2vqa   the VQA generation pipeline (ner with the title gazetteer or
              the neural NER model / ned / count-entities /
              generate-mentions / generate-vq / labelstudio / download)
+  wiki       the Wikidata/Commons entity pipeline over a subset directory
+  wikidump   Commons dump -> per-entity image metadata
+  wit        WIT tsv -> MICT DatasetDict
+  labelstudio annotation round-trip (merge/agreement/assign/vqa)
+  mscelebs   MS-Celeb faces (entities/extract)
+  html       questions + results rendered as HTML
+  plot       2-D projection of an embedding column (umap/pca/tsne)
+  wtl-filter a dataset filtered on win/tie/loss against a run
 
-The JAX package's other aux commands (data construction, annotation,
-viz) are registered and exit naming the ROADMAP item that ports them.
+The data-construction, annotation and viz commands are host-only.
 Every command takes its device from the CLI's ``--device``.
 """
 from __future__ import annotations
@@ -25,20 +32,6 @@ import json
 from pathlib import Path
 
 from viquae_torch.core.config import load_config
-
-# aux commands of the JAX package not ported yet: name -> (ROADMAP item,
-# help)
-NOT_PORTED = {
-    "wiki": ("A18", "Wikidata/Commons entity pipeline over a subset dir"),
-    "wikidump": ("A18", "Commons dump -> per-entity image metadata"),
-    "wit": ("A18", "WIT tsv -> MICT DatasetDict"),
-    "labelstudio": ("A18", "annotation round-trip"),
-    "mscelebs": ("A18", "MS-Celeb faces (entities/extract)"),
-    "html": ("A18", "render questions + results as HTML"),
-    "plot": ("A18", "2-D projection of an embedding column"),
-    "wtl-filter": ("A18", "filter a dataset on win/tie/loss vs a run"),
-}
-
 
 def _load_dataset(path):
     from datasets import load_from_disk
@@ -508,11 +501,285 @@ def cmd_server(args):
             service.close()
 
 
-def register_aux(sub, add_config_arg, add_config_positional):
-    from viquae_torch.cli import add_stub
+# ---------------------------------------------------------------------------
+# data construction, annotation (host only)
+# ---------------------------------------------------------------------------
+def cmd_wikidump(args):
+    from viquae_torch.data import wikidump
 
-    for name, (item, help_text) in NOT_PORTED.items():
-        add_stub(sub, name, item, help_text)
+    mapping = json.loads(Path(args.categories).read_text())
+    if mapping and isinstance(next(iter(mapping.values())), dict):
+        # entities.json layout ({qid: {..., "categories": [...]}}) instead
+        # of a flat {category: qid} mapping
+        mapping = {
+            cat: qid
+            for qid, entity in mapping.items()
+            for cat in entity.get("categories", [])
+        }
+    images = wikidump.process_dump(args.dump, mapping)
+    Path(args.output).write_text(json.dumps(images, indent=1))
+    print(json.dumps({
+        "entities_with_images": len(images),
+        "images": sum(len(v) for v in images.values()),
+    }))
+
+
+def _read_class_csv(path) -> set:
+    """First column (a class URI) of a concrete/abstract_entities.csv
+    (header skipped — reference wiki.py:1022-1028)."""
+    lines = Path(path).read_text().split("\n")[1:]
+    return {line.split(",")[0] for line in lines if line}
+
+
+def cmd_wiki(args):
+    """Wikidata/Commons entity pipeline over a subset directory holding
+    the reference's file layout: entities.json, depictions.json,
+    feminine_labels.json, {n|all}_superclasses.json (parity
+    reference wiki.py:104-133 docopt CLI + :940-1042 dispatch). The live
+    actions need an egress-enabled host; heuristics/filter are offline."""
+    from viquae_torch.data import wiki
+
+    subset = Path(args.subset)
+    entities_path = subset / "entities.json"
+    depictions_path = subset / "depictions.json"
+    entities = json.loads(entities_path.read_text())
+    out_path = entities_path
+    action = args.action
+    if action == "entities":
+        output = wiki.update_from_data(entities, skip=args.skip)
+        output = wiki.set_reference_images(output)
+        wiki.print_stats(output)
+    elif action == "feminine":
+        output = wiki.query_feminine_labels(entities)
+        out_path = subset / "feminine_labels.json"
+    elif action == "depicted":
+        # attributes of every entity DEPICTED in the subset's images, then
+        # the prominence heuristic (result is entity-dependent, so it is
+        # saved into entities.json — reference wiki.py:976-990)
+        depictions = json.loads(depictions_path.read_text())
+        depicted = {wiki.uri_to_qid(uri): {"n_questions": 0}
+                    for uris in depictions.values() for uri in uris}
+        depicted = wiki.update_from_data(depicted)
+        depicted.update(entities)
+        output = wiki.depiction_instanceof_heuristic(depictions, depicted)
+        wiki.print_stats(output)
+    elif action == "superclasses":
+        output = wiki.query_superclasses(entities, n_levels=args.n)
+        out_path = subset / f"{args.n if args.n else 'all'}_superclasses.json"
+    elif action == "sparql-depicts":
+        output = wiki.update_from_commons_sparql(entities)
+        wiki.print_stats(output)
+    elif action == "sparql-depicted":
+        depictions = {wiki.uri_to_qid(uri): []
+                      for entity in entities.values()
+                      for uri in entity.get("depictions", {})}
+        output = wiki.query_depicted_entities(depictions)
+        out_path = depictions_path
+    elif action == "rest":
+        output = wiki.update_from_commons_rest(
+            entities, max_images=args.max_images,
+            max_categories=args.max_categories)
+        wiki.print_stats(output)
+    elif action == "heuristics":
+        heuristics = (set(args.heuristics) if args.heuristics
+                      else wiki.VALID_IMAGE_HEURISTICS)
+        output = wiki.image_heuristic(entities, heuristics)
+        wiki.print_stats(output)
+    elif action == "filter":
+        superclasses = {}
+        if args.superclass:
+            superclasses = json.loads(
+                (subset / f"{args.superclass}_superclasses.json").read_text())
+        if args.concrete:  # --positive: keep concrete classes + people
+            entities = wiki.keep_classes(
+                entities, _read_class_csv(args.concrete), superclasses)
+        to_exclude = {wiki.QID_URI_PREFIX + qid for qid in args.classes}
+        if args.abstract:  # --negative: drop abstract classes
+            to_exclude |= _read_class_csv(args.abstract)
+        if to_exclude:
+            entities = wiki.exclude_classes(entities, to_exclude,
+                                            superclasses)
+        if args.deceased is not None:
+            entities = wiki.remove_alive_humans(
+                entities, year_threshold=args.deceased)
+        output = entities
+        wiki.print_stats(output)
+    out_path.write_text(json.dumps(output))
+    print(f"saved {action} output to {out_path}")
+
+
+def _iter_wit_rows(paths):
+    import csv
+    import gzip
+    import sys
+
+    # WIT rows hold full article sections; the csv default (128k) rejects
+    # some of them
+    csv.field_size_limit(sys.maxsize)
+    for path in paths:
+        path = Path(path)
+        opener = gzip.open if path.suffix == ".gz" else open
+        with opener(path, "rt", encoding="utf-8", newline="") as f:
+            yield from csv.DictReader(f, delimiter="\t")
+
+
+def cmd_wit(args):
+    from viquae_torch.data import wit
+
+    paths = []
+    for spec in args.tsv:
+        p = Path(spec)
+        paths.extend(sorted(p.glob("*.tsv*")) if p.is_dir() else [p])
+    downloaded = None
+    if args.downloaded:
+        downloaded = set(
+            Path(args.downloaded).read_text().splitlines()
+        ) - {""}
+    out = wit.build_mict_dataset(
+        _iter_wit_rows(paths), output_path=args.output,
+        downloaded_images=downloaded, split=not args.no_split,
+        seed=args.seed,
+    )
+    sizes = (
+        {name: len(split) for name, split in out.items()}
+        if hasattr(out, "items") else {"all": len(out)}
+    )
+    print(json.dumps(sizes))
+
+
+def cmd_labelstudio(args):
+    from viquae_torch.data import labelstudio
+
+    if args.subcommand in ("merge", "assign", "vqa"):
+        _require(args.output, "--output", f"labelstudio {args.subcommand}")
+    if args.subcommand == "merge":
+        merged = labelstudio.merge_completions(args.paths)
+        Path(args.output).write_text(json.dumps(merged, indent=1))
+        print(json.dumps({"tasks": len(merged)}))
+    elif args.subcommand == "agreement":
+        # multiple exports merge first (agreement needs the per-task union
+        # of annotations; reading only paths[0] would silently compute it
+        # over a fraction of the annotators)
+        tasks = (labelstudio.merge_completions(args.paths)
+                 if len(args.paths) > 1
+                 else labelstudio.load_completions(args.paths[0]))
+        print(json.dumps(labelstudio.annotator_agreement(tasks)))
+    elif args.subcommand == "assign":
+        tasks = (labelstudio.merge_completions(args.paths)
+                 if len(args.paths) > 1
+                 else labelstudio.load_completions(args.paths[0]))
+        assignments = labelstudio.assign_annotations(
+            tasks, args.n_annotators, overlap=args.overlap
+        )
+        out = Path(args.output)
+        for i, chunk in enumerate(assignments):
+            target = out.with_name(f"{out.stem}_{i}{out.suffix or '.json'}")
+            target.write_text(json.dumps(chunk, indent=1))
+        print(json.dumps({
+            "annotators": len(assignments),
+            "tasks_each": [len(c) for c in assignments],
+        }))
+    else:  # vqa: annotated tasks -> final (question, answer, image) triples
+        tasks = (labelstudio.merge_completions(args.paths)
+                 if len(args.paths) > 1
+                 else labelstudio.load_completions(args.paths[0]))
+        vqa = [labelstudio.retrieve_vqa(t) for t in tasks]
+        vqa = [v for v in vqa if v is not None and not v["discard"]]
+        Path(args.output).write_text(json.dumps(vqa, indent=1))
+        print(json.dumps({"kept": len(vqa), "of": len(tasks)}))
+
+
+def _load_mids(path):
+    from viquae_torch.data import mscelebs
+
+    data = json.loads(Path(path).read_text())
+    if isinstance(data, list):
+        raw = data
+    else:  # entities.json: {qid: {"freebase": {"value": "/m/0xxx"}, ...}}
+        raw = []
+        for entity in data.values():
+            freebase = entity.get("freebase")
+            if isinstance(freebase, dict):
+                freebase = freebase.get("value")
+            if freebase:
+                raw.append(freebase)
+    return {
+        mscelebs.wikidata2freebase(m) if m.startswith("/m/") else m
+        for m in raw
+    }
+
+
+def cmd_mscelebs(args):
+    from viquae_torch.data import mscelebs
+
+    mids = _load_mids(args.mids) if args.mids else None
+    if args.subcommand == "entities":
+        if mids is None:
+            raise SystemExit("mscelebs entities requires --mids")
+        counts = mscelebs.count_entities(mids, args.tsv)
+        if args.output:
+            Path(args.output).write_text(json.dumps(counts, indent=1))
+        print(json.dumps({
+            "entities_with_faces": len(counts),
+            "faces": sum(counts.values()),
+        }))
+    else:  # extract
+        n = mscelebs.extract_faces(args.tsv, args.save_root, mids)
+        print(json.dumps({"extracted": n}))
+
+
+# ---------------------------------------------------------------------------
+# viz (host only)
+# ---------------------------------------------------------------------------
+def cmd_html(args):
+    from viquae_torch.rankeval import Run
+    from viquae_torch.viz.html import dataset_to_html
+
+    dataset = _load_dataset(args.dataset)
+    out = dataset_to_html(
+        dataset, args.output, n=args.n, width=args.width,
+        passages=_load_dataset(args.passages) if args.passages else None,
+        wiki=_load_dataset(args.wiki) if args.wiki else None,
+        search_run=Run.from_file(args.run) if args.run else None,
+        other_search_run=(
+            Run.from_file(args.other_run) if args.other_run else None
+        ),
+        image_root=args.image_root,
+    )
+    print(out)
+
+
+def cmd_plot(args):
+    from viquae_torch.viz.projection import dataset_plot
+
+    # without --output the Agg backend renders nothing and the figure is
+    # never saved — a silent no-op that used to print {"saved": null}
+    _require(args.output, "--output", "plot")
+    kwargs = load_config(args.config) if args.config else {}
+    dataset_plot(
+        args.dataset, args.column, label_column=args.labels,
+        output=args.output, method=args.method, **kwargs,
+    )
+    print(json.dumps({"saved": args.output, "method": args.method}))
+
+
+def cmd_wtl_filter(args):
+    from viquae_torch.rankeval import Qrels, Run
+    from viquae_torch.viz.wtl_filter import filter_dataset
+
+    dataset = _load_dataset(args.dataset)
+    filtered = filter_dataset(
+        dataset,
+        Qrels.from_file(args.qrels),
+        Run.from_file(args.run_a),
+        run_b=Run.from_file(args.run_b) if args.run_b else None,
+        filter=args.filter, k_a=args.k_a, k_b=args.k_b,
+    )
+    filtered.save_to_disk(str(args.output))
+    print(json.dumps({"kept": len(filtered), "of": len(dataset)}))
+
+
+def register_aux(sub, add_config_arg, add_config_positional):
 
     p = sub.add_parser(
         "kilt2vqa", help="VQA generation pipeline (ner/ned/mentions/vq)")
@@ -532,6 +799,94 @@ def register_aux(sub, add_config_arg, add_config_positional):
     p.add_argument("--num-shards", type=int)
     p.add_argument("--shard-index", type=int)
     p.set_defaults(fn=cmd_kilt2vqa)
+
+    p = sub.add_parser(
+        "wiki", help="Wikidata/Commons entity pipeline over a subset dir")
+    p.add_argument("action", choices=[
+        "entities", "feminine", "depicted", "superclasses",
+        "sparql-depicts", "sparql-depicted", "rest", "heuristics", "filter",
+    ])
+    p.add_argument("subset", help="directory holding entities.json (+ "
+                                  "depictions.json for depicted actions)")
+    p.add_argument("--skip", help="only query entities missing this "
+                                  "attribute (entities action resume)")
+    p.add_argument("--n", type=int, help="superclass levels (default all)")
+    p.add_argument("--max-images", type=int, default=1000)
+    p.add_argument("--max-categories", type=int, default=100)
+    p.add_argument("--heuristics", nargs="*",
+                   help="subset of {categories,description,depictions,title}")
+    p.add_argument("--superclass",
+                   help="superclass level used by filter (int or 'all'; "
+                        "reads {level}_superclasses.json from the subset)")
+    p.add_argument("--concrete",
+                   help="concrete_entities.csv -> positive filter")
+    p.add_argument("--abstract",
+                   help="abstract_entities.csv -> negative filter")
+    p.add_argument("--deceased", type=int,
+                   help="drop humans alive or deceased after this year")
+    p.add_argument("classes", nargs="*", default=[],
+                   help="extra QIDs to exclude (filter action)")
+    p.set_defaults(fn=cmd_wiki)
+
+    p = sub.add_parser(
+        "wikidump", help="Commons dump -> per-entity image metadata")
+    p.add_argument("dump"), p.add_argument("categories")
+    p.add_argument("output")
+    p.set_defaults(fn=cmd_wikidump)
+
+    p = sub.add_parser("wit", help="WIT tsv -> MICT DatasetDict")
+    p.add_argument("tsv", nargs="+", help="tsv(.gz) files or a directory")
+    p.add_argument("output")
+    p.add_argument("--downloaded", help="file of downloaded image names")
+    p.add_argument("--no-split", action="store_true")
+    p.add_argument("--seed", type=int, default=42)
+    p.set_defaults(fn=cmd_wit)
+
+    p = sub.add_parser(
+        "labelstudio", help="annotation round-trip (merge/agreement/"
+                            "assign/vqa)")
+    p.add_argument("subcommand",
+                   choices=["merge", "agreement", "assign", "vqa"])
+    p.add_argument("paths", nargs="+")
+    p.add_argument("--output")
+    p.add_argument("--n-annotators", type=int, default=2)
+    p.add_argument("--overlap", type=int, default=0)
+    p.set_defaults(fn=cmd_labelstudio)
+
+    p = sub.add_parser("mscelebs", help="MS-Celeb faces (entities/extract)")
+    p.add_argument("subcommand", choices=["entities", "extract"])
+    p.add_argument("tsv")
+    p.add_argument("--mids", help="JSON list of mids or entities.json")
+    p.add_argument("--save-root", default="faces")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_mscelebs)
+
+    p = sub.add_parser("html", help="render questions + results as HTML")
+    p.add_argument("dataset"), p.add_argument("output")
+    p.add_argument("--n", type=int)
+    p.add_argument("--width", type=int, default=400)
+    p.add_argument("--passages"), p.add_argument("--wiki")
+    p.add_argument("--run"), p.add_argument("--other-run")
+    p.add_argument("--image-root", default="")
+    p.set_defaults(fn=cmd_html)
+
+    p = sub.add_parser("plot", help="2-D projection of an embedding column")
+    p.add_argument("dataset"), p.add_argument("column")
+    p.add_argument("--labels"), p.add_argument("--output")
+    p.add_argument("--method", choices=["umap", "pca", "tsne"],
+                   default="umap")
+    p.add_argument("--config")
+    p.set_defaults(fn=cmd_plot)
+
+    p = sub.add_parser(
+        "wtl-filter", help="filter a dataset on win/tie/loss vs a run")
+    p.add_argument("dataset"), p.add_argument("qrels")
+    p.add_argument("run_a"), p.add_argument("output")
+    p.add_argument("--run-b")
+    p.add_argument("--filter", default="win")
+    p.add_argument("--k-a", type=int, default=1)
+    p.add_argument("--k-b", type=int, default=1)
+    p.set_defaults(fn=cmd_wtl_filter)
 
     p = sub.add_parser("evqa", help="Encyclopedic-VQA evaluation (EM/BEM)")
     p.add_argument("predictions"), p.add_argument("references")

@@ -1,14 +1,19 @@
-"""Named wall-clock stages (counterpart of viquae_tpu/core/profiling.py).
+"""Named wall-clock stages and device traces (counterpart of
+viquae_tpu/core/profiling.py).
 
 :class:`StageTimer` accumulates per-stage totals and counts into a report
 and can append each stage to a JSONL log. A stage given a CUDA tensor to
 sync on waits for the device first, so its time covers the device work and
-not only the enqueue.
+not only the enqueue. :func:`trace` records a ``torch.profiler`` trace of
+a block (host ops and, on a GPU, its CUDA kernels) into a directory;
+:func:`annotate` names a range inside it.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
+import platform
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -81,3 +86,28 @@ class StageTimer:
                 f"({row['count']}x, {row['mean_s'] * 1e3:.2f} ms/call)"
             )
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """A ``torch.profiler`` trace of everything inside the context (host
+    ops, and CUDA kernels when a GPU is present), written on exit to
+    ``log_dir/<host>.<pid>.pt.trace.json``: the Chrome trace format that
+    TensorBoard's profile plugin and Perfetto read. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(
+        log_dir / f"{platform.node()}.{os.getpid()}.pt.trace.json"))
+
+
+def annotate(name: str):
+    """A named range inside a trace (a ``record_function`` range: it shows
+    on the host timeline and over the kernels it launches)."""
+    return torch.profiler.record_function(name)

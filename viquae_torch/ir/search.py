@@ -6,7 +6,8 @@ Searcher :296-459, dataset_search :462-524) on one GPU:
 
 - FAISS flat indexes -> :class:`viquae_torch.ops.mips.DenseIndex` (KB matrix
   on the device) or :class:`~viquae_torch.ops.mips.StreamingDenseIndex`
-  (pinned host chunks streamed through it).
+  (pinned host chunks streamed through it); ``IVF{nlist},Flat`` factories
+  -> :class:`viquae_torch.ops.ivf.IVFFlatIndex`.
 - Elasticsearch/pyserini BM25 -> :class:`viquae_torch.ops.bm25.BM25Index`
   (in-repo inverted index, scored on the host) or, with ``device: true``,
   :class:`viquae_torch.ops.bm25_device.DeviceBM25` (scored on the card),
@@ -14,9 +15,8 @@ Searcher :296-459, dataset_search :462-524) on one GPU:
 - ranx -> :mod:`viquae_torch.rankeval`.
 
 Not ported yet, and refused by name rather than served by another engine:
-the ``IVF`` string factories (ROADMAP.md A17, ``ops/ivf.py``) and BM25 with
-``device: "sharded"`` (ROADMAP.md A17, the multi-GPU scorer). The
-mesh argument of the JAX classes is a ``device`` here.
+BM25 with ``device: "sharded"`` (ROADMAP.md A17b, the multi-GPU scorer).
+The mesh argument of the JAX classes is a ``device`` here.
 
 Kept behaviors: per-batch search over dataset columns, None-query masking,
 article->passage `index_mapping` expansion (one2many with 1e-8 rank-decay
@@ -147,12 +147,35 @@ class KnowledgeBase:
                 do_l2norm = "L2norm" in string_factory or explicit_l2
                 load_path = index_kwargs.pop("load_path", None)
                 save_path = index_kwargs.pop("save_path", None)
-                if re.search(r"IVF(\d+)", string_factory):
-                    raise NotImplementedError(
-                        f"string_factory {string_factory!r}: the inverted-"
-                        "file index (ops/ivf.py) is not ported yet "
-                        "(ROADMAP.md A17); a flat index would not be the "
-                        "engine the config names")
+                # "IVF{nlist},Flat" builds the inverted-file index
+                ivf_match = re.search(r"IVF(\d+)", string_factory)
+                if ivf_match:
+                    from viquae_torch.ops import ivf as ivf_lib
+
+                    index_kwargs.pop("mode", None)
+                    index_kwargs.pop("streaming", None)
+                    if load_path and (
+                        Path(str(load_path)).suffix == ".npz"
+                        and Path(str(load_path)).exists()
+                        or Path(str(load_path) + ".npz").exists()
+                    ):
+                        backend = ivf_lib.IVFFlatIndex.load(
+                            load_path, device=self.device, **index_kwargs)
+                    else:
+                        vectors = np.asarray(self.dataset[column],
+                                             dtype=np.float32)
+                        backend = ivf_lib.IVFFlatIndex(
+                            vectors, nlist=int(ivf_match.group(1)),
+                            do_l2norm=do_l2norm, device=self.device,
+                            **index_kwargs)
+                        if save_path:
+                            backend.save(save_path)
+                    self.indexes[index_name] = Index(
+                        key=key, kind=kind, do_L2norm=backend.do_l2norm,
+                        backend=backend, normalization=normalization,
+                        interpolation_weight=interpolation_weight,
+                    )
+                    return
                 # streaming: true -> host-RAM KB streamed through the GPU
                 # (KBs beyond device memory; ops.mips.StreamingDenseIndex)
                 streaming = index_kwargs.pop("streaming", False)
@@ -215,7 +238,7 @@ class KnowledgeBase:
                     raise NotImplementedError(
                         "BM25 with device='sharded': the multi-GPU scorer "
                         "(ShardedDeviceBM25) is not ported yet (ROADMAP.md "
-                        "A17); use device=True for one card")
+                        "A17b); use device=True for one card")
                 if load_path and Path(load_path).exists():
                     backend = bm25.BM25Index.load(load_path, **index_kwargs)
                 else:

@@ -2,12 +2,16 @@
 
 :class:`Bert` holds the weights in the JAX package's tree layout
 (``embeddings.{word,position,token_type,ln}``, ``layers[i].{attention.
-{q,k,v,o}, attention_ln, mlp.{in,out}, output_ln}``, ``pooler``) so that
-:func:`viquae_torch.models.convert.params_from_jax` maps names one to one;
-:func:`apply` is the forward. Dense FFN only (a MoE config raises,
-ROADMAP A17). Training arguments: ``deterministic`` (False turns dropout
-on at the config's rates, at the JAX package's four sites: embeddings,
-attention probabilities, attention output, FFN output), ``generator``
+{q,k,v,o}, attention_ln, mlp.{in,out} | moe.{router,in,out}, output_ln}``,
+``pooler``) so that :func:`viquae_torch.models.convert.params_from_jax`
+maps names one to one; :func:`apply` is the forward. With
+``moe_experts > 0`` every ``moe_every``-th layer's FFN is a
+Mixture-of-Experts block (ops/moe.py) whose tokens outside the attention
+mask (or canvas segment 0) claim no expert slot, and the forward returns
+the summed load-balance term (``moe_aux``). Training arguments:
+``deterministic`` (False turns dropout on at the config's rates, at the
+JAX package's four sites: embeddings, attention probabilities, attention
+output, FFN output), ``generator``
 (the CPU ``torch.Generator`` the dropout seeds are drawn from) and
 ``remat_layers`` (each layer under ``torch.utils.checkpoint``, its seeds
 drawn before it, so the recomputed masks are the same).
@@ -24,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from viquae_torch.models import layers as L
+from viquae_torch.ops import moe as moe_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,9 +45,14 @@ class BertConfig:
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.1
     add_pooler: bool = True
-    # the JAX package's Mixture-of-Experts FFN (ops/moe.py) is not ported:
-    # a config with moe_experts > 0 raises when its weights are built
+    # Mixture-of-Experts FFN (ops/moe.py): 0 = the dense HF-portable
+    # BERT; > 0 swaps the FFN of every moe_every-th layer for a block of
+    # moe_experts experts, routed in GShard groups of moe_group_size tokens
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_every: int = 1
+    moe_group_size: int = 1024
 
     @classmethod
     def from_hf(cls, hf_config, add_pooler: bool = True) -> "BertConfig":
@@ -64,16 +74,25 @@ class BertConfig:
         return cls(**values, add_pooler=add_pooler)
 
 
+def _is_moe_layer(cfg: BertConfig, i: int) -> bool:
+    return cfg.moe_experts > 0 and (i + 1) % cfg.moe_every == 0
+
+
+def _ffn_init(cfg: BertConfig, i: int, **factory) -> Dict[str, nn.Module]:
+    if _is_moe_layer(cfg, i):
+        return {"moe": moe_lib.moe_init(cfg.hidden_size,
+                                         cfg.intermediate_size,
+                                         cfg.moe_experts, **factory)}
+    return {"mlp": L.mlp_init(cfg.hidden_size, cfg.intermediate_size,
+                              **factory)}
+
+
 class Bert(nn.Module):
     """BERT weights in the JAX param-tree layout; ``forward`` is
     :func:`apply`."""
 
     def __init__(self, cfg: BertConfig, **factory):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "moe_experts > 0: the Mixture-of-Experts FFN is not ported "
-                "yet (ROADMAP.md A17)")
         self.cfg = cfg
         h = cfg.hidden_size
         self.embeddings = nn.ModuleDict({
@@ -88,11 +107,11 @@ class Bert(nn.Module):
                 "attention": L.mha_init(h, **factory),
                 "attention_ln": L.layer_norm_init(h, cfg.layer_norm_eps,
                                                   **factory),
-                "mlp": L.mlp_init(h, cfg.intermediate_size, **factory),
+                **_ffn_init(cfg, i, **factory),
                 "output_ln": L.layer_norm_init(h, cfg.layer_norm_eps,
                                                **factory),
             })
-            for _ in range(cfg.num_hidden_layers)
+            for i in range(cfg.num_hidden_layers)
         ])
         self.pooler = (L.dense_init(h, h, **factory) if cfg.add_pooler
                        else None)
@@ -128,18 +147,28 @@ def embed(
 
 def _layer_forward(layer: nn.ModuleDict, x, bias, cfg: BertConfig,
                    compute_dtype, seeds: Sequence[Optional[int]] = (
-                       None, None, None)):
+                       None, None, None), token_mask=None):
     """One post-LN transformer block; ``seeds`` = the dropout seeds of the
-    attention probabilities, the attention output and the FFN output."""
+    attention probabilities, the attention output and the FFN output.
+    Returns (y, moe_aux): moe_aux is None for a dense FFN. ``token_mask``
+    (B, L) keeps padding tokens out of MoE routing."""
     seed_a, seed_h, seed_b = seeds
     attn = L.mha(layer["attention"], x, bias=bias,
                  n_heads=cfg.num_attention_heads, compute_dtype=compute_dtype,
                  dropout_rate=cfg.attention_probs_dropout_prob, seed=seed_a)
     attn = L.dropout(attn, cfg.hidden_dropout_prob, seed_h)
     x = L.layer_norm(layer["attention_ln"], x + attn, cfg.layer_norm_eps)
-    ff = L.mlp(layer["mlp"], x, cfg.hidden_act, compute_dtype)
+    aux = None
+    if "moe" in layer:
+        ff, aux = moe_lib.moe_apply(
+            layer["moe"], x, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, act=cfg.hidden_act,
+            compute_dtype=compute_dtype, group_size=cfg.moe_group_size,
+            token_mask=token_mask)
+    else:
+        ff = L.mlp(layer["mlp"], x, cfg.hidden_act, compute_dtype)
     ff = L.dropout(ff, cfg.hidden_dropout_prob, seed_b)
-    return L.layer_norm(layer["output_ln"], x + ff, cfg.layer_norm_eps)
+    return L.layer_norm(layer["output_ln"], x + ff, cfg.layer_norm_eps), aux
 
 
 def encode(
@@ -153,38 +182,62 @@ def encode(
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
     remat_layers: bool = False,
+    return_moe_aux: bool = False,
 ):
     """Encoder stack over (B, L, D) hidden states. ``segment_ids`` (B, L),
     0 = padding: packed-canvas mode — attention is block-diagonal per
     segment, overriding ``attention_mask``. With ``output_hidden_states``
     returns (final, [embedding_out, layer1_out, ...]). ``remat_layers``
     recomputes each layer in the backward pass (per-layer gradient
-    checkpointing), so one layer's activations are live at a time."""
+    checkpointing), so one layer's activations are live at a time.
+
+    With ``return_moe_aux`` (MoE configs) the summed load-balance term of
+    the MoE layers is appended: (x[, hidden], aux). Training a MoE config
+    without asking for it raises: a loss without the balance term lets
+    the experts collapse."""
+    if cfg.moe_experts > 0 and not deterministic and not return_moe_aux:
+        raise ValueError(
+            "moe_experts > 0 in training mode requires return_moe_aux="
+            "True — add the load-balance aux to the loss (ops/moe.py)")
     b, l = hidden.shape[:2]
     if segment_ids is not None:
         bias = L.attention_bias_from_segments(segment_ids)
+        token_mask = segment_ids > 0  # canvas padding rows (segment 0)
     else:
         if attention_mask is None:
             attention_mask = torch.ones((b, l), device=hidden.device)
         bias = L.attention_bias_from_mask(attention_mask)
+        token_mask = attention_mask > 0
+    # padding tokens claim no MoE slot; dense layers ignore the mask
+    if cfg.moe_experts == 0:
+        token_mask = None
     # three independent dropout sites per layer; every seed is drawn here,
     # outside any checkpointed region
     seeds = L.dropout_seeds(generator, 3 * len(params.layers),
                             deterministic)
     x = hidden
     all_hidden = [x]
+    moe_aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i, layer in enumerate(params.layers):
         layer_seeds = tuple(seeds[3 * i: 3 * i + 3])
         if remat_layers and torch.is_grad_enabled():
-            x = checkpoint(_layer_forward, layer, x, bias, cfg,
-                           compute_dtype, layer_seeds, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(_layer_forward, layer, x, bias, cfg,
+                                compute_dtype, layer_seeds, token_mask,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = _layer_forward(layer, x, bias, cfg, compute_dtype,
-                               layer_seeds)
+            x, aux = _layer_forward(layer, x, bias, cfg, compute_dtype,
+                                    layer_seeds, token_mask)
+        if aux is not None:
+            moe_aux = moe_aux + aux
         if output_hidden_states:
             all_hidden.append(x)
-    return (x, all_hidden) if output_hidden_states else x
+    out = (x,)
+    if output_hidden_states:
+        out = out + (all_hidden,)
+    if return_moe_aux:
+        out = out + (moe_aux,)
+    return out if len(out) > 1 else out[0]
 
 
 def apply(
@@ -205,24 +258,31 @@ def apply(
 
     Returns {"last_hidden_state": (B, L, D) f32, "pooler_output": (B, D)?}
     and, with ``output_hidden_states``, "hidden_states": [embedding_out,
-    layer1_out, ...] (the per-layer seam of ``TextEmbedder(layers=...)``).
+    layer1_out, ...] (the per-layer seam of ``TextEmbedder(layers=...)``);
+    a MoE config adds "moe_aux", the summed load-balance term.
     With ``segment_ids`` pass the packer's ``position_ids`` too, so
     positions restart per segment.
     """
     (seed,) = L.dropout_seeds(generator, 1, deterministic)
     x = embed(params, cfg, input_ids, token_type_ids=token_type_ids,
               position_ids=position_ids, seed=seed)
+    moe = cfg.moe_experts > 0
     x = encode(params, cfg, x, attention_mask, compute_dtype=compute_dtype,
                segment_ids=segment_ids,
                output_hidden_states=output_hidden_states,
                deterministic=deterministic, generator=generator,
-               remat_layers=remat_layers)
-    hidden_states = None
+               remat_layers=remat_layers, return_moe_aux=moe)
+    hidden_states = moe_aux = None
+    if moe:
+        *x, moe_aux = x
+        x = x[0] if len(x) == 1 else tuple(x)
     if output_hidden_states:
         x, hidden_states = x
     out = {"last_hidden_state": x}
     if hidden_states is not None:
         out["hidden_states"] = hidden_states
+    if moe_aux is not None:
+        out["moe_aux"] = moe_aux
     if cfg.add_pooler and params.pooler is not None:
         out["pooler_output"] = torch.tanh(L.dense(params.pooler, x[:, 0]))
     return out
@@ -234,6 +294,11 @@ def state_dict_from_hf(state_dict, cfg: BertConfig, prefix: str = ""
     (counterpart of the JAX package's ``bert.params_from_hf``; both sides
     keep dense weights (out, in), so only the names change). ``prefix``
     strips a wrapper path (e.g. "bert.")."""
+    if cfg.moe_experts > 0:
+        raise ValueError(
+            "HF BertModel checkpoints are dense — port into a "
+            "moe_experts=0 config (MoE params have no HF counterpart)")
+
     def get(name):
         return torch.as_tensor(state_dict[prefix + name]).detach()
 
@@ -270,6 +335,10 @@ def params_to_hf_state_dict(params: Bert, cfg: BertConfig, prefix: str = ""
     """Inverse of :func:`state_dict_from_hf`: the weights as a torch
     ``BertModel`` state_dict on the CPU (the save_ptm contract: HF
     ``save_pretrained`` directories for downstream stages)."""
+    if cfg.moe_experts > 0:
+        raise ValueError(
+            "MoE configs are not HF-BertModel-exportable — the expert "
+            "stack has no state_dict counterpart")
     ours = params.state_dict()
     out = {}
 

@@ -31,7 +31,7 @@ from torch import nn
 
 from viquae_torch.core.device import resolve_device
 from viquae_torch.models import qa
-from viquae_torch.models.bert import Bert, BertConfig
+from viquae_torch.models.bert import Bert, BertConfig, _is_moe_layer
 
 
 def _bert_cfg(cfg) -> BertConfig:
@@ -64,14 +64,21 @@ def _state_dict_from_tree(tree: Dict[str, Any], cfg: BertConfig
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                          f"{cfg.num_hidden_layers}")
     for i, layer in enumerate(tree["layers"]):
-        if "mlp" not in layer:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (see ROADMAP.md)")
         for name in ("q", "k", "v", "o"):
             lin(f"layers.{i}.attention.{name}", layer["attention"][name])
         ln(f"layers.{i}.attention_ln", layer["attention_ln"])
-        lin(f"layers.{i}.mlp.in", layer["mlp"]["in"])
-        lin(f"layers.{i}.mlp.out", layer["mlp"]["out"])
+        if "moe" in layer:
+            # stacked experts keep the tree's (E, D, H) / (E, H, D) layout
+            moe = layer["moe"]
+            sd[f"layers.{i}.moe.router.weight"] = f32(
+                moe["router"]["kernel"]).T
+            for name in ("in", "out"):
+                sd[f"layers.{i}.moe.{name}.weight"] = f32(
+                    moe[name]["kernel"])
+                sd[f"layers.{i}.moe.{name}.bias"] = f32(moe[name]["bias"])
+        else:
+            lin(f"layers.{i}.mlp.in", layer["mlp"]["in"])
+            lin(f"layers.{i}.mlp.out", layer["mlp"]["out"])
         ln(f"layers.{i}.output_ln", layer["output_ln"])
     if cfg.add_pooler and "pooler" in tree:
         lin("pooler", tree["pooler"])
@@ -91,8 +98,9 @@ def params_from_jax(tree: Dict[str, Any], cfg, device=None,
 
 def init_tree(cfg, seed: int = 0, stddev: float = 0.02) -> Dict[str, Any]:
     """A random param tree in the JAX layout, drawn with numpy: dense and
-    embedding matrices ~ N(0, stddev) clipped to +-2 stddev (as the JAX
-    package's truncated-normal init), zero biases, unit LayerNorm scales."""
+    embedding matrices (a MoE layer's router and stacked experts too)
+    ~ N(0, stddev) clipped to +-2 stddev (as the JAX package's
+    truncated-normal init), zero biases, unit LayerNorm scales."""
     cfg = _bert_cfg(cfg)
     rng = np.random.default_rng(seed)
     h, inter = cfg.hidden_size, cfg.intermediate_size
@@ -109,6 +117,18 @@ def init_tree(cfg, seed: int = 0, stddev: float = 0.02) -> Dict[str, Any]:
         return {"scale": np.ones((h,), np.float32),
                 "bias": np.zeros((h,), np.float32)}
 
+    def ffn(i):
+        if not _is_moe_layer(cfg, i):
+            return {"mlp": {"in": dense(h, inter), "out": dense(inter, h)}}
+        e = cfg.moe_experts
+        return {"moe": {
+            "router": {"kernel": mat(h, e)},
+            "in": {"kernel": mat(e, h, inter),
+                   "bias": np.zeros((e, inter), np.float32)},
+            "out": {"kernel": mat(e, inter, h),
+                    "bias": np.zeros((e, h), np.float32)},
+        }}
+
     tree: Dict[str, Any] = {
         "embeddings": {
             "word": mat(cfg.vocab_size, h),
@@ -120,10 +140,10 @@ def init_tree(cfg, seed: int = 0, stddev: float = 0.02) -> Dict[str, Any]:
             {
                 "attention": {n: dense(h, h) for n in ("q", "k", "v", "o")},
                 "attention_ln": ln(),
-                "mlp": {"in": dense(h, inter), "out": dense(inter, h)},
+                **ffn(i),
                 "output_ln": ln(),
             }
-            for _ in range(cfg.num_hidden_layers)
+            for i in range(cfg.num_hidden_layers)
         ],
     }
     if cfg.add_pooler:
@@ -182,8 +202,10 @@ def state_dict_from_tree(tree) -> Dict[str, np.ndarray]:
         if isinstance(node, dict):
             if "kernel" in node:
                 kernel = f32(node["kernel"])
+                # a 3-D kernel is a stack of experts: kept as it is
                 out[key("weight")] = (kernel.transpose(3, 2, 0, 1)
-                                      if kernel.ndim == 4 else kernel.T)
+                                      if kernel.ndim == 4 else kernel.T
+                                      if kernel.ndim == 2 else kernel)
                 if "bias" in node:
                     out[key("bias")] = f32(node["bias"])
             elif "mean" in node and "var" in node:
@@ -282,11 +304,12 @@ def module_from_tree(module_cls, *args, tree, device=None,
 def _leaf_name(mod: nn.Module, name: str) -> str:
     """The JAX tree's name of ``mod``'s direct tensor ``name`` ("" for a
     bare embedding table, which is a leaf of its own in the tree)."""
-    from viquae_torch.models.layers import BatchNorm
+    from viquae_torch.models.layers import BatchNorm, ExpertDense
 
     if isinstance(mod, nn.Embedding):
         return ""
-    if isinstance(mod, (nn.Linear, nn.Conv2d)) and name == "weight":
+    if isinstance(mod, (nn.Linear, nn.Conv2d, ExpertDense)) \
+            and name == "weight":
         return "kernel"
     if isinstance(mod, (nn.LayerNorm, BatchNorm)) and name == "weight":
         return "scale"
@@ -334,7 +357,7 @@ def tree_from_module(module: nn.Module) -> Dict[str, Any]:
     flat = {}
     for name, path in jax_paths(module, buffers=True).items():
         a = tensors[name].detach().to("cpu", torch.float32).numpy()
-        if path.endswith("kernel"):
+        if path.endswith("kernel") and a.ndim != 3:  # 3-D: expert stacks
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         flat[path] = np.ascontiguousarray(a)
     return _unflatten(flat)

@@ -38,7 +38,8 @@ def apply(
     generator: Optional[torch.Generator] = None,
     remat_layers: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Returns {"pooler_output": (B, D) CLS embedding, "last_hidden_state"}.
+    """Returns {"pooler_output": (B, D) CLS embedding, "last_hidden_state"}
+    and, for a MoE config, "moe_aux".
     ``deterministic`` / ``generator`` / ``remat_layers``: see
     :func:`viquae_torch.models.bert.apply`."""
     out = bert.apply(params, cfg.bert, input_ids,
@@ -69,8 +70,8 @@ def apply_packed(
     segment; each question's embedding is its own [CLS] hidden state,
     gathered at (cls_rows, cls_cols). Returns (n_cls, D) f32; entries past
     the packer's ``n_seqs`` come from the (0, 0) pad pointer — slice them
-    off. With ``return_aux``, (cls, None): the MoE term of the JAX
-    signature, always None here."""
+    off. With ``return_aux``, (cls, moe_aux): the MoE load-balance term
+    (None for a dense config)."""
     out = bert.apply(params, cfg.bert, input_ids,
                      position_ids=position_ids, segment_ids=segment_ids,
                      compute_dtype=compute_dtype,
@@ -78,7 +79,7 @@ def apply_packed(
                      remat_layers=remat_layers)
     hidden = out["last_hidden_state"]
     cls = hidden[cls_rows.long(), cls_cols.long()]
-    return (cls, None) if return_aux else cls
+    return (cls, out.get("moe_aux")) if return_aux else cls
 
 
 def make_packed_apply(cfg: DPRConfig):

@@ -95,6 +95,27 @@ def _dot_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return _dot_f32_upcast(x, weight)
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a @ b with f32 accumulation and an f32 result, as
+    :func:`_dot_f32`: a bf16 batched GEMM with an f32 output on the GPU,
+    the product of the upcast operands elsewhere."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class ExpertDense(nn.Module):
+    """E dense layers stacked on a leading axis, in the JAX tree's layout:
+    ``weight`` (E, d_in, d_out) is the tree's ``kernel``, ``bias`` (E,
+    d_out). The Mixture-of-Experts FFN's two layers (ops/moe.py)."""
+
+    def __init__(self, n_experts: int, d_in: int, d_out: int, **factory):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((n_experts, d_in, d_out),
+                                               **factory))
+        self.bias = nn.Parameter(torch.empty((n_experts, d_out), **factory))
+
+
 def dense(lin: nn.Linear, x: torch.Tensor,
           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     weight = lin.weight
@@ -277,7 +298,7 @@ def init_weights_(module: nn.Module, seed: int, linear_std: float = 0.02,
         if isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
             mod.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=gen)
-        elif isinstance(mod, nn.Linear):
+        elif isinstance(mod, (nn.Linear, ExpertDense)):
             draw(mod.weight, linear_std)
         elif isinstance(mod, (BatchNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
@@ -289,7 +310,8 @@ def init_weights_(module: nn.Module, seed: int, linear_std: float = 0.02,
         else:
             for p in params.values():
                 draw(p, embed_std)
-        if isinstance(mod, (nn.Conv2d, nn.Linear, BatchNorm, nn.LayerNorm)) \
+        if isinstance(mod, (nn.Conv2d, nn.Linear, ExpertDense, BatchNorm,
+                            nn.LayerNorm)) \
                 and getattr(mod, "bias", None) is not None:
             mod.bias.zero_()
         done.update(id(p) for p in params.values())

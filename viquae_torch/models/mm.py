@@ -18,7 +18,10 @@ name to one name. ECA and ILF train: ``deterministic=False`` turns on
 dropout at the JAX package's sites (each visual projection, the text
 embeddings, the BERT layers, ILF's fused output), its seeds drawn from
 the CPU ``generator``; ``remat_layers`` checkpoints each BERT layer.
-Flamant is evaluation only, and a Mixture-of-Experts BERT raises (A17).
+ECA and ILF surface a Mixture-of-Experts BERT's load-balance term
+(``moe_aux``, or the second value with ``return_aux``). Flamant is
+evaluation only and, as in the JAX package, refuses a MoE BERT (its layer
+loop interleaves the cross-attention blocks).
 Masks stay finite additive biases (``layers.attention_bias_from_*``).
 """
 from __future__ import annotations
@@ -57,13 +60,6 @@ class FlamantConfig(MMConfig):
     multimodal_attention_every: int = 1
     image_num_attention_heads: int = 12
     image_intermediate_size: int = 3072
-
-
-def _no_moe(cfg: MMConfig):
-    if cfg.bert.moe_experts > 0:
-        raise NotImplementedError(
-            "moe_experts > 0: the Mixture-of-Experts FFN is not ported yet "
-            "(ROADMAP.md A17)")
 
 
 # ---- visual projection blocks ---------------------------------------------
@@ -283,7 +279,6 @@ def eca_apply(params: ECA, cfg: MMConfig, text_inputs, face_inputs,
               image_inputs=None, deterministic: bool = True, generator=None,
               compute_dtype=torch.float32,
               remat_layers: bool = False) -> ECAEncoderOutput:
-    _no_moe(cfg)
     vis_tokens, vis_mask = _visual_tokens(params, cfg, face_inputs,
                                           image_inputs, deterministic,
                                           generator)
@@ -301,12 +296,16 @@ def eca_apply(params: ECA, cfg: MMConfig, text_inputs, face_inputs,
     hidden = torch.cat([text_emb, vis_tokens], dim=1)
     mask = torch.cat([attention_mask, vis_mask.to(attention_mask.dtype)],
                      dim=1)
+    moe = cfg.bert.moe_experts > 0
     sequence = bert.encode(params.bert, cfg.bert, hidden, mask,
                            compute_dtype=compute_dtype,
                            deterministic=deterministic, generator=generator,
-                           remat_layers=remat_layers)
+                           remat_layers=remat_layers, return_moe_aux=moe)
+    moe_aux = None
+    if moe:
+        sequence, moe_aux = sequence
     return ECAEncoderOutput(pooler_output=sequence[:, 0],
-                            last_hidden_state=sequence)
+                            last_hidden_state=sequence, moe_aux=moe_aux)
 
 
 def scatter_visual_tokens(hidden: torch.Tensor, vis_rows: torch.Tensor,
@@ -359,9 +358,8 @@ def eca_apply_packed(params: ECA, cfg: MMConfig, input_ids, segment_ids,
     attention ignores them.
 
     Returns (n_cls, D) CLS states; entries past the packer's n_seqs are
-    garbage — slice them off. With ``return_aux``, (cls, None): the MoE
-    term of the JAX signature, always None here."""
-    _no_moe(cfg)
+    garbage — slice them off. With ``return_aux``, (cls, moe_aux): the
+    MoE load-balance term (None for a dense config)."""
     if cfg.no_text:
         raise NotImplementedError(
             "packed ECA assumes text tokens; use eca_apply for no_text")
@@ -375,13 +373,17 @@ def eca_apply_packed(params: ECA, cfg: MMConfig, input_ids, segment_ids,
     vis_rows, vis_cols = vis_rows[:b], vis_cols[:b]
     assert tuple(vis_rows.shape) == (b, t_vis), (vis_rows.shape, (b, t_vis))
     hidden = scatter_visual_tokens(hidden, vis_rows, vis_cols, vis_tokens)
+    moe = cfg.bert.moe_experts > 0
     sequence = bert.encode(params.bert, cfg.bert, hidden,
                            compute_dtype=compute_dtype,
                            segment_ids=segment_ids,
                            deterministic=deterministic, generator=generator,
-                           remat_layers=remat_layers)
+                           remat_layers=remat_layers, return_moe_aux=moe)
+    moe_aux = None
+    if moe:
+        sequence, moe_aux = sequence
     cls = sequence[cls_rows.long(), cls_cols.long()]
-    return (cls, None) if return_aux else cls
+    return (cls, moe_aux) if return_aux else cls
 
 
 # --------------------------------------------------------------------------
@@ -425,7 +427,6 @@ def ilf_apply(params: ILF, cfg: MMConfig, text_inputs, face_inputs,
               image_inputs=None, deterministic: bool = True, generator=None,
               compute_dtype=torch.float32,
               remat_layers: bool = False) -> EncoderOutput:
-    _no_moe(cfg)
     out = bert.apply(params.dpr_encoder, cfg.bert, text_inputs["input_ids"],
                      text_inputs["attention_mask"],
                      token_type_ids=text_inputs.get("token_type_ids"),
@@ -435,7 +436,7 @@ def ilf_apply(params: ILF, cfg: MMConfig, text_inputs, face_inputs,
     output = L.dense(params.dpr_proj, out["last_hidden_state"][:, 0])
     return EncoderOutput(pooler_output=_ilf_fuse_visual(
         params, cfg, output, face_inputs, image_inputs, deterministic,
-        generator))
+        generator), moe_aux=out.get("moe_aux"))
 
 
 def ilf_apply_packed(params: ILF, cfg: MMConfig, input_ids, segment_ids,
@@ -448,8 +449,7 @@ def ilf_apply_packed(params: ILF, cfg: MMConfig, input_ids, segment_ids,
     tower (block-diagonal attention); the visual side is a per-sample SUM
     of projections, so plain ``pack_text_inputs`` canvases work. Returns
     (B, D) for the B samples of ``face_inputs`` (or (out, None) with
-    ``return_aux``)."""
-    _no_moe(cfg)
+    ``return_aux``; moe_aux is None for a dense config)."""
     out = bert.apply(params.dpr_encoder, cfg.bert, input_ids,
                      position_ids=position_ids, segment_ids=segment_ids,
                      compute_dtype=compute_dtype,
@@ -461,7 +461,7 @@ def ilf_apply_packed(params: ILF, cfg: MMConfig, input_ids, segment_ids,
                                                    text[:b]),
                               face_inputs, image_inputs, deterministic,
                               generator)
-    return (output, None) if return_aux else output
+    return (output, out.get("moe_aux")) if return_aux else output
 
 
 # --------------------------------------------------------------------------
@@ -475,7 +475,11 @@ def flamant_apply(params: Flamant, cfg: FlamantConfig, text_inputs,
         raise NotImplementedError(
             "Flamant is ported for evaluation: no trainee builds it, so its "
             "dropout sites are not ported")
-    _no_moe(cfg)
+    if cfg.bert.moe_experts > 0:
+        raise NotImplementedError(
+            "Flamant hand-rolls its BertLayer loop (gated cross-attention "
+            "interleaving) and does not support moe_experts > 0 — use a "
+            "dense BertConfig or the ECA/ILF/DPR MoE paths")
     vis_tokens, vis_mask = _visual_tokens(params, cfg, face_inputs,
                                           image_inputs)
     x = bert.embed(params.bert, cfg.bert, text_inputs["input_ids"],

@@ -17,7 +17,7 @@ viquae_tpu/models/qa.py).
 :class:`Reader` holds the weights (``bert``, ``qa_outputs``,
 ``score_proj_w``/``score_proj_b``), named as the JAX reader tree;
 :class:`ECAReader` ECA's weights plus ``qa_outputs``. The mesh param
-spec is listed in ROADMAP.md (A17).
+spec is listed in ROADMAP.md (A17b).
 """
 from __future__ import annotations
 
@@ -196,7 +196,8 @@ def reader_apply(
         end_logits = end_logits + fused
 
     return reader_output(start_logits, end_logits, start_positions,
-                         end_positions, answer_mask, m_passages)
+                         end_positions, answer_mask, m_passages
+                         )._replace(moe_aux=bert_out.get("moe_aux"))
 
 
 def reader_apply_packed(
@@ -252,7 +253,8 @@ def reader_apply_packed(
         end_logits = (end_logits + fused).masked_fill(invalid, -1e30)
 
     return reader_output(start_logits, end_logits, start_positions,
-                         end_positions, answer_mask, m_passages)
+                         end_positions, answer_mask, m_passages
+                         )._replace(moe_aux=bert_out.get("moe_aux"))
 
 
 class ECAReader(mm.ECA):

@@ -57,7 +57,7 @@ def bert_reranker_apply(params: BertReRanker, cfg: BertReRankerConfig,
                      deterministic=deterministic, generator=generator,
                      compute_dtype=compute_dtype)
     logits = L.dense(params.classifier, out["last_hidden_state"][:, 0])
-    return ReRankerOutput(logits=logits[..., 0])
+    return ReRankerOutput(logits=logits[..., 0], moe_aux=out.get("moe_aux"))
 
 
 def bert_reranker_apply_packed(params: BertReRanker, cfg: BertReRankerConfig,
@@ -76,7 +76,7 @@ def bert_reranker_apply_packed(params: BertReRanker, cfg: BertReRankerConfig,
                      compute_dtype=compute_dtype)
     cls = out["last_hidden_state"][cls_rows.long(), cls_cols.long()]
     logits = L.dense(params.classifier, cls)
-    return ReRankerOutput(logits=logits[..., 0])
+    return ReRankerOutput(logits=logits[..., 0], moe_aux=out.get("moe_aux"))
 
 
 # --------------------------------------------------------------------------
@@ -131,4 +131,4 @@ def flamant_reranker_apply(params: FlamantReRanker, cfg: mm.FlamantConfig,
                            image_inputs, deterministic=deterministic,
                            rng=rng, compute_dtype=compute_dtype)
     logits = L.dense(params.classifier, out.pooler_output)
-    return ReRankerOutput(logits=logits[..., 0])
+    return ReRankerOutput(logits=logits[..., 0], moe_aux=out.moe_aux)

@@ -1,6 +1,6 @@
 """GPU-resident BM25 scoring, the device leg of hybrid retrieval
 (counterpart of viquae_tpu/ops/bm25_device.py; the multi-device
-``ShardedDeviceBM25`` is left for the multi-GPU slice, ROADMAP.md A17).
+``ShardedDeviceBM25`` is left for the multi-GPU slice, ROADMAP.md A17b).
 
 The host index (`ops.bm25.BM25Index` + the C++ MaxScore scorer) is exact
 but bound by the host's cores; this module scores on the card.

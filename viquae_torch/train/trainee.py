@@ -22,7 +22,9 @@ over host (numpy) outputs — plus ``export(dir)``, the save_ptm contract
   squad-per-question eval, IR-score-weighted predictions, M tuning and the
   metrics.json / predictions.json files.
 
-Mixture-of-Experts encoders raise where their weights are built (A17).
+An encoder whose BERT has Mixture-of-Experts layers surfaces their
+load-balance term; the BERT-family trainees add it to the task loss,
+scaled by ``moe_aux_weight``, and report it as ``outputs["moe_aux"]``.
 """
 from __future__ import annotations
 
@@ -88,24 +90,45 @@ def _export(path, module: nn.Module):
     ckpt_lib.export_params(path, tree_from_module(module))
 
 
+def _moe_experts(model) -> int:
+    """BertConfig.moe_experts of a trainee's encoder bundle (0 = dense)."""
+    bcfg = getattr(getattr(model, "cfg", None), "bert", None)
+    return getattr(bcfg, "moe_experts", 0) or 0
+
+
+def _with_moe_aux(loss, outputs, aux):
+    """The task loss plus the scaled load-balance term, which the outputs
+    report as ``moe_aux``; unchanged for dense encoders (``aux`` None)."""
+    if aux is None:
+        return loss, outputs
+    outputs["moe_aux"] = aux
+    return loss + aux, outputs
+
+
 class BiEncoderTrainee:
     """DPR-style dual tower with in-batch negatives."""
 
     def __init__(self, question_model, context_model=None,
                  shared_encoders: bool = False,
-                 remat_layers: bool = False):
+                 remat_layers: bool = False,
+                 moe_aux_weight: float = 0.01):
         """question_model/context_model: config-registry bundles with
         .cfg, .params (a module) and apply_fn(params, ...) /
         packed_apply_fn(params, ...) — models.dpr.DPREncoder or the
         multimodal mm.ECAEncoder / mm.IntermediateLinearFusion.
 
         remat_layers=True checkpoints each transformer layer (the
-        reference's `gradient_checkpointing: true` recipes)."""
+        reference's `gradient_checkpointing: true` recipes).
+
+        moe_aux_weight scales the MoE load-balance term added to the loss
+        when an encoder has BertConfig.moe_experts > 0 (Switch
+        Transformer's 1e-2): without it the experts collapse."""
         self.question_model = question_model
         self.shared_encoders = shared_encoders or context_model is None
         self.context_model = (question_model if self.shared_encoders
                               else context_model)
         self.remat_layers = remat_layers
+        self.moe_aux_weight = moe_aux_weight
         modules = {"question": question_model.params}
         if not self.shared_encoders:
             modules["context"] = context_model.params
@@ -116,10 +139,18 @@ class BiEncoderTrainee:
         return self._params
 
     def _encode(self, params, model, inputs, generator, deterministic):
+        """(embeddings, moe_aux): moe_aux is None for a dense encoder."""
         packed_apply = getattr(model, "packed_apply_fn", None)
         kw = dict(deterministic=deterministic, generator=generator)
         if self.remat_layers:
             kw["remat_layers"] = True
+        # packed applies return the embeddings alone unless asked for aux
+        moe = _moe_experts(model) > 0
+        packed_kw = dict(kw, return_aux=True) if moe else kw
+
+        def packed_out(res):
+            return res if moe else (res, None)
+
         if "face_inputs" in inputs and not hasattr(model,
                                                     "PACKED_NEEDS_VIS"):
             # a text-only tower (DPR) given multimodal inputs — the ICT
@@ -150,33 +181,42 @@ class BiEncoderTrainee:
                     canvas = canvas + (
                         text["canvas_vis_rows"], text["canvas_vis_cols"],
                     )
-                return packed_apply(
+                return packed_out(packed_apply(
                     params, *canvas, inputs["face_inputs"],
-                    inputs.get("image_inputs"), **kw)
-            return model.apply_fn(
+                    inputs.get("image_inputs"), **packed_kw))
+            out = model.apply_fn(
                 params, _text_kwargs(inputs), inputs["face_inputs"],
-                inputs.get("image_inputs"), **kw).pooler_output
+                inputs.get("image_inputs"), **kw)
+            return out.pooler_output, out.moe_aux
         if "canvas_input_ids" in inputs and packed_apply is not None:
-            return packed_apply(
+            return packed_out(packed_apply(
                 params,
                 inputs["canvas_input_ids"], inputs["canvas_segment_ids"],
                 inputs["canvas_position_ids"],
-                inputs["canvas_cls_rows"], inputs["canvas_cls_cols"], **kw)
-        return model.apply_fn(params, **_text_kwargs(inputs),
-                              **kw)["pooler_output"]
+                inputs["canvas_cls_rows"], inputs["canvas_cls_cols"],
+                **packed_kw))
+        out = model.apply_fn(params, **_text_kwargs(inputs), **kw)
+        return out["pooler_output"], out.get("moe_aux")
 
     def _encode_pair(self, params, batch, generator, deterministic):
-        q = self._encode(params["question"], self.question_model,
-                         batch["question_inputs"], generator, deterministic)
-        c = self._encode(params.get("context", params["question"]),
-                         self.context_model, batch["context_inputs"],
-                         generator, deterministic)
-        return q, c
+        """(question embeddings, context embeddings, the scaled sum of
+        their MoE terms or None)."""
+        q, aux_q = self._encode(params["question"], self.question_model,
+                                batch["question_inputs"], generator,
+                                deterministic)
+        c, aux_c = self._encode(params.get("context", params["question"]),
+                                self.context_model, batch["context_inputs"],
+                                generator, deterministic)
+        live = [a for a in (aux_q, aux_c) if a is not None]
+        return q, c, (self.moe_aux_weight * sum(live) if live else None)
 
     def loss_fn(self, params, batch, generator=None,
                 deterministic: bool = False):
-        q, c = self._encode_pair(params, batch, generator, deterministic)
-        return objectives.biencoder_loss(q, c, batch["labels"])
+        q, c, aux = self._encode_pair(params, batch, generator,
+                                      deterministic)
+        return _with_moe_aux(*objectives.biencoder_loss(q, c,
+                                                        batch["labels"]),
+                             aux)
 
     def eval_fn(self, outputs: List[dict]) -> Dict[str, float]:
         return tmetrics.accumulate_batch_metrics([
@@ -344,7 +384,8 @@ class JointBiEncoderAndClipTrainee(BiEncoderTrainee):
 
     def loss_fn(self, params, batch, generator=None,
                 deterministic: bool = False):
-        q, c = self._encode_pair(params, batch, generator, deterministic)
+        q, c, aux = self._encode_pair(params, batch, generator,
+                                      deterministic)
         q_img = self.clip_vision_model.apply_fn(
             params["clip_vision"], batch["question_pixel_values"]
         )["image_embeds"]
@@ -355,10 +396,10 @@ class JointBiEncoderAndClipTrainee(BiEncoderTrainee):
             params["clip_text"],
             **_text_kwargs(batch["context_inputs"]["titles"])
         )["text_embeds"]
-        return objectives.joint_mono_cross_modal_loss(
+        return _with_moe_aux(*objectives.joint_mono_cross_modal_loss(
             q, c, q_img, c_img, titles, batch["labels"],
             params["question_weight"], params["image_weight"],
-            params["cm_weight"], params["temperature"])
+            params["cm_weight"], params["temperature"]), aux)
 
     def freeze_weights_regex(self) -> Optional[str]:
         """Regex freezing the fusion weights unless learn_weights."""
@@ -368,9 +409,11 @@ class JointBiEncoderAndClipTrainee(BiEncoderTrainee):
 
 
 class ReRankerTrainee:
-    def __init__(self, model, m_passages: int = 24):
+    def __init__(self, model, m_passages: int = 24,
+                 moe_aux_weight: float = 0.01):
         self.model = model
         self.M = m_passages
+        self.moe_aux_weight = moe_aux_weight
 
     @property
     def params(self):
@@ -391,8 +434,10 @@ class ReRankerTrainee:
             out = self.model.apply_fn(params, **_text_kwargs(batch), **kw)
         logits = out.logits.reshape(-1, self.M)
         loss, log_probs = objectives.reranker_loss(logits, batch["labels"])
-        return loss, {"log_probs": log_probs, "labels": batch["labels"],
-                      "logits": logits}
+        return _with_moe_aux(
+            loss, {"log_probs": log_probs, "labels": batch["labels"],
+                   "logits": logits},
+            None if out.moe_aux is None else self.moe_aux_weight * out.moe_aux)
 
     def eval_fn(self, outputs):
         return tmetrics.accumulate_batch_metrics([
@@ -415,7 +460,7 @@ class ReaderTrainee:
     """Multi-passage extractive reader training + eval."""
 
     def __init__(self, cfg, params, tokenizer, m_passages: int = 24,
-                 tune_M: bool = False):
+                 tune_M: bool = False, moe_aux_weight: float = 0.01):
         from viquae_torch.models import qa
 
         self.qa = qa
@@ -424,6 +469,7 @@ class ReaderTrainee:
         self.tokenizer = tokenizer
         self.M = m_passages
         self.tune_M = tune_M
+        self.moe_aux_weight = moe_aux_weight
 
     @property
     def params(self):
@@ -453,8 +499,10 @@ class ReaderTrainee:
                 params, self.cfg, batch["input_ids"],
                 attention_mask=batch.get("attention_mask"),
                 token_type_ids=batch.get("token_type_ids"), **common)
-        return out.loss, {"start_log_probs": out.start_log_probs,
-                          "end_log_probs": out.end_log_probs}
+        return _with_moe_aux(
+            out.loss, {"start_log_probs": out.start_log_probs,
+                       "end_log_probs": out.end_log_probs},
+            None if out.moe_aux is None else self.moe_aux_weight * out.moe_aux)
 
     # ---- evaluation ---------------------------------------------------
     def eval_fn(self, outputs: List[dict], batches: List[dict]
