@@ -191,6 +191,25 @@ raises on failure:
    loss must fall. Phases 23-24
    run after phase 7 and reach no kernel: B1's and B2's counts over each
    are printed (0).
+25. serving on the mesh (phase_sharded_serving, last, with the earlier
+   phases' tensors freed; the card has one GPU, so nothing here is a
+   multi-GPU speed): (a) a NCCL world of one in this process:
+   topk_sharded(mode="fused") over phase 5's KB and embeddings through its
+   shard step (B1), the NCCL all-gather and the merge, bit-equal to phase
+   5, its batch ms beside topk_fused's; (b) four gloo ranks sharing the
+   card (processes of their own that load the B1 library phase 2 built):
+   B1 on each rank's quarter (375,040 rows) with valid_rows 1.5M - 37,
+   the merged top-100 bit-equal to one topk_fused over the whole KB; at
+   data = 2 x kb = 2 the serving pipeline with the packed encoder split
+   over data (embeddings within 2e-2 of phase 5's, results by
+   tie_aware_agreement) and the QA program of __graft_entry__.py:496-596
+   on 64 questions (the DPR KB and a 1.5M x 512 bf16 index, fuse_topk in
+   gzmuv, the reader step at BERT-base with its canvas rows split over
+   data: fused ids equal to the same program on one device, spans by
+   span_agreement); (c) ShardedDeviceBM25 over the four ranks on phase
+   14's corpus against phase 14's DeviceBM25 by doc id (by_doc_agreement),
+   with its overflow count. Each rank's B1 launches, seconds and peak
+   memory are printed.
 
 Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
 uploads staged through pinned memory and, for comparison, from pageable
@@ -807,9 +826,7 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
                                     device=dev, dtype=torch.bfloat16)
     rng = np.random.default_rng(0)
     queries = lognormal_questions(rng, N_QUERIES)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    kb = torch.randn((N_KB, DIM), generator=gen, device=dev,
-                     dtype=torch.bfloat16) / math.sqrt(DIM)
+    kb = main_kb(dev)
     index = mips.DenseIndex(kb, mode="fused", device=dev)
     del kb
     embedder = PackedTextEmbedder(dpr.make_packed_apply(cfg), model,
@@ -939,7 +956,7 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
             "ids": ids, "encoder_ms": breakdown["encoder_ms"],
             "stream_queries": stream_queries,
             "stream_launches": stream_launches,
-            "search_ms": breakdown["search_ms"]}
+            "search_ms": breakdown["search_ms"], "q_all": q}
 
 
 def phase_kernel_table(index, q, launches):
@@ -4553,10 +4570,557 @@ def phase_moe(dev, main) -> dict:
     return out
 
 
+# ---- phase 25: serving on the mesh ------------------------------------------
+SHARD_RANKS = 4            # gloo ranks sharing the one card
+SHARD_VALID_ROWS = N_KB - 37   # the last shard part padding
+SHARD_QA_QUESTIONS = 64
+SHARD_QA_DIM = 512         # the QA program's second index (ArcFace's width)
+SHARD_QA_WEIGHTS = (0.6, 0.4)
+SHARD_BM25_Q_BLOCK = 128
+SHARD_REPS = 3
+SHARD_TIMEOUT_S = 150      # the ranks' own limit, joins and collectives
+SHARD_RANK_CODE = ("import sys, chip_smoke; "
+                   "chip_smoke.shard_rank(sys.argv[1], int(sys.argv[2]))")
+# the sizes a rank reads: handed over in the spec, so that a rehearsal at
+# small sizes reaches the ranks too
+SHARD_SIZES = ("N_KB", "DIM", "K", "BATCH", "ROW_LEN", "READER_M",
+               "READER_SEQ", "PASSAGE_TOKENS", "SHARD_RANKS",
+               "SHARD_VALID_ROWS", "SHARD_QA_QUESTIONS", "SHARD_QA_DIM",
+               "SHARD_BM25_Q_BLOCK", "SHARD_REPS", "SHARD_TIMEOUT_S")
+
+
+def main_kb(dev, seed: int = 1, dim=None):
+    """Phase 5's KB (seed 1, N_KB x DIM), or another of its kind: N(0, 1/d)
+    bf16 rows drawn on the card from a seeded generator, the same on
+    every call."""
+    rows, dim = N_KB, dim or DIM
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((rows, dim), generator=gen, device=dev,
+                       dtype=torch.bfloat16) / math.sqrt(dim)
+
+
+def save_bm25_arrays(index, path):
+    """A host BM25 index as raw .npy arrays (the ranks load it in
+    seconds; savez_compressed takes minutes at 1.5M documents)."""
+    path.mkdir(parents=True)
+    for name in ("offsets", "docs", "tfs", "doc_len"):
+        np.save(path / f"{name}.npy", getattr(index, name))
+    (path / "meta.json").write_text(json.dumps(
+        {"vocab": index.vocab, "n_docs": index.n_docs, "k1": index.k1,
+         "b": index.b}))
+
+
+def load_bm25_arrays(path):
+    meta = json.loads((path / "meta.json").read_text())
+    return bm25_lib.BM25Index(
+        meta["vocab"], *(np.load(path / f"{name}.npy") for name in (
+            "offsets", "docs", "tfs", "doc_len")), meta["n_docs"],
+        k1=meta["k1"], b=meta["b"])
+
+
+def qa_pairs(questions, fused_ids, passages):
+    """The QA program's host boundary: [CLS] question [SEP] passage [SEP]
+    for each question and each of its fused passages (a pad id gets an
+    empty passage), with their token types."""
+    heads = WhitespaceTokenizer()(questions)["input_ids"]
+    seqs, types = [], []
+    for head, row in zip(heads, fused_ids):
+        for d in row:
+            body = (passages[int(d)]["passage_tokens"]
+                    if 0 <= int(d) < len(passages) else np.zeros(0))
+            seqs.append(np.r_[head, body, 102].astype(np.int32))
+            types.append(np.r_[np.zeros(len(head)),
+                               np.ones(len(body) + 1)].astype(np.int32))
+    return seqs, types
+
+
+def qa_read(reader, pairs, dev, ctx=None):
+    """The packed reader step over the pairs' canvas (rows padded to a
+    multiple of the mesh's data size, and split over it with ``ctx``):
+    the start / end probabilities and the best spans."""
+    seqs, types = pairs
+    rp = packing.pack_token_sequences(
+        seqs, row_len=READER_SEQ,
+        pad_rows_to=ctx.data_size if ctx is not None else 1)
+    tt = packing.pack_parallel(rp, types)
+    g_idx, g_mask = packing.gather_indices(rp, READER_SEQ)
+    canvas = [torch.from_numpy(np.asarray(a)).to(dev) for a in (
+        rp.input_ids, rp.segment_ids, rp.position_ids, tt, g_idx, g_mask)]
+    with torch.no_grad():
+        out = qa.reader_apply_packed(
+            reader, reader.cfg, *canvas, m_passages=READER_M,
+            compute_dtype=torch.bfloat16, mesh_ctx=ctx)
+        probs = span_probabilities(out.start_logits, out.end_logits,
+                                   canvas[-1], READER_M)
+        return probs, qa.get_best_spans(*probs), rp.rows
+
+
+def qa_reader(dev, rcfg):
+    """The QA program's reader (Multi-passage BERT), seeded, bf16."""
+    return convert.reader_from_jax(convert.init_reader_tree(rcfg, seed=3),
+                                   rcfg, device=dev, dtype=torch.bfloat16)
+
+
+def last_shard(matrix, valid_rows: int, kb_size: int):
+    """The last of ``kb_size`` shards of a KB whose first rows are
+    ``matrix``'s, laid out as a sharded DenseIndex lays it out (128-row
+    aligned shards, zero rows past the KB), and its local valid rows."""
+    rows = -(-matrix.shape[0] // (kb_size * 128)) * 128
+    base = (kb_size - 1) * rows
+    shard = matrix.new_zeros((rows, matrix.shape[1]))
+    part = matrix[base: base + rows]
+    shard[: len(part)] = part
+    return shard, min(max(valid_rows - base, 0), rows)
+
+
+def b1_against_plain(q, kb, valid_rows: int, label: str, got=None) -> dict:
+    """B1's top-K through topk_fused (or ``got``, a result already taken
+    from it) against the plain version's selection on the same inputs,
+    held as the main path is: ids tie-aware, scores within one bf16 ulp
+    positionwise; the bitwise share of the scores is reported."""
+    k_s, k_i = got if got is not None else mips_fused.topk_fused(
+        q, kb, K, valid_rows=valid_rows)
+    p_s, p_i = mips_fused.segment_topk(
+        *mips_fused.fused_score_segmax_qmajor_plain(q, kb, valid_rows), K)
+    agreement = tie_aware_agreement(
+        k_i.cpu().numpy(), k_s.float().cpu().numpy(), p_i.cpu().numpy(),
+        p_s.float().cpu().numpy())
+    out = {"check": label, "shape": [q.shape[0], q.shape[1], kb.shape[0]],
+           "valid_rows": valid_rows, **agreement,
+           "scores_bitwise_share": float((k_s == p_s).float().mean())}
+    check(tie_aware_ok(agreement), f"B1 against plain, {label}: {out}")
+    return out
+
+
+def b1_launches() -> int:
+    return mips_fused.fused_score_segmax_qmajor.launches
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def peak_memory(dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def shard_rank(spec_path: str, rank: int) -> None:
+    """One of phase 25's gloo ranks (a process of its own, all on the one
+    card): joins the world, runs :func:`shard_rank_work` and writes what
+    it measured next to the spec."""
+    import datetime
+    import pickle
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    spec = pickle.loads(Path(spec_path).read_bytes())
+    globals().update(spec["sizes"])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the parent built the kernels in phase 2: four ranks must not
+        # rebuild them at once
+        check(not kbuild._stale("score_segmax"),
+              "the B1 library is missing or stale: phase 2 builds it")
+    dist.init_process_group(
+        "gloo", init_method=spec["init"], rank=rank, world_size=SHARD_RANKS,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        out = shard_rank_work(dev, spec)
+    finally:
+        dist.destroy_process_group()
+    Path(spec["dir"], f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def shard_rank_work(dev, spec) -> dict:
+    """(b) B1 on this rank's quarter of the 1.5M KB at kb = 4, uneven
+    valid rows; the retrieval pipeline at data = 2 x kb = 2 (the packed
+    encoder split over data); the QA program at data = 2 x kb = 2;
+    (c) ShardedDeviceBM25 over kb = 4. Every number is this rank's, on a
+    card the four ranks share."""
+    from viquae_torch.core import mesh
+
+    t_start = time.perf_counter()
+    out = {}
+    q = torch.from_numpy(spec["q"]).to(dev).to(torch.bfloat16)
+    kb = main_kb(dev)
+    ctx4 = mesh.make_kb_mesh(device=dev)
+    out["route"] = mesh.collective_route(ctx4)
+    index = mips.DenseIndex(kb, mode="fused", mesh_ctx=ctx4)
+    out["kb4_shard_rows"] = index.matrix.shape[0]
+
+    def kb4():
+        return mips.topk_sharded(q, index.matrix, K, mesh_ctx=ctx4,
+                                 valid_rows=SHARD_VALID_ROWS, mode="fused")
+
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    ctx4.collective_log.clear()
+    s, i = kb4()
+    out["kb4"] = (s.cpu().numpy(), i.cpu().numpy())
+    out["kb4_launches"] = b1_launches()
+    out["kb4_log"] = list(ctx4.collective_log)
+    walls = []
+    for _ in range(SHARD_REPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        kb4()
+        sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["kb4_ms"] = float(np.median(walls))
+    del index
+
+    # data = 2 x kb = 2: the serving pipeline end to end
+    ctx = mesh.make_mesh(data=2, kb=2, device=dev)
+    index = mips.DenseIndex(kb, mode="fused", mesh_ctx=ctx)
+    del kb
+    second = mips.DenseIndex(main_kb(dev, seed=2, dim=SHARD_QA_DIM),
+                             mode="fused", mesh_ctx=ctx)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = spec["dpr_cfg"]
+    model = convert.params_from_jax(convert.init_tree(cfg, seed=0), cfg,
+                                    device=dev, dtype=torch.bfloat16)
+    emb = PackedTextEmbedder(dpr.make_packed_apply(cfg), model,
+                             WhitespaceTokenizer(), row_len=ROW_LEN,
+                             batch_size=BATCH, compute_dtype=torch.bfloat16,
+                             device=dev, mesh_ctx=ctx)
+    queries = spec["queries"]
+    out["embeddings"] = torch.cat([
+        emb.embed_texts(queries[i: i + BATCH])[: len(queries[i: i + BATCH])]
+        for i in range(0, len(queries), BATCH)]).float().cpu().numpy()
+    pipe = FusedRetrievalPipeline(emb, index, batch_size=BATCH, k=K)
+    pipe.run_arrays(queries)  # warm-up
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    t0 = time.perf_counter()
+    out["pipeline"] = pipe.run_arrays(queries)
+    out["pipeline_s"] = time.perf_counter() - t0
+    out["pipeline_launches"] = b1_launches()
+
+    # the QA program: two kb-sharded legs, fuse_topk, the reader step
+    questions = queries[:SHARD_QA_QUESTIONS]
+    q_face = torch.from_numpy(spec["q_face"]).to(dev)
+    reader = qa_reader(dev, spec["reader_cfg"])
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    t0 = time.perf_counter()
+    q_qa = emb.embed_texts(questions)[: len(questions)]
+    legs = [ix.search_device(qq, *ix.snapshot(), K)
+            for ix, qq in ((index, q_qa), (second, q_face))]
+    _, fused_i = fuse_topk([s for s, _ in legs], [i for _, i in legs],
+                           SHARD_QA_WEIGHTS, READER_M, norm="gzmuv",
+                           valid_queries=len(questions))
+    fused_i = fused_i[: len(questions)].cpu().numpy()
+    pairs = qa_pairs(questions, fused_i,
+                     SyntheticPassages(N_KB, seed=spec["passage_seed"]))
+    probs, spans, rows = qa_read(reader, pairs, dev, ctx)
+    sync(dev)
+    out["qa_s"] = time.perf_counter() - t0
+    out["qa_launches"] = b1_launches()
+    out["qa"] = {"q": q_qa.float().cpu().numpy(), "fused_ids": fused_i,
+                 "canvas_rows": rows,
+                 "probs": [p.float().cpu().numpy() for p in probs],
+                 "spans": [t.cpu().numpy() for t in spans]}
+    del index, second, pipe, emb, model, reader
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) BM25 over the same four ranks
+    host = load_bm25_arrays(spec["bm25_dir"])
+    t0 = time.perf_counter()
+    sparse = bm25_device.ShardedDeviceBM25(
+        host, mesh_ctx=ctx4, q_block=SHARD_BM25_Q_BLOCK, device=dev)
+    sync(dev)
+    out["bm25_build_s"] = time.perf_counter() - t0
+    sparse.search_batch(spec["bm25_queries"][:SHARD_BM25_Q_BLOCK], k=K)
+    t0 = time.perf_counter()
+    out["bm25"] = sparse.search_batch(spec["bm25_queries"], k=K)
+    out["bm25_s"] = time.perf_counter() - t0
+    out["bm25_overflow"] = sparse.last_overflow
+    out["bm25_shard"] = {"d_shard": sparse.d_shard,
+                         "d_shard_pad": sparse.d_shard_pad,
+                         "l_mid": sparse.l_mid, "l_small": sparse.l_small}
+    out["peak_memory_bytes"] = peak_memory(dev)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def run_shard_ranks(spec, workdir) -> list:
+    """Start phase 25's ranks, wait for them within SHARD_TIMEOUT_S (kill
+    them all past it) and read what each measured."""
+    import pickle
+
+    spec_path = workdir / "spec.pkl"
+    spec_path.write_bytes(pickle.dumps(spec))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="2")
+    logs = [open(workdir / f"rank{r}.log", "wb") for r in range(SHARD_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_RANK_CODE, str(spec_path), str(r)],
+        cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(SHARD_RANKS)]
+    deadline = time.monotonic() + SHARD_TIMEOUT_S + 30
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.01))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    results = []
+    for r, p in enumerate(procs):
+        out = workdir / f"rank{r}.pkl"
+        if p.returncode != 0 or not out.exists():
+            tail = (workdir / f"rank{r}.log").read_text(
+                errors="replace")[-3000:]
+            check(False, f"phase 25 rank {r} exited {p.returncode}:\n{tail}")
+        results.append(pickle.loads(out.read_bytes()))
+    return results
+
+
+def phase_sharded_serving(dev, main, bm25_ref, workdir,
+                          cfg=dpr.DPRConfig(), rcfg=qa.ReaderConfig()
+                          ) -> dict:
+    """Phase 25: kb-sharded serving on the one card. (a) A NCCL world of
+    one: topk_sharded(mode="fused") through its shard step (B1), the NCCL
+    all-gather and the merge, bit-equal to phase 5. (b) Four gloo ranks
+    sharing the card (each its own process and CUDA context): B1 on each
+    rank's quarter at kb = 4 with valid_rows 1.5M - 37, bit-equal to one
+    topk_fused over the whole KB; at data = 2 x kb = 2 the serving
+    pipeline with the packed encoder split over data (embeddings within
+    the bf16 bound of phase 5's, results tie-aware against phase 5's) and
+    the QA program (two kb-sharded legs, fuse_topk in gzmuv, the reader
+    step with its canvas rows split over data) against the same program on
+    one device. (c) ShardedDeviceBM25 over the four ranks against phase
+    14's DeviceBM25 by doc id. No number here is a multi-GPU speed."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from viquae_torch.core import mesh
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda" and dev.index is None:  # NCCL and the ranks
+        dev = torch.device("cuda", torch.cuda.current_device())
+    workdir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    q_all = main["q_all"]
+    qb = q_all.to(torch.bfloat16)
+    single = mips.DenseIndex(main_kb(dev), mode="fused", device=dev)
+
+    # (a) a NCCL world of one (gloo when a rehearsal runs on the CPU)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"file://{workdir / 'nccl_rendezvous'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S),
+        **({"device_id": dev} if dev.type == "cuda" else {}))
+    try:
+        ctx = mesh.make_kb_mesh(device=dev)
+
+        def sharded():
+            return mips.topk_sharded(qb, single.matrix, K, mesh_ctx=ctx,
+                                     valid_rows=single.n, mode="fused")
+
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        s, i = sharded()
+        launches_a = b1_launches()
+        log_a = list(ctx.collective_log)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        world_ms = time_ms(sharded, reps=SHARD_REPS)
+        single_ms = time_ms(lambda: mips_fused.topk_fused(
+            qb, single.matrix, K, valid_rows=single.n), reps=SHARD_REPS)
+        route = mesh.collective_route(ctx)
+    finally:
+        dist.destroy_process_group()
+    same_a = bool(np.array_equal(i, main["ids"])
+                  and np.array_equal(s, main["scores"]))
+    emit({"phase": "sharded_world_of_one", "route": route, "kb": 1,
+          "queries": len(qb), "k": K, "b1_launches": launches_a,
+          "collectives": log_a, "bit_equal_to_phase_5": same_a,
+          "batch_ms_topk_sharded": world_ms,
+          "batch_ms_topk_fused_same_call": single_ms,
+          "phase_5_search_ms_1280_queries": main["search_ms"]})
+    check(same_a, "topk_sharded on a NCCL world of one against phase 5")
+    check(launches_a == 1 and log_a == [("all_gather", "kb",
+                                         3 * len(qb) * K * 4)],
+          f"world of one: {launches_a} B1 launches, collectives {log_a}")
+
+    # the single-device references of (b), before the ranks share the card
+    ref_s, ref_i = (t.cpu().numpy() for t in mips_fused.topk_fused(
+        qb, single.matrix, K, valid_rows=SHARD_VALID_ROWS))
+    rng = np.random.default_rng(25)
+    q_face = rng.standard_normal((SHARD_QA_QUESTIONS, SHARD_QA_DIM)).astype(
+        np.float32) / math.sqrt(SHARD_QA_DIM)
+    del single
+    torch.cuda.empty_cache()
+    spec = {"init": f"file://{workdir / 'gloo_rendezvous'}",
+            "dir": str(workdir), "device": str(dev),
+            "sizes": {name: globals()[name] for name in SHARD_SIZES},
+            "dpr_cfg": cfg, "reader_cfg": rcfg,
+            "q": qb.float().cpu().numpy(),
+            "queries": main["queries"], "q_face": q_face, "passage_seed": 4,
+            "bm25_dir": bm25_ref["dir"], "bm25_queries": bm25_ref["queries"]}
+    t0 = time.perf_counter()
+    ranks = run_shard_ranks(spec, workdir)
+    ranks_s = time.perf_counter() - t0
+
+    # (b) kb = 4: B1 a quarter each, bit-equal to one topk_fused
+    for r, res in enumerate(ranks):
+        check(res["route"] == ("gloo-cuda-staged" if dev.type == "cuda"
+                               else "gloo"), f"rank {r}: {res['route']}")
+        check(np.array_equal(res["kb4"][1], ref_i)
+              and np.array_equal(res["kb4"][0], ref_s),
+              f"rank {r}: kb = 4 top-{K} against one topk_fused")
+        check(res["kb4_launches"] == 1 and res["kb4_log"] == [
+            ("all_gather", "kb", 3 * SHARD_RANKS * len(qb) * K * 4)],
+            f"rank {r}: kb = 4 launches {res['kb4_launches']}, collectives "
+            f"{res['kb4_log']}")
+
+    # data = 2 x kb = 2: embeddings split over data, the pipeline end to end
+    q_ref = q_all.float().cpu()
+    n_batches = -(-len(main["queries"]) // BATCH)
+    e2e = []
+    for r, res in enumerate(ranks):
+        got = torch.from_numpy(res["embeddings"])
+        close = torch.allclose(got, q_ref, rtol=2e-2, atol=2e-2)
+        scores, ids = res["pipeline"]
+        agreement = tie_aware_agreement(ids, scores, main["ids"],
+                                        main["scores"])
+        e2e.append({"embedding_max_abs_diff": float(
+            (got - q_ref).abs().max()), "embedding_allclose_2e-2": close,
+            "vs_phase_5": agreement})
+        check(close, f"rank {r}: embeddings split over data")
+        check(tie_aware_ok(agreement),
+              f"rank {r}: data = 2 x kb = 2 pipeline: {agreement}")
+        check(res["pipeline_launches"] == n_batches,
+              f"rank {r}: {res['pipeline_launches']} B1 launches for "
+              f"{n_batches} batches")
+
+    # the QA program on one device, from rank 0's question vectors
+    qa0 = ranks[0]["qa"]
+    for r, res in enumerate(ranks[1:], 1):
+        check(np.array_equal(res["qa"]["fused_ids"], qa0["fused_ids"]),
+              f"rank {r}: QA fused ids differ from rank 0's")
+    single = mips.DenseIndex(main_kb(dev), mode="fused", device=dev)
+    second = mips.DenseIndex(main_kb(dev, seed=2, dim=SHARD_QA_DIM),
+                             mode="fused", device=dev)
+    q_qa = torch.from_numpy(qa0["q"]).to(dev)
+    legs = [ix.search_device(qq, *ix.snapshot(), K) for ix, qq in (
+        (single, q_qa), (second, torch.from_numpy(q_face).to(dev)))]
+    _, one_i = fuse_topk([s for s, _ in legs], [i for _, i in legs],
+                         SHARD_QA_WEIGHTS, READER_M, norm="gzmuv",
+                         valid_queries=SHARD_QA_QUESTIONS)
+    one_i = one_i[:SHARD_QA_QUESTIONS].cpu().numpy()
+    # B1 against its plain version at the depths and shard heights the
+    # ranks gave it: the 512-wide leg whole (the one-device reference
+    # above), its last shard at data = 2 x kb = 2, and the last, part
+    # padding, shard of the 768-wide KB at kb = 4
+    q_face_b = torch.from_numpy(q_face).to(dev).to(torch.bfloat16)
+    kb2_last, kb2_valid = last_shard(second.matrix, second.n, 2)
+    kb4_last, kb4_valid = last_shard(single.matrix, SHARD_VALID_ROWS,
+                                     SHARD_RANKS)
+    rank_shapes = [
+        b1_against_plain(q_face_b, second.matrix, second.n,
+                         "QA second leg, one device", legs[1]),
+        b1_against_plain(q_face_b, kb2_last, kb2_valid,
+                         "QA second leg, last shard at kb = 2"),
+        b1_against_plain(qb, kb4_last, kb4_valid, "last shard at kb = 4")]
+    del single, second, legs, kb2_last, kb4_last
+    torch.cuda.empty_cache()
+    fused_equal = bool(np.array_equal(one_i, qa0["fused_ids"]))
+    check(fused_equal, "the QA program's fused ids against one device")
+    reader = qa_reader(dev, rcfg)
+    probs, spans, one_rows = qa_read(
+        reader, qa_pairs(main["queries"][:SHARD_QA_QUESTIONS], one_i,
+                         SyntheticPassages(N_KB, seed=4)), dev)
+    del reader
+    spans_agree = []
+    for res in ranks:
+        r_probs = [torch.from_numpy(p).to(dev) for p in res["qa"]["probs"]]
+        r_spans = [torch.from_numpy(t).to(dev) for t in res["qa"]["spans"]]
+        spans_agree.append(span_agreement(r_spans, r_probs, spans, probs,
+                                          SPAN_RTOL[torch.bfloat16]))
+        check(spans_agree[-1]["agree_share"] == 1.0,
+              f"QA spans against one device: {spans_agree[-1]}")
+        check(res["qa_launches"] == 2, f"QA legs launched B1 "
+              f"{res['qa_launches']} times (one a leg)")
+
+    # (c) ShardedDeviceBM25 against phase 14's DeviceBM25, by doc id
+    bm25_agree = []
+    for r, res in enumerate(ranks):
+        s_lists, i_lists = res["bm25"]
+        agree = by_doc_agreement(i_lists, s_lists, bm25_ref["ids"],
+                                 bm25_ref["scores"])
+        bm25_agree.append(agree)
+        check(agree["mean_shared_share"] >= 0.999
+              and agree["min_shared_share"] >= 0.9
+              and agree["max_relative_score_diff"] <= 2e-2,
+              f"rank {r}: ShardedDeviceBM25 against DeviceBM25: {agree}")
+    launches = {"world_of_one_nccl": launches_a,
+                "kb4_per_rank": [r["kb4_launches"] for r in ranks],
+                "data2_kb2_pipeline_per_rank":
+                    [r["pipeline_launches"] for r in ranks],
+                "qa_legs_per_rank": [r["qa_launches"] for r in ranks]}
+    emit({"phase": "sharded_serving",
+          "label": "4 ranks sharing one H100 over gloo; not a multi-GPU "
+                   "speed",
+          "route": ranks[0]["route"], "kb_rows": N_KB,
+          "valid_rows": SHARD_VALID_ROWS,
+          "kb4_shard_rows": ranks[0]["kb4_shard_rows"],
+          "kb4_bit_equal_to_topk_fused": True,
+          "kb4_batch_ms_per_rank": [r["kb4_ms"] for r in ranks],
+          "data2_kb2": e2e,
+          "pipeline_s_per_rank": [r["pipeline_s"] for r in ranks],
+          "b1_vs_plain_at_rank_shapes": rank_shapes,
+          "qa": {"questions": SHARD_QA_QUESTIONS, "m": READER_M,
+                 "second_index_dim": SHARD_QA_DIM,
+                 "fused_ids_equal_one_device": fused_equal,
+                 "canvas_rows": ranks[0]["qa"]["canvas_rows"],
+                 "one_device_canvas_rows": one_rows,
+                 "span_agreement_per_rank": spans_agree,
+                 "seconds_per_rank": [r["qa_s"] for r in ranks]},
+          "bm25": {"q_block": SHARD_BM25_Q_BLOCK,
+                   "shard": ranks[0]["bm25_shard"],
+                   "build_s_per_rank": [r["bm25_build_s"] for r in ranks],
+                   "search_s_per_rank": [r["bm25_s"] for r in ranks],
+                   "queries": len(bm25_ref["queries"]),
+                   "overflow_per_rank": [r["bm25_overflow"] for r in ranks],
+                   "single_device_overflow": bm25_ref["overflow"],
+                   "vs_device_bm25_by_doc": bm25_agree},
+          "b1_launches": launches,
+          "rank_seconds": [r["seconds"] for r in ranks],
+          "ranks_wall_s": ranks_s,
+          "peak_memory_bytes_per_rank":
+              [r["peak_memory_bytes"] for r in ranks],
+          "parent_peak_memory_bytes": peak_memory(dev),
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def bm25_reference(sparse, workdir) -> dict:
+    """What phase 25 holds ShardedDeviceBM25 to: phase 14's queries and
+    DeviceBM25 lists at SHARD_BM25_Q_BLOCK, and the host index as raw
+    arrays for the ranks."""
+    scorer = sparse["scorers"][SHARD_BM25_Q_BLOCK]
+    scores, ids = scorer.search_batch(sparse["queries"], k=K)
+    save_bm25_arrays(sparse["index"], workdir / "bm25")
+    return {"dir": workdir / "bm25", "queries": sparse["queries"],
+            "scores": scores, "ids": ids, "overflow": scorer.last_overflow}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    import tempfile
+    from pathlib import Path
+
     phase_device()
     phase_build()
     dev = torch.device("cuda")
@@ -4593,27 +5157,30 @@ def main() -> int:
         "exact_retrieval_stream": main_path["stream_launches"],
         **phase_answer_path(dev, main_path, shared)})
     reader_peak = torch.cuda.max_memory_allocated()
-    sparse = phase_bm25(dev)
-    launches_by_path.update(phase_hybrid(dev, main_path, sparse))
-    launches_by_path.update(phase_server(dev, main_path, sparse, shared))
-    sparse_peak = torch.cuda.max_memory_allocated()
-    del sparse
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    chain = phase_towers(dev)
-    fusion = phase_image_fusion(dev, main_path, chain)
-    launches_by_path["image_fusion"] = fusion["launches"]
-    launches_by_path.update(phase_vqa_server(dev, main_path, shared, fusion))
-    image_peak = torch.cuda.max_memory_allocated()
-    del chain, fusion
-    torch.cuda.empty_cache()
-    import tempfile
-    from pathlib import Path
-
-    t0 = time.perf_counter()
+    # one scratch directory for the rest: phase 25's BM25 arrays and ranks,
+    # the tokenizer, the CLI and training files
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=Path(__file__).parent) as tmp:
         workdir = Path(tmp)
+        sparse = phase_bm25(dev)
+        launches_by_path.update(phase_hybrid(dev, main_path, sparse))
+        launches_by_path.update(phase_server(dev, main_path, sparse,
+                                             shared))
+        sparse_peak = torch.cuda.max_memory_allocated()
+        bm25_ref = bm25_reference(sparse, workdir)
+        del sparse
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        chain = phase_towers(dev)
+        fusion = phase_image_fusion(dev, main_path, chain)
+        launches_by_path["image_fusion"] = fusion["launches"]
+        launches_by_path.update(phase_vqa_server(dev, main_path, shared,
+                                                 fusion))
+        image_peak = torch.cuda.max_memory_allocated()
+        del chain, fusion
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
         tokenizer = bert_vocab_tokenizer(workdir / "tok",
                                          dpr.DPRConfig().bert.vocab_size)
         launches_by_path["early_fusion"] = phase_early_fusion(
@@ -4644,6 +5211,10 @@ def main() -> int:
             "b2": mips_fused.fused_score_segmax.launches}
         emit({"phase": "auxiliary_seconds",
               "seconds": time.perf_counter() - t0})
+        # phase 25, with every earlier phase's tensors freed
+        torch.cuda.empty_cache()
+        launches_by_path["sharded_serving"] = phase_sharded_serving(
+            dev, main_path, bm25_ref, workdir / "sharded")
     kernels[0]["launches_by_path"] = launches_by_path
     emit({"phase": "device_memory",
           "max_memory_allocated_reader_phases": reader_peak,

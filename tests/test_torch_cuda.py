@@ -92,6 +92,55 @@ def test_topk_fused_on_gpu_matches_plain_selection(cuda):
             np.testing.assert_array_equal(i.cpu().numpy(), pi.cpu().numpy())
 
 
+@pytest.mark.parametrize("valid,k", [(0, 30), (70, 300)],
+                         ids=["valid_rows_0", "k_over_valid_rows"])
+def test_topk_fused_on_gpu_pads_with_sentinels_like_plain(cuda, valid, k):
+    """A kb shard whose padding spans all of it (valid_rows 0) and k above
+    a shard's valid rows: B1 through topk_fused equals the plain twin,
+    and every lane past the valid rows is (-inf, INT32_MAX)."""
+    q, kb = _int_inputs(cuda, 50, 2048, 64, seed=5)
+    s, i = tmf.topk_fused(q, kb, k, valid_rows=valid)
+    ps, pi = tmf.segment_topk(
+        *tmf.fused_score_segmax_qmajor_plain(q, kb, valid), k)
+    assert s.shape == i.shape == (50, k)
+    np.testing.assert_array_equal(s.cpu().numpy(), ps.cpu().numpy())
+    np.testing.assert_array_equal(i.cpu().numpy(), pi.cpu().numpy())
+    i, s = i.cpu().numpy(), s.cpu().numpy()
+    assert (i[:, valid:] == tm.INT32_MAX).all()
+    assert np.isneginf(s[:, valid:]).all()
+    assert (np.sort(i[:, :valid], 1) == np.arange(valid)).all()
+
+
+def test_topk_sharded_on_a_nccl_world_of_one(cuda, tmp_path):
+    """topk_sharded(mode="fused") through its shard step (B1), the NCCL
+    all-gather and the merge on a kb = 1 mesh equals topk_fused bit for
+    bit, one launch and one candidate gather."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from viquae_torch.core import mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        ctx = mesh.make_kb_mesh(device=cuda)
+        assert ctx.distributed and mesh.collective_route(ctx) == "nccl"
+        q, kb = _int_inputs(cuda, 50, 2048, 64, seed=7)
+        before = tmf.fused_score_segmax_qmajor.launches
+        s, i = tm.topk_sharded(q, kb, 30, mesh_ctx=ctx, valid_rows=2000,
+                               mode="fused")
+        torch.cuda.synchronize()
+        assert tmf.fused_score_segmax_qmajor.launches == before + 1
+        assert list(ctx.collective_log) == [("all_gather", "kb", 3 * 50 * 30 * 4)]
+        one_s, one_i = tmf.topk_fused(q, kb, 30, valid_rows=2000)
+        assert torch.equal(s, one_s) and torch.equal(i, one_i)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_dense_index_on_gpu_matches_cpu(cuda):
     rng = np.random.default_rng(0)
     kb = rng.integers(-4, 5, (1000, 32)).astype(np.float32)

@@ -1,8 +1,9 @@
 """The retrieval runtime (viquae_torch/ir/search.py, ir/metrics.py,
 ir/fuse.py) against the JAX package's on the same KB and query batch: the
 same runs (ids equal, scores within 1e-5), qrels, metrics and files. The
-IVF factories build the IVF index; the sharded BM25 scorer, not ported,
-refuses by name; the device BM25 scorer is built behind the BM25 seam."""
+IVF factories build the IVF index; the device BM25 scorers (one device and
+kb-sharded) are built behind the BM25 seam; a kind neither package has is
+refused by name."""
 import json
 
 import jax.numpy as jnp
@@ -353,15 +354,36 @@ def test_dense_and_bm25_indexes_save_and_load(setup, tmp_path):
 
 
 @pytest.mark.parametrize("index_kwargs,item", [
-    (dict(column="passage", kind="BM25", device="sharded"), "A17"),
+    (dict(column="passage", kind="HNSW"), "HNSW"),
 ])
 def test_engines_that_are_not_ported_refuse_by_name(setup, index_kwargs,
                                                     item):
-    """No other engine is put in the place of the one the config names."""
+    """No other engine is put in the place of the one the config names:
+    an index kind that neither package has is refused by its name, by the
+    port as by the JAX package."""
     kb, _ = setup
-    with pytest.raises(NotImplementedError, match=item):
-        t_search.KnowledgeBase(kb, device="cpu",
-                               index_kwargs={"index": index_kwargs})
+    for package in (t_search, j_search):
+        with pytest.raises(KeyError, match=item):
+            package.KnowledgeBase(kb, index_kwargs={
+                "index": dict(index_kwargs)},
+                **({"device": "cpu"} if package is t_search else {}))
+
+
+def test_sharded_bm25_config_builds_the_sharded_scorer(setup):
+    """BM25 with ``device: "sharded"`` builds ShardedDeviceBM25 over the
+    ambient mesh, a world of one here, and retrieves what the host index
+    retrieves."""
+    from viquae_torch.ops.bm25_device import ShardedDeviceBM25
+
+    kb, _ = setup
+    port = t_search.KnowledgeBase(kb, device="cpu", index_kwargs={
+        "index": dict(column="passage", kind="BM25", device="sharded")})
+    backend = port.indexes["index"].backend
+    assert isinstance(backend, ShardedDeviceBM25)
+    assert backend.ctx.kb_size == 1 and not backend.ctx.distributed
+    query = [kb["passage"][3][:40]]
+    _, ids = port.search_batch("index", query, k=5)
+    assert ids[0] == backend.index.search_batch(query, k=5)[1][0]
 
 
 @pytest.mark.parametrize("factory", ["IVF64,Flat", "L2norm,IVF16,Flat"])

@@ -25,11 +25,19 @@ construction, annotation and viz commands).
 ``--device`` names where everything a command builds lives; the default
 is the GPU (``core.device.resolve_device``), and without one the CLI
 refuses to run unless ``--device cpu`` is given.
+
+Under ``torchrun --nproc-per-node N -m viquae_torch ...`` (``WORLD_SIZE``
+set) the CLI joins the process group (``core.mesh.init_from_env``: NCCL,
+one GPU a rank, or gloo with ``--device cpu``) and runs ``serve`` or
+``answer`` on a ``kb`` mesh of the whole world: every dense index is
+row-split over the ranks, and BM25 too with ``"device": "sharded"``. Only
+rank 0 writes outputs and prints. The other commands run on one process.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
 from viquae_torch.core.config import load_config
@@ -196,14 +204,17 @@ def _build_hybrid_pipeline(config, embedder, batch_size, k, device,
         bm = bm25_lib.BM25Index.build(
             ds[bcfg.get("column", "passage")], **hyper)
     if bcfg.get("device"):
-        # score BM25 on the card (ops/bm25_device.py); the host index
-        # stays inside as the exact overflow fallback
-        from viquae_torch.ops.bm25_device import DeviceBM25
+        # score BM25 on the card (ops/bm25_device.py), or over the mesh's
+        # kb axis with "sharded"; the host index stays inside as the exact
+        # overflow fallback
+        from viquae_torch.ops.bm25_device import DeviceBM25, ShardedDeviceBM25
 
         dev_kwargs = {key: bcfg[key]
                       for key in ("n_head", "l_small", "l_mid", "pool_mid",
                                   "pool_small", "q_block") if key in bcfg}
-        bm = DeviceBM25(bm, device=device, **dev_kwargs)
+        scorer = (ShardedDeviceBM25 if bcfg["device"] == "sharded"
+                  else DeviceBM25)
+        bm = scorer(bm, device=device, **dev_kwargs)
     index = _build_dense_index(config.pop("index"), device,
                                default_mode=default_mode)
     stats = config.pop("stats", None)
@@ -279,9 +290,10 @@ def cmd_serve(args):
         pipeline = FusedRetrievalPipeline(embedder, index,
                                           batch_size=args.batch, k=args.k)
         run = pipeline.run(ids, queries)
-    run.save(args.output)
-    print(json.dumps({"queries": len(queries),
-                      "stages": pipeline.report()}))
+    if _writes():
+        run.save(args.output)
+        print(json.dumps({"queries": len(queries),
+                          "stages": pipeline.report()}))
 
 
 def cmd_answer(args):
@@ -333,10 +345,11 @@ def cmd_answer(args):
     results = pipeline.run(queries, **run_kwargs)
     for r, q in zip(results, queries):
         r["question"] = q
-    with open(args.output, "w") as f:
-        json.dump(results, f, indent=1)
-    print(json.dumps({"queries": len(queries),
-                      "stages": pipeline.report()}))
+    if _writes():
+        with open(args.output, "w") as f:
+            json.dump(results, f, indent=1)
+        print(json.dumps({"queries": len(queries),
+                          "stages": pipeline.report()}))
 
 
 def cmd_fuse(args):
@@ -634,9 +647,36 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+# the commands that run on a mesh of torchrun's world
+_MESH_COMMANDS = ("serve", "answer")
+
+
+def _writes() -> bool:
+    """Whether this process writes outputs: rank 0 of the mesh."""
+    from viquae_torch.core import mesh
+
+    return mesh.current().rank == 0
+
+
 def main(argv=None):
     args = parse_args(argv)
-    args.fn(args)
+    if "WORLD_SIZE" not in os.environ:
+        args.fn(args)
+        return
+    import torch.distributed as dist
+
+    from viquae_torch.core import mesh
+
+    if args.command not in _MESH_COMMANDS and int(
+            os.environ["WORLD_SIZE"]) > 1:
+        raise SystemExit(f"{args.command!r} runs on one process; under "
+                         f"torchrun only {list(_MESH_COMMANDS)} run")
+    args.device = mesh.init_from_env(args.device)
+    try:
+        with mesh.use(mesh.make_kb_mesh(device=args.device)):
+            args.fn(args)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

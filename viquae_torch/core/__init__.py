@@ -1,1 +1,2 @@
-"""Device choice and precision, wall-clock stage timing."""
+"""Device choice and precision, the device mesh and its collectives,
+wall-clock stage timing."""

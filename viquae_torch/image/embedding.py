@@ -18,6 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from viquae_torch.core import mesh as meshlib
 from viquae_torch.core.device import resolve_device, upload
 from viquae_torch.data.loading import load_image_batch
 from viquae_torch.ops import image as image_ops
@@ -78,6 +79,7 @@ class ImageEmbedder:
         batch_size: int = 64,
         compute_dtype=torch.float32,
         device=None,
+        mesh_ctx=None,
     ):
         self.apply_fn = apply_fn
         self.params = params
@@ -87,7 +89,11 @@ class ImageEmbedder:
         self.preprocessing = preprocessing
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
-        self.device = resolve_device(device)
+        # on a data axis of several ranks, each batch's rows are split
+        # over it and the embeddings gathered back in order
+        self.mesh_ctx = mesh_ctx or meshlib.current()
+        self.device = resolve_device(
+            device if device is not None else self.mesh_ctx.device)
         # host-side decode target == model input: the reference transform
         # is shorter-side Resize(size)+CenterCrop(size) for BOTH imagenet
         # and clip — no 256-resize intermediate
@@ -143,8 +149,10 @@ class ImageEmbedder:
             decoded_chunks(), buffer_size=2
         ):
             if batch is not None:
-                emb = self._forward(self.params, upload(batch, self.device))
-                emb = emb[: len(idx)].float().cpu().numpy()
+                emb = self._forward(self.params, upload(
+                    meshlib.split_rows(self.mesh_ctx, batch), self.device))
+                emb = meshlib.gather_rows(self.mesh_ctx, emb, len(idx))
+                emb = emb.float().cpu().numpy()
                 rows = np.full((n_chunk, emb.shape[1]), np.nan, np.float32)
                 for j, i in enumerate(idx):
                     rows[i] = emb[j]

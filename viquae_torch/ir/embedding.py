@@ -14,6 +14,14 @@ precomputed image features from the article KB through ``batch['index']``
 and ``expand_query`` appends the top-1 entity name of a visual run to the
 text query. ``MMEmbedder`` embeds the multimodal ECA / ILF encoders'
 inputs: text + precomputed face/image features, padded or packed.
+
+The ``data`` axis: on a mesh (``mesh_ctx``, default ``core.mesh.current()``)
+whose ``data`` axis has more than one rank, every embedder splits each
+batch's rows over it (a batch that does not divide evenly is padded), each
+rank encodes its rows, and the outputs are gathered back in order on every
+rank — what the reference computes by sharding the batch over ``data``
+with replicated outputs. Every rank of the axis must then embed the same
+batches, in the same order.
 """
 from __future__ import annotations
 
@@ -23,8 +31,16 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from viquae_torch.core import mesh as meshlib
 from viquae_torch.core.device import resolve_device, upload
 from viquae_torch.ops import packing
+
+
+def _mesh_device(mesh_ctx, device):
+    """(mesh, device) of an embedder: the ambient mesh by default, and its
+    device unless the caller names one."""
+    ctx = mesh_ctx or meshlib.current()
+    return ctx, resolve_device(device if device is not None else ctx.device)
 
 
 def pad_batch(arrays: Dict[str, np.ndarray], batch_size: int
@@ -64,6 +80,7 @@ class TextEmbedder:
         extra_input_fn: Optional[Callable] = None,
         layers: Optional[list] = None,
         device=None,
+        mesh_ctx=None,
     ):
         self.apply_fn = apply_fn
         self.params = params
@@ -76,7 +93,7 @@ class TextEmbedder:
         self.compute_dtype = compute_dtype
         self.extra_input_fn = extra_input_fn
         self.layers = layers
-        self.device = resolve_device(device)
+        self.mesh_ctx, self.device = _mesh_device(mesh_ctx, device)
 
     @torch.no_grad()
     def _forward(self, input_ids, attention_mask, token_type_ids):
@@ -141,14 +158,13 @@ class TextEmbedder:
             sub = texts[start: start + self.batch_size]
             enc, n_real = pad_batch(self.tokenize(sub), self.batch_size)
             out = self._forward(*(
-                upload(enc[name], self.device)
+                upload(meshlib.split_rows(self.mesh_ctx, enc[name]),
+                       self.device)
                 for name in ("input_ids", "attention_mask",
                              "token_type_ids")))
-            if self.layers:
-                chunks.append([o.float().cpu().numpy()[:n_real]
-                               for o in out])
-            else:
-                chunks.append(out.float().cpu().numpy()[:n_real])
+            rows = [meshlib.gather_rows(self.mesh_ctx, o, n_real).float(
+                ).cpu().numpy() for o in (out if self.layers else (out,))]
+            chunks.append(rows if self.layers else rows[0])
         if self.layers:
             return [
                 np.concatenate([c[i] for c in chunks], axis=0)
@@ -176,11 +192,15 @@ class PackedTextEmbedder:
         compute_dtype=torch.bfloat16,
         fixed_rows: Optional[int] = None,
         device=None,
+        mesh_ctx=None,
     ):
         """``fixed_rows`` pins the canvas height to ONE shape (size it at
         the stream's p99 token budget); the ROWS_GRANULARITY ladder is the
         adaptive default. A batch that overflows the pinned canvas is
-        packed on the ladder instead."""
+        packed on the ladder instead. On a ``data`` axis of more than one
+        rank each rank packs its block of the batch's CLS slots (its own
+        canvas; ``fixed_rows`` is then a rank's canvas height) and
+        :meth:`forward` gathers every rank's vectors in slot order."""
         self.packed_apply_fn = packed_apply_fn
         self.params = params
         self.tokenizer = tokenizer
@@ -188,29 +208,34 @@ class PackedTextEmbedder:
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
         self.fixed_rows = fixed_rows
-        self.device = resolve_device(device)
+        self.mesh_ctx, self.device = _mesh_device(mesh_ctx, device)
 
     def pack(self, texts) -> packing.PackedBatch:
         """Host side only: tokenize without padding + pack into a canvas
-        rounded to ROWS_GRANULARITY rows (or the pinned ``fixed_rows``)."""
+        rounded to ROWS_GRANULARITY rows (or the pinned ``fixed_rows``);
+        on a ``data`` axis, this rank's block of the texts only."""
         if len(texts) > self.batch_size:
             raise ValueError(f"{len(texts)} texts > batch_size "
                              f"{self.batch_size}")
+        start, n_cls = meshlib.row_share(self.mesh_ctx, self.batch_size)
+        texts = list(texts)[start: start + n_cls]
+        # a rank whose block of a short batch is empty packs no text (a
+        # tokenizer may refuse an empty list)
         enc = self.tokenizer(
-            list(texts), truncation=True, max_length=self.row_len,
-        )["input_ids"]
+            texts, truncation=True, max_length=self.row_len,
+        )["input_ids"] if texts else []
         seqs = [np.asarray(s, np.int32) for s in enc]
         if self.fixed_rows is not None:
             try:
                 return packing.pack_token_sequences(
                     seqs, self.row_len, n_rows=self.fixed_rows,
-                    n_cls=self.batch_size,
+                    n_cls=n_cls,
                 )
             except ValueError:  # batch overflows the pinned canvas
                 pass
         return packing.pack_token_sequences(
             seqs, self.row_len, n_rows=None,
-            pad_rows_to=self.ROWS_GRANULARITY, n_cls=self.batch_size,
+            pad_rows_to=self.ROWS_GRANULARITY, n_cls=n_cls,
         )
 
     def upload(self, p: packing.PackedBatch):
@@ -226,8 +251,9 @@ class PackedTextEmbedder:
         """The packed forward on uploaded canvas tensors -> (n_cls, D) f32.
         Grad mode is off here, not around the caller: it is per thread, and
         the serving loop calls this from its prefetch thread."""
-        return self.packed_apply_fn(self.params, ids, seg, pos, cr, cc,
-                                    compute_dtype=self.compute_dtype)
+        out = self.packed_apply_fn(self.params, ids, seg, pos, cr, cc,
+                                   compute_dtype=self.compute_dtype)
+        return meshlib.gather_rows(self.mesh_ctx, out, self.batch_size)
 
     def embed_texts(self, texts) -> torch.Tensor:
         """(batch_size, D) on the device; rows past len(texts) are garbage
@@ -304,7 +330,7 @@ class MMEmbedder:
                  key: str = "input", save_as: str = "mm_embedding",
                  max_length: int = 256, batch_size: int = 64,
                  compute_dtype=torch.float32, kb=None, kb_features=None,
-                 packed_bundle=None, device=None):
+                 packed_bundle=None, device=None, mesh_ctx=None):
         self.apply_fn = apply_fn
         self.params = params
         self.tokenizer = tokenizer
@@ -319,7 +345,7 @@ class MMEmbedder:
         self.packed_bundle = packed_bundle
         self._needs_vis = bool(
             getattr(packed_bundle, "PACKED_NEEDS_VIS", False))
-        self.device = resolve_device(device)
+        self.mesh_ctx, self.device = _mesh_device(mesh_ctx, device)
 
     def _row_budget(self, rows: int) -> int:
         """Sticky monotone canvas row budget (few canvas shapes)."""
@@ -329,13 +355,15 @@ class MMEmbedder:
         return pinned
 
     def prepare(self, chunk) -> dict:
-        """Host side of one chunk of item dicts: pad to ``batch_size``,
-        tokenize, format the features, pack (packed mode). numpy only."""
+        """Host side of one chunk of item dicts: pad to ``batch_size``
+        (on a ``data`` axis: this rank's block of it), tokenize, format the
+        features, pack (packed mode). numpy only."""
         from viquae_torch.train.data import (mm_visual_mask,
                                              pack_mm_text_inputs)
 
-        chunk = list(chunk) + [{self.key: ""}] * (self.batch_size
-                                                   - len(chunk))
+        start, size = meshlib.row_share(self.mesh_ctx, self.batch_size)
+        chunk = list(chunk)[start: start + size]
+        chunk += [{self.key: ""}] * (size - len(chunk))
         enc = self.tokenizer(
             [item.get(self.key, "") for item in chunk],
             padding="max_length", truncation=True,
@@ -365,7 +393,12 @@ class MMEmbedder:
 
     @torch.no_grad()
     def forward(self, host: dict) -> torch.Tensor:
-        """Device side: (batch_size, D) f32 on the embedder's device."""
+        """Device side: (batch_size, D) f32 on the embedder's device
+        (every rank's block, gathered over ``data``)."""
+        return meshlib.gather_rows(self.mesh_ctx, self._encode(host),
+                                   self.batch_size)
+
+    def _encode(self, host: dict) -> torch.Tensor:
         def put(tree):
             if isinstance(tree, dict):
                 return {k: put(v) for k, v in tree.items()}

@@ -11,12 +11,14 @@ Searcher :296-459, dataset_search :462-524) on one GPU:
 - Elasticsearch/pyserini BM25 -> :class:`viquae_torch.ops.bm25.BM25Index`
   (in-repo inverted index, scored on the host) or, with ``device: true``,
   :class:`viquae_torch.ops.bm25_device.DeviceBM25` (scored on the card),
-  behind the same `IndexKind` seam.
+  or, with ``device: "sharded"``,
+  :class:`~viquae_torch.ops.bm25_device.ShardedDeviceBM25` (the corpus
+  split over the mesh's ``kb`` axis), behind the same `IndexKind` seam.
 - ranx -> :mod:`viquae_torch.rankeval`.
 
-Not ported yet, and refused by name rather than served by another engine:
-BM25 with ``device: "sharded"`` (ROADMAP.md A17b, the multi-GPU scorer).
-The mesh argument of the JAX classes is a ``device`` here.
+``KnowledgeBase`` and ``Searcher`` take the JAX classes' ``mesh_ctx``
+(default: ``core.mesh.current()``) and hand it to the dense indexes and to
+BM25; ``device`` names where they live (the mesh's device by default).
 
 Kept behaviors: per-batch search over dataset columns, None-query masking,
 article->passage `index_mapping` expansion (one2many with 1e-8 rank-decay
@@ -100,11 +102,15 @@ class KnowledgeBase:
     index_mapping_path: JSON mapping article index -> passage indices
         (or the inverse when `many2one='max'`).
     index_kwargs: {index_name: kwargs for `add_or_load_index`}.
-    device: where dense indexes live; the GPU unless the caller names one.
+    device: where dense indexes live; the GPU unless the caller (or the
+        mesh) names one.
+    mesh_ctx: the mesh the indexes are split over (a dense index over its
+        ``kb`` axis, BM25 with ``device: "sharded"``).
     """
 
     def __init__(self, kb_path=None, index_mapping_path=None, many2one=None,
-                 index_kwargs=None, load_dataset: bool = True, device=None):
+                 index_kwargs=None, load_dataset: bool = True, device=None,
+                 mesh_ctx=None):
         if load_dataset and kb_path is not None:
             if isinstance(kb_path, (str, Path)):
                 from datasets import load_from_disk
@@ -114,7 +120,9 @@ class KnowledgeBase:
                 self.dataset = kb_path
         else:
             self.dataset = None
-        self.device = device
+        self.device = (device if device is not None or mesh_ctx is None
+                       else mesh_ctx.device)
+        self.mesh_ctx = mesh_ctx
         self.indexes: Dict[str, Index] = {}
         if index_mapping_path is None:
             self.index_mapping = None
@@ -160,14 +168,15 @@ class KnowledgeBase:
                         or Path(str(load_path) + ".npz").exists()
                     ):
                         backend = ivf_lib.IVFFlatIndex.load(
-                            load_path, device=self.device, **index_kwargs)
+                            load_path, device=self.device,
+                            mesh_ctx=self.mesh_ctx, **index_kwargs)
                     else:
                         vectors = np.asarray(self.dataset[column],
                                              dtype=np.float32)
                         backend = ivf_lib.IVFFlatIndex(
                             vectors, nlist=int(ivf_match.group(1)),
                             do_l2norm=do_l2norm, device=self.device,
-                            **index_kwargs)
+                            mesh_ctx=self.mesh_ctx, **index_kwargs)
                         if save_path:
                             backend.save(save_path)
                     self.indexes[index_name] = Index(
@@ -200,13 +209,14 @@ class KnowledgeBase:
                     or Path(str(load_path) + ".npz").exists()
                 ):
                     backend = mips.DenseIndex.load(
-                        load_path, device=self.device, **index_kwargs
+                        load_path, device=self.device,
+                        mesh_ctx=self.mesh_ctx, **index_kwargs
                     )
                 else:
                     vectors = np.asarray(self.dataset[column], dtype=np.float32)
                     backend = mips.DenseIndex(
                         vectors, do_l2norm=do_l2norm, device=self.device,
-                        **index_kwargs,
+                        mesh_ctx=self.mesh_ctx, **index_kwargs,
                     )
                     if save_path:
                         backend.save(save_path)
@@ -225,8 +235,9 @@ class KnowledgeBase:
 
                 load_path = index_kwargs.pop("load_path", None)
                 save_path = index_kwargs.pop("save_path", None)
-                # device=True scores on the card (ops/bm25_device.py);
-                # device_kwargs pass through to DeviceBM25 (n_head, ...)
+                # device=True scores on the card (ops/bm25_device.py),
+                # device="sharded" over the mesh's kb axis; device_kwargs
+                # pass through to the scorer (n_head, ...)
                 device = index_kwargs.pop("device", False)
                 device_kwargs = {
                     key_: index_kwargs.pop(key_)
@@ -234,11 +245,6 @@ class KnowledgeBase:
                                  "pool_small", "q_block")
                     if key_ in index_kwargs
                 }
-                if device == "sharded":
-                    raise NotImplementedError(
-                        "BM25 with device='sharded': the multi-GPU scorer "
-                        "(ShardedDeviceBM25) is not ported yet (ROADMAP.md "
-                        "A17b); use device=True for one card")
                 if load_path and Path(load_path).exists():
                     backend = bm25.BM25Index.load(load_path, **index_kwargs)
                 else:
@@ -247,7 +253,14 @@ class KnowledgeBase:
                     )
                     if save_path:
                         backend.save(save_path)
-                if device:
+                if device == "sharded":
+                    from viquae_torch.ops.bm25_device import (
+                        ShardedDeviceBM25)
+
+                    backend = ShardedDeviceBM25(
+                        backend, mesh_ctx=self.mesh_ctx, device=self.device,
+                        **device_kwargs)
+                elif device:
                     from viquae_torch.ops.bm25_device import DeviceBM25
 
                     backend = DeviceBM25(backend, device=self.device,
@@ -312,7 +325,8 @@ class Searcher:
                  qrels: Optional[str] = None, qnonrels: Optional[str] = None,
                  fusion_kwargs: Optional[dict] = None,
                  metrics_kwargs: Optional[dict] = None,
-                 do_fusion: Optional[bool] = None, device=None):
+                 do_fusion: Optional[bool] = None, device=None,
+                 mesh_ctx=None):
         self.k = k
         self.kbs: Dict[str, KnowledgeBase] = {}
         self.qrels = json.load(open(qrels)) if qrels else {}
@@ -330,7 +344,8 @@ class Searcher:
             if rp in resolved:
                 raise ValueError(f"duplicate KB path {kb_path}")
             resolved.add(rp)
-            kb = KnowledgeBase(kb_source, device=device, **kb_kwarg)
+            kb = KnowledgeBase(kb_source, device=device,
+                               mesh_ctx=mesh_ctx, **kb_kwarg)
             self.kbs[str(kb_path)] = kb
             overlap = kb.indexes.keys() & self.runs.keys()
             assert not overlap, f"All KBs should have unique index names: {overlap}"

@@ -24,6 +24,11 @@ features as in the reference; the integer canvas always goes up as int32
 goes through pinned staging buffers (core/device.py ``upload``), so no
 dispatch waits for the device; the one read back inside a batch is the
 online face leg's (once per sub-batch, as in the reference).
+
+On a mesh (core/mesh.py) the pipelines take a kb-sharded index through
+``DenseIndex.search_device`` and a ``ShardedDeviceBM25`` unchanged, and a
+packed embedder splits each batch over ``data``: every rank of the mesh
+runs the same stream and returns the same arrays.
 """
 from __future__ import annotations
 

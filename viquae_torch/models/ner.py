@@ -11,7 +11,7 @@ holds the weights named as the JAX tree (``bert``, ``classifier``).
 Inference pads every batch to ``batch_size`` rows of ``max_length``
 tokens (one shape for every call, as the JAX package's one compiled
 program) and runs the encoder in bf16 with f32 logits by default. The
-mesh ``param_spec`` is listed in ROADMAP.md (A17b).
+mesh ``param_spec`` is listed in ROADMAP.md (A17b-2).
 """
 from __future__ import annotations
 

@@ -17,7 +17,7 @@ viquae_tpu/models/qa.py).
 :class:`Reader` holds the weights (``bert``, ``qa_outputs``,
 ``score_proj_w``/``score_proj_b``), named as the JAX reader tree;
 :class:`ECAReader` ECA's weights plus ``qa_outputs``. The mesh param
-spec is listed in ROADMAP.md (A17b).
+spec is listed in ROADMAP.md (A17b-2).
 """
 from __future__ import annotations
 
@@ -217,6 +217,7 @@ def reader_apply_packed(
     compute_dtype=torch.float32,
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
+    mesh_ctx=None,
 ) -> ReaderOutput:
     """Packed Multi-passage BERT: (question, passage) pairs packed many-
     per-row onto one canvas (ops/packing.py — the reference's passages are
@@ -226,7 +227,19 @@ def reader_apply_packed(
     negative logit so the global softmax across each question's M passages
     ignores them (the padded path instead includes pad-token logits — a
     documented, strictly-cleaner divergence).
+
+    With a ``mesh_ctx`` whose ``data`` axis has several ranks, the canvas
+    rows are split over it (a pair never spans two rows): each rank
+    encodes its rows and the canvas logits are gathered back in order
+    (core/mesh.py), as the reference shards the canvas over ``data``.
     """
+    n_rows = input_ids.shape[0]
+    if mesh_ctx is not None:
+        from viquae_torch.core import mesh as meshlib
+
+        input_ids, segment_ids, position_ids, token_type_ids = (
+            meshlib.split_rows(mesh_ctx, t) for t in (
+                input_ids, segment_ids, position_ids, token_type_ids))
     bert_out = bert.apply(
         params.bert, cfg.bert, input_ids,
         token_type_ids=token_type_ids,
@@ -237,6 +250,8 @@ def reader_apply_packed(
     )
     sequence = bert_out["last_hidden_state"]     # (R, Lc, D)
     logits = L.dense(params.qa_outputs, sequence)  # (R, Lc, 2)
+    if mesh_ctx is not None:
+        logits = meshlib.gather_rows(mesh_ctx, logits, n_rows)
     flat = logits.reshape(-1, 2)
     # masked-out entries point at canvas position 0 and get the fill, made
     # in the logits' dtype by a fill kernel: a scalar tensor copied from the

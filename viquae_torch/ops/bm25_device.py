@@ -1,6 +1,7 @@
 """GPU-resident BM25 scoring, the device leg of hybrid retrieval
-(counterpart of viquae_tpu/ops/bm25_device.py; the multi-device
-``ShardedDeviceBM25`` is left for the multi-GPU slice, ROADMAP.md A17b).
+(counterpart of viquae_tpu/ops/bm25_device.py): ``DeviceBM25`` on one
+device and ``ShardedDeviceBM25``, the corpus split over the mesh's ``kb``
+axis.
 
 The host index (`ops.bm25.BM25Index` + the C++ MaxScore scorer) is exact
 but bound by the host's cores; this module scores on the card.
@@ -52,6 +53,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from viquae_torch.core import mesh as meshlib
 from viquae_torch.core.device import HostCopy, resolve_device, upload
 from viquae_torch.models.layers import _dot_f32
 from viquae_torch.ops import bm25 as bm25_lib
@@ -416,3 +418,232 @@ class DeviceBM25:
         return _finalize_device(
             tuple(s for s, _ in outs), tuple(i for _, i in outs), fb,
             n_docs=self.index.n_docs)
+
+
+class ShardedDeviceBM25(DeviceBM25):
+    """Device BM25 with the corpus split over the ``kb`` mesh axis
+    (counterpart of the reference's ``ShardedDeviceBM25``; mirrors
+    :func:`viquae_torch.ops.mips.topk_sharded`).
+
+    Docs are split into contiguous ranges of ``d_shard`` docs; rank c
+    holds the head matrix's columns of its range, (n_head, d_shard_pad)
+    with d_shard_pad = round_up(d_shard + 1, 128), and its slice of every
+    tail posting list (docs ascend within a term, so each (term, shard)
+    slice is a contiguous sub-range of a (shard, term, doc) ordering).
+    The host ``_plan`` is the reference's: a (query, term) pool slot takes
+    the SAME slot index on every shard, with a per-shard (start, len)
+    (len 0 where the shard holds none of the term's postings). Every
+    rank scores the query block on its shard with :class:`DeviceBM25`'s
+    block ops (head product with f32 sums, gather, ``scatter_add_``,
+    selection), then one all-gather over ``kb`` of the (Q, k) candidates
+    and the (-score, id) merge: candidate-sized traffic. ``search_batch``,
+    ``search_batch_device``, ``last_overflow`` and the host fallback for
+    overflowing rows are :class:`DeviceBM25`'s. Every rank of the mesh
+    must make the same calls in the same order; each returns the same
+    results.
+    """
+
+    def __init__(self, index: bm25_lib.BM25Index, mesh_ctx=None,
+                 n_head: int = 512, l_small: int = 512, l_mid: int = 2048,
+                 pool_mid: Optional[int] = None,
+                 pool_small: Optional[int] = None, q_block: int = 128,
+                 device=None):
+        self.ctx = mesh_ctx or meshlib.current()
+        super().__init__(
+            index, n_head=n_head, l_small=l_small, l_mid=l_mid,
+            pool_mid=pool_mid, pool_small=pool_small, q_block=q_block,
+            device=device if device is not None else self.ctx.device)
+
+    def rebuild(self):
+        """(Re)build this rank's shard from the host index, as the
+        reference builds every shard (host numpy, the same stable
+        permutation), keeping only this rank's columns and postings."""
+        index = self.index
+        n_dev = self.ctx.kb_size
+        me = self.ctx.coordinate(meshlib.KB_AXIS)
+        self.n_dev = n_dev
+        df = np.diff(index.offsets)
+        order = np.argsort(-df, kind="stable")
+        n_head = min(self.n_head, int((df > 0).sum()))
+        self.head_pos = np.full(len(df), -1, np.int32)
+        self.head_pos[order[:n_head]] = np.arange(n_head, dtype=np.int32)
+        self.is_head = self.head_pos >= 0
+
+        n_docs = index.n_docs
+        self.d_shard = -(-max(n_docs, 1) // n_dev)  # docs per shard
+        self.d_shard_pad = _round_up(self.d_shard + 1, LANE)
+
+        # per-posting weights, shard of each posting
+        tids = np.repeat(np.arange(len(df), dtype=np.int64), df)
+        w_all = (index.idf[tids] * index.tfs
+                 / (index.tfs + index.norm[index.docs])).astype(np.float32)
+        shard_of = (index.docs // self.d_shard).astype(np.int64)
+        local_doc = (index.docs - shard_of * self.d_shard).astype(np.int32)
+
+        # ---- head: this shard's (n_head, d_shard_pad) columns ----------
+        dev = self.device
+        head_mask = self.is_head[tids]
+        mine = head_mask & (shard_of == me)
+        dense = torch.zeros((n_head, self.d_shard_pad), dtype=torch.bfloat16,
+                            device=dev)
+        if mine.any():
+            # (term, doc) pairs are unique in CSR postings: pure writes
+            rows = self.head_pos[tids[mine]].astype(np.int64)
+            dense[torch.from_numpy(rows).to(dev),
+                  torch.from_numpy(local_doc[mine].astype(np.int64)).to(
+                      dev)] = _to_bf16(w_all[mine]).to(dev)
+        self.head_dense = dense
+
+        # ---- tail: per-shard CSR in (shard, term, doc) order -----------
+        tail_mask = ~head_mask
+        t_tids = tids[tail_mask]
+        t_shard = shard_of[tail_mask]
+        t_docs = local_doc[tail_mask]
+        t_w = w_all[tail_mask]
+        # postings arrive (term, doc)-sorted and docs ascend within a
+        # term, so a stable sort by shard alone gives (shard, term, doc)
+        perm = np.argsort(t_shard, kind="stable")
+        t_tids, t_shard = t_tids[perm], t_shard[perm]
+        t_docs, t_w = t_docs[perm], t_w[perm]
+        key = t_shard * len(df) + t_tids
+        bounds = np.searchsorted(
+            key, np.arange(n_dev * len(df) + 1, dtype=np.int64))
+        self.tail_start = bounds[:-1].reshape(n_dev, len(df))
+        self.tail_len = np.diff(bounds).reshape(n_dev, len(df)).astype(
+            np.int32)
+        self.tail_df_total = np.where(self.is_head, 0, df)
+        # slot caps from the ACTUAL per-shard maxima, capped at l_mid_cfg
+        # (wider per-shard slices split across slots)
+        self.l_mid = max(LANE, min(
+            _round_up(int(self.tail_len.max(initial=0)), LANE),
+            _round_up(self.l_mid_cfg, LANE)))
+        self.l_small = min(self.l_small_cfg, self.l_mid)
+        shard_bounds = np.searchsorted(t_shard,
+                                       np.arange(n_dev + 1, dtype=np.int64))
+        # starts shard-local; every shard's arrays share one length, with
+        # a trailing pad of l_mid entries that keeps each range in bounds
+        self.tail_start = (self.tail_start
+                           - shard_bounds[:-1, None]).astype(np.int32)
+        t_len = int(np.diff(shard_bounds).max(initial=0)) + self.l_mid
+        lo, hi = shard_bounds[me], shard_bounds[me + 1]
+        tail_docs = np.full(t_len, self.d_shard, np.int32)
+        tail_w = np.zeros(t_len, np.float32)
+        tail_docs[: hi - lo] = t_docs[lo:hi]
+        tail_w[: hi - lo] = t_w[lo:hi]
+        self.tail_docs = torch.from_numpy(tail_docs).to(dev)
+        self.tail_w = _to_bf16(tail_w).to(dev)
+
+    def _plan(self, queries: Sequence[str]):
+        """:meth:`DeviceBM25._plan` with per-shard slot ranges: the start
+        and length arrays are (n_blocks, n_dev, pool)."""
+        nq = len(queries)
+        qb = self.q_block
+        n_pad = _round_up(max(nq, 1), qb)
+        n_blocks = n_pad // qb
+        n_dev = self.n_dev
+        p_m, p_s = self.pool_mid, self.pool_small
+        head_w = np.zeros((n_pad, self.head_dense.shape[0]), np.float32)
+        mid_start = np.zeros((n_blocks, n_dev, p_m), np.int32)
+        mid_len = np.zeros((n_blocks, n_dev, p_m), np.int32)
+        mid_row = np.zeros((n_blocks, p_m), np.int32)
+        mid_qtf = np.zeros((n_blocks, p_m), np.float32)
+        small_start = np.zeros((n_blocks, n_dev, p_s), np.int32)
+        small_len = np.zeros((n_blocks, n_dev, p_s), np.int32)
+        small_row = np.zeros((n_blocks, p_s), np.int32)
+        small_qtf = np.zeros((n_blocks, p_s), np.float32)
+        mid_used = np.zeros(n_blocks, np.int64)
+        small_used = np.zeros(n_blocks, np.int64)
+        overflow: List[int] = []
+        for i, query in enumerate(queries):
+            blk, row = divmod(i, qb)
+            counts: dict = {}
+            for tok in bm25_lib.analyze(query):
+                tid = self.index.vocab.get(tok)
+                if tid is not None:
+                    counts[tid] = counts.get(tid, 0) + 1
+            head_terms, mids, smalls = [], [], []
+            for tid, qtf in counts.items():
+                pos = self.head_pos[tid]
+                if pos >= 0:
+                    head_terms.append((pos, qtf))
+                    continue
+                if self.tail_df_total[tid] == 0:
+                    continue
+                starts = self.tail_start[:, tid]
+                lens = self.tail_len[:, tid]
+                width = int(lens.max(initial=0))
+                # split wide per-shard slices into l_mid-cap chunks; a
+                # chunk takes the SAME slot index on every shard with the
+                # per-shard sub-range (start + j*cap, clip(len - j*cap,
+                # 0, cap)), len 0 where the shard's slice is shorter
+                j = 0
+                while width > self.l_small:
+                    c_len = np.clip(lens - j * self.l_mid, 0, self.l_mid)
+                    mids.append((starts + j * self.l_mid,
+                                 c_len.astype(np.int32), qtf))
+                    j += 1
+                    width -= self.l_mid
+                if width > 0:
+                    c_len = np.clip(lens - j * self.l_mid, 0,
+                                    self.l_small)
+                    smalls.append((starts + j * self.l_mid,
+                                   c_len.astype(np.int32), qtf))
+            free_s = p_s - small_used[blk]
+            free_m = p_m - mid_used[blk]
+            while len(smalls) > free_s and len(mids) < free_m:
+                mids.append(smalls.pop())
+            if len(mids) > free_m or len(smalls) > free_s:
+                overflow.append(i)
+                continue
+            for pos, qtf in head_terms:
+                head_w[i, pos] = qtf
+            for starts, lens, qtf in mids:
+                s = mid_used[blk]
+                mid_start[blk, :, s] = starts
+                mid_len[blk, :, s] = lens
+                mid_row[blk, s] = row
+                mid_qtf[blk, s] = qtf
+                mid_used[blk] += 1
+            for starts, lens, qtf in smalls:
+                s = small_used[blk]
+                small_start[blk, :, s] = starts
+                small_len[blk, :, s] = lens
+                small_row[blk, s] = row
+                small_qtf[blk, s] = qtf
+                small_used[blk] += 1
+        return (head_w, mid_start, mid_len, mid_row, mid_qtf,
+                small_start, small_len, small_row, small_qtf), overflow
+
+    def _score_blocks(self, plan, k_eff: int):
+        """Every block of a plan on this rank's shard, each followed by
+        the candidate all-gather over ``kb`` and the (-score, id) merge;
+        yields (lo, hi, scores, ids) on the device, the same on every
+        rank."""
+        head_w, ms, ml, mr, mq, ss, sl, sr, sq = plan
+        me = self.ctx.coordinate(meshlib.KB_AXIS)
+        base = me * self.d_shard
+        qb = self.q_block
+        head_w16 = _to_bf16(head_w)
+        for blk, lo in enumerate(range(0, head_w.shape[0], qb)):
+            hi = lo + qb
+            s, i = _bm25_block(
+                self.head_dense, self.tail_docs, self.tail_w,
+                upload(head_w16[lo:hi], self.device),
+                *(upload(a, self.device) for a in (
+                    ms[blk, me], ml[blk, me], mr[blk], mq[blk],
+                    ss[blk, me], sl[blk, me], sr[blk], sq[blk])),
+                k=k_eff, l_mid=self.l_mid, l_small=self.l_small,
+                n_docs=self.d_shard)
+            # a shard narrower than k selects fewer lanes: pad them
+            s, i = mips._pad_to_k(s, i, k_eff)
+            # pad columns (>= d_shard) are no documents of this shard
+            invalid = i >= self.d_shard
+            s = s.masked_fill(invalid, mips.NEG_INF)
+            i = torch.where(invalid, mips.INT32_MAX, i + base).to(
+                torch.int32)
+            got = meshlib.all_gather(
+                self.ctx, torch.stack([s, i.view(torch.float32)]),
+                meshlib.KB_AXIS)
+            s, i = mips.merge_candidates(
+                got[:, 0], got[:, 1].contiguous().view(torch.int32), k_eff)
+            yield lo, hi, s, i

@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from viquae_torch.core import mesh as meshlib
 from viquae_torch.core.device import resolve_device
 from viquae_torch.models.layers import _bmm_f32
 from viquae_torch.ops.mips import (INT32_MAX, NEG_INF, finalize_topk,
@@ -188,7 +189,10 @@ class IVFFlatIndex:
     normalizes both sides ("L2norm,IVF...,Flat"). Built from host numpy
     or from a tensor already on the device (built there end to end).
     ``search_batch`` returns the exact top-k over the probed lists under
-    the repo-wide contract (score desc, id asc, INT32_MAX pad ids)."""
+    the repo-wide contract (score desc, id asc, INT32_MAX pad ids).
+    ``mesh_ctx`` (default ``core.mesh.current()``) is kept, as the
+    reference keeps it: the index stays whole on every rank, on the mesh's
+    device unless ``device`` names one."""
 
     mode = "ivf"
 
@@ -196,10 +200,12 @@ class IVFFlatIndex:
                  nprobe: int = 8, do_l2norm: bool = False, device=None,
                  dtype=torch.float32, train_points_per_list: int = 64,
                  train_iters: int = 10, seed: int = 0, qchunk: int = 32,
-                 max_list_factor: float = 4.0,
+                 max_list_factor: float = 4.0, mesh_ctx=None,
                  _state: Optional[_IVFState] = None,
                  _meta: Optional[dict] = None):
-        self.device = resolve_device(device)
+        self.mesh_ctx = mesh_ctx or meshlib.current()
+        self.device = resolve_device(
+            device if device is not None else self.mesh_ctx.device)
         self.do_l2norm = do_l2norm
         self.dtype = dtype
         self.qchunk = qchunk
@@ -347,11 +353,14 @@ class IVFFlatIndex:
         )
 
     @classmethod
-    def load(cls, path, device=None, dtype=torch.float32, **kwargs):
+    def load(cls, path, device=None, dtype=torch.float32, mesh_ctx=None,
+             **kwargs):
         path = Path(str(path))
         if path.suffix != ".npz" and Path(str(path) + ".npz").exists():
             path = Path(str(path) + ".npz")
-        dev = resolve_device(device)
+        mesh_ctx = mesh_ctx or meshlib.current()
+        dev = resolve_device(device if device is not None
+                             else mesh_ctx.device)
         with np.load(path) as z:
             n, d, nlist, nprobe, list_cap, do_l2 = (int(v) for v in z["meta"])
 
@@ -363,7 +372,7 @@ class IVFFlatIndex:
                               starts=put("starts"), sizes=put("sizes"),
                               ids=put("ids"))
         return cls(None, do_l2norm=bool(do_l2), device=dev, dtype=dtype,
-                   _state=state,
+                   mesh_ctx=mesh_ctx, _state=state,
                    _meta={"n": n, "d": d, "nlist": nlist, "nprobe": nprobe,
                           "list_cap": list_cap},
                    **kwargs)

@@ -1,6 +1,7 @@
-"""Maximum-inner-product search on one device (counterpart of
-viquae_tpu/ops/mips.py; the multi-device ``topk_sharded`` and every mesh
-argument are left for the multi-GPU slice).
+"""Maximum-inner-product search (counterpart of viquae_tpu/ops/mips.py):
+the single-device engines, and ``topk_sharded`` over a KB row-split on
+the mesh's ``kb`` axis (core/mesh.py), which ``DenseIndex(mesh_ctx=)``
+routes through when the axis has more than one rank.
 
 Tie contract (FAISS IndexFlatIP parity): equal scores rank by ascending KB
 id. ``torch.topk`` gives no order for ties on the GPU, so every selection
@@ -20,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from viquae_torch.core import mesh as meshlib
 from viquae_torch.core.device import resolve_device
 from viquae_torch.models.layers import _dot_f32
 
@@ -256,6 +258,108 @@ def topk_global(
                          cand_idx.reshape(q_count, p * _SEG), k)
 
 
+def shard_topk(queries: torch.Tensor, kb_local: torch.Tensor, k: int,
+               shard: int, valid_rows: int, chunk_size: int = 262144,
+               compute_dtype=torch.float32, mode: str = "fast",
+               recall_target: float = 0.99,
+               rows_per_shard: Optional[int] = None):
+    """The shard-local step of :func:`topk_sharded`: the chosen engine on
+    shard ``shard``'s rows (``kb_local``, at most ``rows_per_shard`` x d,
+    by default its own height) starting at ``base = shard *
+    rows_per_shard``, with ``local_valid = clip(valid_rows - base, 0,
+    rows)`` (0 when the padding spans the whole shard), then the ids
+    shifted to global ones by ``base`` except the INT32_MAX sentinel.
+    Returns (Q, k) f32 scores, int32 ids and, for mode "fused", each
+    result's segment maximum (the tie key of :func:`merge_candidates`),
+    else None."""
+    rows = kb_local.shape[0]
+    base = shard * (rows if rows_per_shard is None else rows_per_shard)
+    local_valid = min(max(int(valid_rows) - base, 0), rows)
+    rank_key = None
+    if mode == "fused":
+        from viquae_torch.ops import mips_fused
+
+        s, i, rank_key = mips_fused.topk_fused_ranked(queries, kb_local, k,
+                                                      local_valid)
+    elif mode in ("global", "approx"):
+        # approx honors the index's recall target (selection is exact on
+        # the card, see _select_topk)
+        s, i = topk_global(queries, kb_local, k, valid_rows=local_valid,
+                           compute_dtype=compute_dtype,
+                           mode="approx" if mode == "approx" else "exact",
+                           recall_target=recall_target)
+    else:
+        s, i = topk_single(queries, kb_local, k, chunk_size=chunk_size,
+                           valid_rows=local_valid,
+                           compute_dtype=compute_dtype, mode=mode)
+    # base + INT32_MAX would wrap: the sentinel stays as it is
+    i = torch.where(i == INT32_MAX, i, i + base)
+    return s, i.to(torch.int32), rank_key
+
+
+def merge_candidates(all_s: torch.Tensor, all_i: torch.Tensor, k: int,
+                     all_rank: Optional[torch.Tensor] = None):
+    """Merge (n_shards, Q, k) candidates into the (Q, k) top-k by
+    (-score, id), as the reference's stable two-key sort does. With
+    ``all_rank`` (mode "fused": each candidate's segment maximum) the k
+    kept are the first by (-score, -segment max, id), the order in which
+    kernel B1's selection keeps tied scores on one device, so the merged
+    result equals the single-device one bit for bit wherever the shard
+    boundaries fall; the output is then in (-score, id) order."""
+    q_count = all_s.shape[1]
+    s = all_s.permute(1, 0, 2).reshape(q_count, -1)
+    i = all_i.permute(1, 0, 2).reshape(q_count, -1)
+    if all_rank is not None:
+        r = all_rank.permute(1, 0, 2).reshape(q_count, -1)
+        # stable sorts, least-significant key first: id, then -segment
+        # max, then -score
+        for key in (1, 2, 0):
+            cols = [s, i, r]
+            order = torch.argsort(cols[key], dim=-1, descending=key != 1,
+                                  stable=True)
+            s, i, r = (torch.gather(t, -1, order) for t in cols)
+        s, i = s[:, :k], i[:, :k]
+    s, i = sort_by_score_then_id(s, i)
+    return s[:, :k], i[:, :k]
+
+
+def topk_sharded(
+    queries: torch.Tensor,
+    kb_local: torch.Tensor,
+    k: int,
+    mesh_ctx: Optional[meshlib.MeshContext] = None,
+    chunk_size: int = 262144,
+    valid_rows: Optional[int] = None,
+    compute_dtype=torch.float32,
+    mode: str = "fast",
+    recall_target: float = 0.99,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-device MIPS over a KB row-split on the ``kb`` axis: each rank
+    holds its shard ``kb_local`` (rows_per_shard, d) — shard c holds rows
+    [c * rows_per_shard, (c + 1) * rows_per_shard) of the padded
+    (kb_size * rows_per_shard, d) KB — and the same queries. Each rank
+    runs :func:`shard_topk` on its shard (B1 for mode "fused"), one
+    all-gather over ``kb`` brings every shard's (Q, k) candidates (scores,
+    ids and, for "fused", the tie key in one (planes, Q, k) tensor:
+    kb x Q x k x 4 bytes a plane, never score- or KB-sized), and
+    :func:`merge_candidates` keeps the top k. Every rank returns the same
+    (Q, k) f32 scores and int32 ids (INT32_MAX pads)."""
+    ctx = mesh_ctx or meshlib.current()
+    n_pad = kb_local.shape[0] * ctx.kb_size
+    nv = n_pad if valid_rows is None else int(valid_rows)
+    s, i, rank_key = shard_topk(
+        queries, kb_local, k, ctx.coordinate(meshlib.KB_AXIS), nv,
+        chunk_size=chunk_size, compute_dtype=compute_dtype, mode=mode,
+        recall_target=recall_target)
+    planes = [s, i.view(torch.float32)]
+    if rank_key is not None:
+        planes.append(rank_key)
+    got = meshlib.all_gather(ctx, torch.stack(planes), meshlib.KB_AXIS)
+    return merge_candidates(
+        got[:, 0], got[:, 1].contiguous().view(torch.int32), k,
+        got[:, 2] if rank_key is not None else None)
+
+
 def _aligned_rows(n: int) -> int:
     return n + (-n) % _SEG
 
@@ -308,16 +412,25 @@ class DenseIndex:
     "fused" -> the B1 kernel (ops/mips_fused.topk_fused); "global",
     "approx", and "fast" while the (Q, N) scores take <= 4 GiB ->
     :func:`topk_global`; else :func:`topk_single`.
+
+    With a ``mesh_ctx`` (default: ``core.mesh.current()``) whose ``kb``
+    axis has more than one rank, N is padded to a multiple of kb_size x
+    128, each rank holds only its row slice (``matrix`` is the shard, on
+    the rank's device) and every search goes through
+    :func:`topk_sharded`; every rank must then make the same calls, in
+    the same order. ``n`` is the global row count either way.
     """
 
     def __init__(self, vectors, do_l2norm: bool = False,
                  dtype=torch.float32, chunk_size: int = 262144,
                  mode: str = "fast", approx_recall_target: float = 0.99,
-                 device=None):
+                 device=None, mesh_ctx=None):
         if mode not in _MODES:
             raise ValueError(f"unknown top-k mode {mode!r}; "
                              "expected exact|fast|global|approx|fused")
-        self.device = resolve_device(device)
+        self.mesh_ctx = mesh_ctx or meshlib.current()
+        self.device = resolve_device(
+            device if device is not None else self.mesh_ctx.device)
         self.do_l2norm = do_l2norm
         self.chunk_size = chunk_size
         self.mode = mode
@@ -329,10 +442,37 @@ class DenseIndex:
             raise ValueError(
                 f"expected (N, d) vectors, got {tuple(src.shape)}")
         n, self.d = src.shape
-        self.matrix = torch.zeros((_aligned_rows(n), self.d),
-                                  dtype=self.dtype, device=self.device)
-        _store_rows(self.matrix, 0, src, do_l2norm and not normalized)
+        self.matrix = self._shard_of(src, n, do_l2norm and not normalized)
         self.n = n
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh_ctx.kb_size > 1
+
+    def _padded_rows(self, n: int) -> int:
+        """N_pad: a multiple of 128 rows on every shard."""
+        return meshlib.pad_to_multiple(n, self.mesh_ctx.kb_size * _SEG)
+
+    def _shard_of(self, src: torch.Tensor, n: int, do_l2norm: bool
+                  ) -> torch.Tensor:
+        """This rank's (N_pad / kb_size, d) slice of the padded KB whose
+        first n rows are ``src`` (the whole matrix on one shard)."""
+        rows = self._padded_rows(n) // self.mesh_ctx.kb_size
+        lo = self.mesh_ctx.coordinate(meshlib.KB_AXIS) * rows
+        shard = torch.zeros((rows, self.d), dtype=self.dtype,
+                            device=self.device)
+        _store_rows(shard, 0, src[lo: lo + rows], do_l2norm)
+        return shard
+
+    def _whole(self) -> torch.Tensor:
+        """The first n rows of the KB on this rank: on a sharded index,
+        every shard gathered over ``kb`` (the whole KB crosses the mesh:
+        add, save)."""
+        n, matrix = self.snapshot()
+        if not self.sharded:
+            return matrix[:n]
+        return meshlib.all_gather(self.mesh_ctx, matrix,
+                                  meshlib.KB_AXIS).flatten(0, 1)[:n]
 
     def snapshot(self) -> Tuple[int, torch.Tensor]:
         """(row count, matrix), read COUNT first: a live add binds the
@@ -352,15 +492,25 @@ class DenseIndex:
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Single-pass search of device queries against a ``snapshot``,
         routed as the reference's serving ``_device_search``: "fused" ->
-        the B1 kernel, every other mode -> :func:`topk_global`. Returns f32
+        the B1 kernel, every other mode -> :func:`topk_global`, each
+        through :func:`topk_sharded` on a sharded index. Returns f32
         scores and int32 ids, left on the device."""
         return self._single_pass(self._queries(queries), n, matrix, k)
+
+    def _sharded(self, q, n, matrix, k, mode):
+        return topk_sharded(
+            q, matrix, k, mesh_ctx=self.mesh_ctx, chunk_size=self.chunk_size,
+            valid_rows=n, compute_dtype=self.dtype, mode=mode,
+            recall_target=self.approx_recall_target)
 
     def _single_pass(self, q, n, matrix, k):
         from viquae_torch.ops.mips_fused import topk_fused
 
         q = q.to(self.dtype)
         k = min(k, n)
+        if self.sharded:
+            return self._sharded(q, n, matrix, k, self.mode if self.mode in (
+                "fused", "approx") else "global")
         if self.mode == "fused":
             return topk_fused(q, matrix, k, valid_rows=n)
         return topk_global(
@@ -377,7 +527,10 @@ class DenseIndex:
         n, matrix = self.snapshot()
         k = min(k, n)
         score_bytes = 4 if self.dtype == torch.float32 else 2
-        if self.mode in ("fused", "global", "approx") or (
+        if self.sharded and self.mode != "fused":
+            # the reference's search_batch: every mode per shard
+            scores, idx = self._sharded(q, n, matrix, k, self.mode)
+        elif self.mode in ("fused", "global", "approx") or (
                 self.mode == "fast"
                 and q.shape[0] * matrix.shape[0] * score_bytes
                 <= _SINGLE_PASS_BYTES):
@@ -394,10 +547,13 @@ class DenseIndex:
     def add(self, vectors) -> None:
         """Append rows with ids [n, n + m) (FAISS IndexFlat.add).
 
-        Rows that fit in the alignment padding are written IN PLACE: a
-        search that holds the old count masks those rows, so it never sees
-        them half written. Growth beyond the padding builds a new aligned
-        matrix. Either way the matrix is bound first and the count last
+        Rows that fit in the alignment padding are written IN PLACE (on a
+        sharded index, by the shards that own them): a search that holds
+        the old count masks those rows, so it never sees them half
+        written. Growth beyond the padding builds a new padded matrix; on
+        a sharded index rows then change owner, so every rank gathers the
+        KB over ``kb`` and keeps its new slice (equal to a fresh build).
+        Either way the matrix is bound first and the count last
         (``snapshot`` reads the count first)."""
         v, normalized = _as_rows(vectors, self.device, self.do_l2norm)
         if v.ndim != 2 or v.shape[1] != self.d:
@@ -406,40 +562,68 @@ class DenseIndex:
         m = v.shape[0]
         if m == 0:
             return
+        norm = self.do_l2norm and not normalized
         n, new_n = self.n, self.n + m
         mat = self.matrix
-        if new_n > mat.shape[0]:
+        if new_n > mat.shape[0] * self.mesh_ctx.kb_size:
+            if self.sharded:
+                if norm:
+                    v = l2_normalize(v.float())
+                self.matrix = self._shard_of(
+                    torch.cat([self._whole(), v.to(self.dtype)]), new_n,
+                    False)
+                self.n = new_n
+                return
             grown = torch.zeros((_aligned_rows(new_n), self.d),
                                 dtype=self.dtype, device=self.device)
             grown[:n] = mat[:n]
             mat = grown
-        _store_rows(mat, n, v, self.do_l2norm and not normalized)
+        rows = mat.shape[0]
+        lo = self.mesh_ctx.coordinate(meshlib.KB_AXIS) * rows
+        # this shard's part of the new rows [n, new_n)
+        a, b = max(n, lo), min(new_n, lo + rows)
+        if a < b:
+            _store_rows(mat, a - lo, v[a - n: b - n], norm)
         self.matrix = mat
         self.n = new_n
 
     def reconstruct_batch(self, ids) -> np.ndarray:
         """The STORED vectors for ``ids`` as f32 (FAISS ``reconstruct``):
         an L2norm index returns the normalized rows it searches, a bf16
-        index the bf16-quantized values."""
+        index the bf16-quantized values. On a sharded index each shard
+        reads the rows it owns and one all-gather over ``kb`` brings them
+        to every rank."""
         ids = np.asarray(ids)
         if ids.size and (ids.min() < 0 or ids.max() >= self.n):
             raise IndexError(f"ids outside [0, {self.n})")
         if not ids.size:
             return np.zeros(ids.shape + (self.d,), np.float32)
-        rows = torch.as_tensor(ids.astype(np.int64), device=self.device)
-        return self.matrix[rows].float().cpu().numpy()
+        flat = torch.as_tensor(ids.reshape(-1).astype(np.int64),
+                               device=self.device)
+        rows = self.matrix.shape[0]
+        owner, local = flat // rows, flat % rows
+        mine = owner == self.mesh_ctx.coordinate(meshlib.KB_AXIS)
+        part = torch.where(mine[:, None], self.matrix[local].float(), 0.0)
+        got = meshlib.all_gather(self.mesh_ctx, part, meshlib.KB_AXIS)
+        out = got[owner, torch.arange(len(flat), device=self.device)]
+        return out.cpu().numpy().reshape(ids.shape + (self.d,))
 
     def save(self, path) -> None:
         """Persist the vectors THIS index searches, as the reference's
         ``.npz`` (``vectors`` f32 (N, d), ``do_l2norm``, ``source_dtype``):
         the files load in either package. A bf16 index persists its
-        bf16-quantized values."""
-        np.savez(
-            path,
-            vectors=self.matrix[: self.n].float().cpu().numpy(),
-            do_l2norm=self.do_l2norm,
-            source_dtype=np.str_(str(self.dtype).removeprefix("torch.")),
-        )
+        bf16-quantized values. A sharded index gathers its shards and rank
+        0 writes the same file as one device would; every rank returns
+        once it is written."""
+        vectors = self._whole().float().cpu().numpy()
+        if self.mesh_ctx.rank == 0:
+            np.savez(
+                path,
+                vectors=vectors,
+                do_l2norm=self.do_l2norm,
+                source_dtype=np.str_(str(self.dtype).removeprefix("torch.")),
+            )
+        meshlib.barrier(self.mesh_ctx)
 
     @classmethod
     def load(cls, path, **kwargs):

@@ -155,6 +155,23 @@ def _topk_fused_single(q, kb, k: int, valid_rows: int):
     return segment_topk(*fused_score_segmax_qmajor(q, kb, valid_rows), k)
 
 
+def topk_fused_ranked(q, kb, k: int, valid_rows: int):
+    """:func:`topk_fused` over one slab, plus each result's segment
+    maximum (f32; -inf on pad lanes): the key that ties are broken by.
+
+    The selection keeps, among equal scores, the candidates of the
+    higher-ranked segments (segment max descending, then lower segment),
+    so its result is the first k of the valid rows ordered by
+    (-score, -segment max, id), output in (-score, id) order. A merge of
+    per-shard results on that key reproduces the single-slab result for
+    any split at a 128-row boundary (ops/mips.merge_candidates)."""
+    scores, segmax = fused_score_segmax_qmajor(q, kb, valid_rows)
+    s, i = segment_topk(scores, segmax, k)
+    pad = i == mips.INT32_MAX
+    seg = torch.gather(segmax, 1, torch.where(pad, 0, i).long() // SEG)
+    return s, i, seg.float().masked_fill(pad, mips.NEG_INF)
+
+
 def topk_fused(
     queries: torch.Tensor,
     kb: torch.Tensor,
@@ -167,32 +184,25 @@ def topk_fused(
     ``valid_rows=None`` means every row is real: pass ``valid_rows=n``
     whenever the KB came from :func:`to_kernel_layout` (zero pad rows score
     0.0 and would beat negative scores). ``chunks > 1`` scores the KB in
-    that many row slabs (each a multiple of 128 rows) and merges the
-    per-slab top-k by (-score, global id), shrinking the (Q, N) bf16 score
-    buffer to (Q, N/chunks); the result equals ``chunks=1``, tie order
-    included. Returns f32 scores and int32 ids (INT32_MAX pads).
+    that many row slabs (each a multiple of 128 rows), each as a shard of
+    :func:`mips.shard_topk`, and merges the per-slab top-k by (-score,
+    global id) as the reference does, shrinking the (Q, N) bf16 score
+    buffer to (Q, N/chunks). The scores equal ``chunks=1``'s; where
+    several rows tie at the k-th score, the merge keeps the lowest ids
+    while ``chunks=1`` keeps those of the highest-ranked segments, so the
+    ids may differ there. Returns f32 scores and int32 ids (INT32_MAX
+    pads).
     """
     n = kb.shape[0]
     nv = n if valid_rows is None else int(valid_rows)
     if chunks <= 1:
         return _topk_fused_single(queries, kb, k, nv)
     per = -(-(n // SEG) // chunks) * SEG  # slab width, a segment multiple
-    parts_s, parts_i = [], []
-    for c in range(chunks):
-        lo = c * per
-        if lo >= n:
-            break
-        width = min(per, n - lo)
-        local_valid = min(max(nv - lo, 0), width)
-        s, i = _topk_fused_single(queries, kb[lo: lo + width], k,
-                                  local_valid)
-        # shift local ids to global; keep the pad sentinel unshifted
-        i = torch.where(i == mips.INT32_MAX, i, i + lo)
-        parts_s.append(s)
-        parts_i.append(i)
-    all_s, all_i = mips.sort_by_score_then_id(torch.cat(parts_s, dim=1),
-                                              torch.cat(parts_i, dim=1))
-    return all_s[:, :k], all_i[:, :k]
+    parts = [mips.shard_topk(queries, kb[lo: lo + per], k, c, nv,
+                             mode="fused", rows_per_shard=per)
+             for c, lo in enumerate(range(0, n, per))]
+    return mips.merge_candidates(torch.stack([s for s, _, _ in parts]),
+                                 torch.stack([i for _, i, _ in parts]), k)
 
 
 # ---- kernel B2: kb-major, unmasked, unrounded maxima ----------------------

@@ -13,7 +13,7 @@ and are read on ``log_every`` steps only (and on every step under
 ``debug_nans``).
 
 Single device. The JAX trainer's mesh arguments (``mesh_ctx``,
-``param_spec``, ``batch_spec``) raise by name (ROADMAP A17b).
+``param_spec``, ``batch_spec``) raise by name (ROADMAP A17b-2).
 """
 from __future__ import annotations
 
@@ -125,7 +125,7 @@ class Trainer:
                 or batch_spec is not None:
             raise NotImplementedError(
                 "mesh_ctx / param_spec / batch_spec: the port trains on one "
-                "device; sharded training is ROADMAP.md A17b")
+                "device; sharded training is ROADMAP.md A17b-2")
         self.cfg = config
         if config.monitor_mode not in ("max", "min"):
             # anything else would silently freeze best-keeping after the
