@@ -210,6 +210,28 @@ raises on failure:
    14's corpus against phase 14's DeviceBM25 by doc id (by_doc_agreement),
    with its overflow count. Each rank's B1 launches, seconds and peak
    memory are printed.
+26. training on the mesh (phase_mesh_training, after phase 25, every
+   earlier tensor freed; nothing here is a multi-GPU speed: four gloo
+   ranks on one card time the host-staged route, not NVLink): (a) a NCCL
+   world of one, make_mesh(data=1, model=1) with the towers' param_spec,
+   drives phase 21's DPR biencoder (BERT-base x 2, f32, remat, phase 21's
+   256-question batch) for 3 steps, bit-equal to the plain Trainer on the
+   same batches, step ms beside phase 21's; (b) four gloo ranks sharing
+   the card at data = 2 x model = 2 train the same biencoder (dropout off)
+   for 2 steps on one 32-question batch (AdamW at the config's lr, no
+   warmup): each
+   loss within 1e-5 and the first grad norm within 1e-4 of the
+   one-device trainer's on the card, the parameters by card_vs_cpu's
+   update bound, replicated parameters bit-equal over model; every rank
+   writes its checkpoint shard at step 1 and a fresh world restores it
+   and takes step 2, bit-equal (parameters, AdamW moments, schedule step)
+   to the uninterrupted run; (c) one step of phase 24's MoE towers at 2
+   layers and capacity factor 4 under moe_spec, held as (b); (d)
+   ``torchrun --nproc-per-node 1 -m viquae_torch train fit`` on phase
+   21's CLI config against phase 21's one-process fit, started after (a)
+   so that its start-up overlaps (b) and (c). Printed: step ms,
+   peak memory and collective bytes by kind for each rank, the routes,
+   and B1's and B2's launches (0).
 
 Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
 uploads staged through pinned memory and, for comparison, from pageable
@@ -4376,8 +4398,10 @@ class RouteLog:
     def __enter__(self):
         orig = moe_lib._route
 
-        def wrapper(params, tokens, valid, top_k, capacity, n_groups, tg):
-            res = orig(params, tokens, valid, top_k, capacity, n_groups, tg)
+        def wrapper(params, tokens, valid, top_k, capacity, n_groups, tg,
+                    *rest):
+            res = orig(params, tokens, valid, top_k, capacity, n_groups, tg,
+                       *rest)
             slots = res[3]
             n_slots = params["in"].weight.shape[0] * n_groups * capacity
             v = valid[:, None].expand_as(slots)
@@ -5114,6 +5138,575 @@ def bm25_reference(sparse, workdir) -> dict:
             "scores": scores, "ids": ids, "overflow": scorer.last_overflow}
 
 
+# ---- phase 26: training on the mesh ----------------------------------------
+MESH_TRAIN_STEPS = 3       # (a): the steps of each trainer
+MESH_QUESTIONS = 32        # (b), (c): the global batch of the four ranks
+MESH_RANKS = 4             # gloo ranks sharing the one card
+MESH_MOE_LAYERS = 2        # (c): phase 24's configuration cut to 2 layers
+MESH_TIMEOUT_S = 240       # the ranks' own limit, joins and collectives
+MESH_BERT: dict = {}       # BertConfig overrides (a CPU rehearsal's widths)
+# configs/dpr_train.yaml's AdamW without its warmup, so that both steps
+# move every parameter by ~lr (with the warmup the first two lrs are 0 and
+# 2e-7, and a misplaced shard would hide under them)
+MESH_OPT = dict(DPR_TRAIN_OPT, warmup_steps=0)
+MESH_LOSS_RTOL = 1e-5      # as card_vs_cpu: f32 sums in another order
+MESH_NORM_RTOL = 1e-4      # the norm sums every gradient's square
+MESH_RANK_CODE = ("import sys, chip_smoke; "
+                  "chip_smoke.mesh_rank(sys.argv[1], int(sys.argv[2]))")
+MESH_SIZES = ("MESH_RANKS", "MESH_TIMEOUT_S", "MESH_MOE_LAYERS",
+              "MESH_BERT", "MESH_OPT")
+
+
+def mesh_bert(layers_: int, moe: bool = False, dropout: bool = True):
+    cfg = dataclasses.replace(dpr.DPRConfig().bert, num_hidden_layers=layers_,
+                              **MESH_BERT)
+    if not dropout:
+        cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0)
+    if moe:
+        cfg = dataclasses.replace(cfg, **dict(
+            MOE_BERT, moe_capacity_factor=MOE_AMPLE_CAPACITY))
+    return cfg
+
+
+def mesh_trainee(dev, moe: bool = False, dropout: bool = True):
+    """Phase 21's DPR biencoder (full width, 12 layers, remat, seeds 0 and
+    1), or with ``moe`` phase 24's MoE towers at MESH_MOE_LAYERS layers and
+    capacity MOE_AMPLE_CAPACITY (nothing drops); dropout off without
+    ``dropout`` (the mesh draws other masks than one device: the data
+    coordinate is folded into each seed)."""
+    from viquae_torch.train.trainee import BiEncoderTrainee
+
+    cfg = dpr.DPRConfig(bert=mesh_bert(MESH_MOE_LAYERS if moe else 12, moe,
+                                       dropout))
+    return BiEncoderTrainee(dpr.DPREncoder(cfg=cfg, seed=0, device=dev),
+                            dpr.DPREncoder(cfg=cfg, seed=1, device=dev),
+                            remat_layers=True)
+
+
+def mesh_spec(trainee) -> dict:
+    return {name: dpr.param_spec(trainee.question_model.cfg)
+            for name in ("question", "context")}
+
+
+def state_digest(trainer) -> str:
+    """sha256 of a trainer's parameters, AdamW moments and schedule step,
+    in name order: equal digests are bit-equal states."""
+    import hashlib
+
+    h = hashlib.sha256()
+    state = trainer.state.state_dict()
+    for name, t in state["params"].items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy())
+    for group in state["opt_state"]["adamw"]["state"].values():
+        for key in sorted(group):
+            t = torch.as_tensor(group[key])
+            h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy())
+    h.update(str(state["opt_state"]["scheduler"]["last_epoch"]).encode())
+    h.update(str(state["step"]).encode())
+    return h.hexdigest()
+
+
+def mesh_steps(trainer, batch, steps, dev) -> dict:
+    """``steps`` optimizer steps on ``batch`` after the trainer's current
+    step (Trainer.fit's generator per step), each read back: losses, grad
+    norms, step ms by CUDA events (per-step sync)."""
+    out = {"losses": [], "grad_norms": [], "step_ms": []}
+    for _ in range(steps):
+        step = trainer.state.step
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+        loss, norm, _ = trainer._train_step(batch,
+                                            trainer.seeds.split(f"step{step}"))
+        if dev.type == "cuda":
+            end.record()
+            end.synchronize()
+            out["step_ms"].append(start.elapsed_time(end))
+        else:
+            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["losses"].append(float(loss))
+        out["grad_norms"].append(float(norm))
+    return out
+
+
+def collective_kinds(log) -> dict:
+    """{op/axis: [count, bytes]} of a collective log."""
+    out = {}
+    for op, axis, nbytes in log:
+        entry = out.setdefault(f"{op}/{axis}", [0, 0])
+        entry[0] += 1
+        entry[1] += nbytes
+    return out
+
+
+def mesh_rank(spec_path: str, rank: int) -> None:
+    """One of phase 26's gloo ranks (a process of its own on the one
+    card): joins the world, runs :func:`mesh_rank_work` and writes what it
+    measured next to the spec."""
+    import datetime
+    import pickle
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    spec = pickle.loads(Path(spec_path).read_bytes())
+    globals().update(spec["sizes"])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=spec["init"], rank=rank, world_size=MESH_RANKS,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        out = mesh_rank_work(dev, spec)
+    finally:
+        dist.destroy_process_group()
+    Path(spec["dir"], f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def mesh_rank_work(dev, spec) -> dict:
+    """(b) the full-width biencoder on data = 2 x model = 2: step 1, this
+    rank's checkpoint shard (``train.checkpoint.save_state``), step 2; or,
+    in the resume world, the shard of step 1 restored
+    (``restore_state``) and step 2. (c) one MoE step under moe_spec. Every
+    number is this rank's, on a card the four ranks share."""
+    from viquae_torch.core import mesh
+    from viquae_torch.train import checkpoint as ckpt_lib
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    ctx = mesh.make_mesh(data=2, model=2, device=dev)
+    out = {"coords": dict(ctx.coords), "route": mesh.collective_route(ctx),
+           "tf32": torch.backends.cuda.matmul.allow_tf32}
+    if dev.type == "cuda" and not spec["resume"]:
+        out["gloo_cuda"] = gloo_cuda_collectives(ctx, dev)
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    mips_fused.fused_score_segmax.launches = 0
+    runs = [("b", False, spec["batch"])] + (
+        [] if spec["resume"] else [("c", True, spec["batch"])])
+    for label, moe, batch in runs:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        tt = mesh_trainee(dev, moe, dropout=False)
+        ckpt = spec["ckpt"] if label == "b" else None
+        trainer = Trainer(tt.loss_fn, tt.params,
+                          optim.make_optimizer(tt.params, **MESH_OPT),
+                          TrainerConfig(max_steps=2, log_every=0),
+                          mesh_ctx=ctx, param_spec=mesh_spec(tt))
+        del tt
+        res = {}
+        if label == "b" and spec["resume"]:
+            t0 = time.perf_counter()
+            ckpt_lib.restore_state(ckpt, trainer.state, map_location=dev,
+                                   rank=ctx.rank)
+            res["restore_s"] = time.perf_counter() - t0
+            res.update(mesh_steps(trainer, batch, 1, dev))
+        elif label == "c":
+            ctx.collective_log.clear()
+            res.update(mesh_steps(trainer, batch, 1, dev))
+            res["step_collectives"] = collective_kinds(ctx.collective_log)
+        else:
+            first = mesh_steps(trainer, batch, 1, dev)
+            t0 = time.perf_counter()
+            ckpt_lib.save_state(ckpt, trainer.state, 1, rank=ctx.rank)
+            res["save_s"] = time.perf_counter() - t0
+            ctx.collective_log.clear()
+            later = mesh_steps(trainer, batch, 1, dev)
+            res["step_collectives"] = collective_kinds(ctx.collective_log)
+            res.update({k: first[k] + later[k] for k in first})
+        res["replicated_equal"] = mesh_replicated_equal(trainer)
+        if label == "b":        # the resume is held by digests
+            res["digest"] = state_digest(trainer)
+        if not spec["resume"]:  # the parameters against one device's
+            full = trainer.full_params()
+            if ctx.rank == 0:
+                torch.save({n: p.detach().cpu() for n, p in
+                            full.named_parameters()},
+                           os.path.join(spec["dir"], f"params_{label}.pt"))
+            del full
+        res["peak_memory_bytes"] = peak_memory(dev)
+        out[label] = res
+        del trainer
+    out["b1_launches"] = mips_fused.fused_score_segmax_qmajor.launches
+    out["b2_launches"] = mips_fused.fused_score_segmax.launches
+    return out
+
+
+def gloo_cuda_collectives(ctx, dev) -> dict:
+    """Which gloo collectives take a CUDA tensor as it is: each tried
+    once on the ``data`` group ("native", or the error it raised).
+    ``core.mesh`` hands gloo its CUDA tensors as they are."""
+    import torch.distributed as dist
+
+    from viquae_torch.core import mesh
+
+    group, size = ctx.group(mesh.DATA_AXIS), ctx.size(mesh.DATA_AXIS)
+    x = torch.ones(8 * size, device=dev)
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(
+            x.clone(), src=dist.get_global_rank(group, 0), group=group),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(size)], x, group=group),
+        "reduce_scatter": lambda: dist.reduce_scatter_tensor(
+            x.new_empty(8), x, group=group)}
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            out[name] = "native"
+        except Exception as e:     # noqa: BLE001 - the answer is the error
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    torch.cuda.synchronize(dev)
+    return out
+
+
+def mesh_replicated_equal(trainer) -> bool:
+    """Every replicated parameter bit-equal on the ``model`` ranks."""
+    from viquae_torch.core import mesh
+    from viquae_torch.models.sharding import sharded_parameters
+
+    split = sharded_parameters(trainer.state.params)
+    same = True
+    for name, p in trainer.state.params.named_parameters():
+        if name not in split:
+            parts = mesh.all_gather(trainer.mesh_ctx, p.detach(),
+                                    mesh.MODEL_AXIS)
+            same &= all(torch.equal(parts[0], q) for q in parts[1:])
+    return bool(same)
+
+
+def run_mesh_ranks(spec, workdir) -> list:
+    """Start phase 26's ranks, wait for them within MESH_TIMEOUT_S (kill
+    them all past it: the phase fails) and read what each measured."""
+    import pickle
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    spec = dict(spec, dir=str(workdir),
+                init=f"file://{workdir / 'rendezvous'}",
+                sizes={k: globals()[k] for k in MESH_SIZES})
+    spec_path = workdir / "spec.pkl"
+    spec_path.write_bytes(pickle.dumps(spec))
+    here = os.path.dirname(os.path.abspath(__file__))
+    # one thread on the CPU (a rehearsal): the CPU's threaded embedding
+    # backward adds in another order run to run
+    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="1" if spec[
+        "device"] == "cpu" else "2")
+    logs = [open(workdir / f"rank{r}.log", "wb") for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_RANK_CODE, str(spec_path), str(r)],
+        cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(MESH_RANKS)]
+    deadline = time.monotonic() + MESH_TIMEOUT_S + 30
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.01))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    results = []
+    for r, p in enumerate(procs):
+        out = workdir / f"rank{r}.pkl"
+        if p.returncode != 0 or not out.exists():
+            tail = (workdir / f"rank{r}.log").read_text(
+                errors="replace")[-3000:]
+            check(False, f"phase 26 rank {r} exited {p.returncode}:\n{tail}")
+        results.append(pickle.loads(out.read_bytes()))
+    return results
+
+
+def one_device_reference(dev, batch, moe: bool, steps: int) -> dict:
+    """The one-device trainer of (b) or (c) on the card: losses, grad
+    norms, the parameters after the steps and, per parameter, the smallest
+    |gradient| over the steps (for the update bound)."""
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    tt = mesh_trainee(dev, moe, dropout=False)
+    trainer = Trainer(tt.loss_fn, tt.params,
+                      optim.make_optimizer(tt.params, **MESH_OPT),
+                      TrainerConfig(max_steps=steps, log_every=0))
+    del tt
+    smallest, g_max = {}, 0.0
+    res = {"losses": [], "grad_norms": []}
+    for step in range(steps):
+        loss, norm, _ = trainer._train_step(batch,
+                                            trainer.seeds.split(f"step{step}"))
+        res["losses"].append(float(loss))
+        res["grad_norms"].append(float(norm))
+        # the clipped gradients the AdamW step took (clipping is in place)
+        for n, p in trainer.state.params.named_parameters():
+            g = p.grad.detach().abs()
+            smallest[n] = g if n not in smallest else torch.minimum(
+                smallest[n], g)
+            g_max = max(g_max, float(g.max()))
+    res["params"] = {n: p.detach() for n, p in
+                     trainer.state.params.named_parameters()}
+    res["smallest_grad"], res["grad_max"] = smallest, g_max
+    res["lr_sum"] = sum(optim.linear_warmup_schedule(
+        MESH_OPT["lr"], MESH_OPT["warmup_steps"],
+        MESH_OPT["total_steps"])(s) for s in range(steps))
+    return res
+
+
+def params_within_update_bound(got: dict, ref: dict) -> dict:
+    """Parameters after AdamW steps against the one-device run's, by
+    card_vs_cpu's rule: each entry within 1e-6 + 2 lr_sum min(1, tol /
+    |g|), tol = GRAD_RTOL x the largest gradient entry and |g| the entry's
+    smallest one-device gradient over the steps (Adam moves an entry by
+    ~lr whatever its gradient's size, so one whose gradient is rounding
+    noise may move either way; one with a clear gradient moves alike).
+    Also the largest difference and the share of entries beyond 1e-6."""
+    tol = GRAD_RTOL * ref["grad_max"]
+    excess, worst, beyond, total = -math.inf, 0.0, 0, 0
+    for n, p in ref["params"].items():
+        q = got[n].to(p.device)
+        bound = 1e-6 + 2 * ref["lr_sum"] * torch.clamp(
+            tol / ref["smallest_grad"][n].clamp_min(1e-30), max=1.0)
+        diff = (q - p).abs()
+        excess = max(excess, float((diff - bound).max()))
+        worst = max(worst, float(diff.max()))
+        beyond += int((diff > 1e-6).sum())
+        total += diff.numel()
+    return {"excess_over_bound": excess, "max_abs_diff": worst,
+            "share_beyond_1e-6": beyond / total, "lr_sum": ref["lr_sum"]}
+
+
+def phase_mesh_training(dev, tokenizer, workdir, phase21_step_ms=None
+                        ) -> dict:
+    """Phase 26: training on the mesh, on the one card. (a) A NCCL world
+    of one: make_mesh(data=1, model=1) with the towers' param_spec drives
+    phase 21's DPR biencoder (full width, f32, remat, phase 21's batch) for
+    MESH_TRAIN_STEPS steps, bit-equal to the plain Trainer on the same
+    batches. (b) Four gloo ranks sharing the card at data = 2 x model = 2:
+    the full-width biencoder for 2 steps on one global batch against the
+    one-device trainer (losses, the first grad norm, the parameters by the
+    update bound, replicated parameters bit-equal over model); the ranks
+    write their checkpoint shards at step 1 and a fresh world resumes to
+    step 2, bit-equal to the uninterrupted run. (c) One MoE step at data =
+    2 x model = 2 under moe_spec, held as (b). (d) ``torchrun
+    --nproc-per-node 1 -m viquae_torch train fit`` on phase 21's CLI
+    config, against phase 21's one-process fit; it starts after (a) and
+    runs beside (b) and (c). No number here is a
+    multi-GPU speed: four gloo ranks on one card time the host-staged
+    route, not NVLink."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from viquae_torch.core import mesh
+    from viquae_torch.train import data as tdata
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    workdir.mkdir(parents=True, exist_ok=True)
+    out = {}
+
+    # ---- (a) a NCCL world of one against the plain Trainer -------------
+    kb, items = dpr_train_items(np.random.default_rng(21),
+                                DPR_TRAIN_QUESTIONS)
+    coll = tdata.BiEncoderCollator(tokenizer, kb=kb, M=2,
+                                   n_relevant_passages=1, search_key="BM25",
+                                   max_length=256, packed=True, seed=0)
+    batch = coll.collate_fn(items)
+    runs = {}
+    for label in ("plain", "world_of_one"):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kw = {}
+        if label == "world_of_one":
+            dist.init_process_group(
+                "nccl" if dev.type == "cuda" else "gloo",
+                init_method=f"file://{workdir / 'nccl_rendezvous'}", rank=0,
+                world_size=1,
+                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S),
+                **({"device_id": dev} if dev.type == "cuda" else {}))
+            ctx = mesh.make_mesh(data=1, model=1, device=dev)
+            kw = dict(mesh_ctx=ctx, param_spec=None)
+        try:
+            tt = mesh_trainee(dev)
+            if kw:
+                kw["param_spec"] = mesh_spec(tt)
+            trainer = Trainer(tt.loss_fn, tt.params,
+                              optim.make_optimizer(tt.params, **DPR_TRAIN_OPT),
+                              TrainerConfig(max_steps=MESH_TRAIN_STEPS,
+                                            log_every=0), **kw)
+            del tt
+            res = mesh_steps(trainer, batch, MESH_TRAIN_STEPS, dev)
+            if kw:
+                res["collectives"] = collective_kinds(ctx.collective_log)
+                res["route"] = mesh.collective_route(ctx)
+            res["params"] = [p.detach().clone() for p in
+                             trainer.state.params.parameters()]
+            res["peak_memory_bytes"] = peak_memory(dev)
+        finally:
+            if kw:
+                dist.destroy_process_group()
+        del trainer
+        runs[label] = res
+    plain, one = runs["plain"], runs["world_of_one"]
+    bit_equal = (one["losses"] == plain["losses"]
+                 and one["grad_norms"] == plain["grad_norms"]
+                 and all(torch.equal(a, b) for a, b in zip(
+                     one["params"], plain["params"])))
+    out["a"] = {k: {n: v for n, v in r.items() if n != "params"}
+                for k, r in runs.items()}
+    out["a"]["bit_equal"] = bit_equal
+    del runs, plain, one, batch
+    emit({"phase": "mesh_training_world_of_one", "steps": MESH_TRAIN_STEPS,
+          "questions": DPR_TRAIN_QUESTIONS, "remat_layers": True,
+          "phase_21_step_ms": phase21_step_ms, **out["a"]})
+    check(bit_equal, f"a NCCL world of one against the plain Trainer: "
+          f"{out['a']}")
+
+    # (d) starts now: its start-up (imports, CUDA, the dataset) overlaps
+    # the references and the ranks' worlds
+    config = json.loads((workdir.parent / "train_fit.json").read_text())
+    config["trainer"].update(ckpt_dir=str(workdir / "torchrun_ckpt"))
+    config["export"] = str(workdir / "torchrun_export")
+    (workdir / "torchrun_fit.json").write_text(json.dumps(config))
+    t_torchrun = time.perf_counter()
+    logs = [open(workdir / f"torchrun.{k}", "w+") for k in ("out", "err")]
+    torchrun = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "viquae_torch", "--device", str(dev),
+         "train", "fit", str(workdir / "torchrun_fit.json")],
+        stdout=logs[0], stderr=logs[1],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    # ---- (b), (c): the one-device references, then the ranks -----------
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    kb, items = dpr_train_items(np.random.default_rng(26), MESH_QUESTIONS)
+    mbatch = tdata.BiEncoderCollator(
+        tokenizer, kb=kb, M=2, n_relevant_passages=1, search_key="BM25",
+        max_length=256, packed=True, seed=0).collate_fn(items)
+    refs = {"b": one_device_reference(dev, mbatch, False, 2),
+            "c": one_device_reference(dev, mbatch, True, 1)}
+    # the references wait on the host while the ranks use the card
+    for ref in refs.values():
+        for key in ("params", "smallest_grad"):
+            ref[key] = {n: t.cpu() for n, t in ref[key].items()}
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    spec = {"device": str(dev), "batch": mbatch,
+            "ckpt": str(workdir / "ckpt")}
+    t0 = time.perf_counter()
+    ranks = run_mesh_ranks(dict(spec, resume=False), workdir / "run")
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = run_mesh_ranks(dict(spec, resume=True), workdir / "resume")
+    resume_s = time.perf_counter() - t0
+    checks = {}
+    for label in ("b", "c"):
+        ref = refs[label]
+        got = torch.load(workdir / "run" / f"params_{label}.pt",
+                         weights_only=True)
+        first = ranks[0][label]
+        checks[label] = {
+            "losses": first["losses"], "ref_losses": ref["losses"],
+            "loss_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(
+                first["losses"], ref["losses"])),
+            "grad_norm_rel_diff": abs(first["grad_norms"][0]
+                                      - ref["grad_norms"][0])
+            / ref["grad_norms"][0],
+            "replicated_equal": all(r[label]["replicated_equal"]
+                                    for r in ranks),
+            "same_on_every_rank": all(r[label]["losses"] == first["losses"]
+                                      for r in ranks),
+            **params_within_update_bound(got, ref)}
+    checks["resume_bit_equal"] = all(
+        r["b"]["digest"] == s["b"]["digest"]
+        and r["b"]["losses"][1] == s["b"]["losses"][0]
+        for r, s in zip(ranks, resumed))
+    per_rank = [{"coords": r["coords"], "route": r["route"],
+                 "gloo_cuda_collectives": r.get("gloo_cuda"),
+                 "tf32": r["tf32"],
+                 "b1_launches": r["b1_launches"] + s["b1_launches"],
+                 "b2_launches": r["b2_launches"] + s["b2_launches"],
+                 "b_step_ms": r["b"]["step_ms"],
+                 "b_resumed_step_ms": s["b"]["step_ms"],
+                 "c_step_ms": r["c"]["step_ms"],
+                 "b_peak_memory_bytes": r["b"]["peak_memory_bytes"],
+                 "c_peak_memory_bytes": r["c"]["peak_memory_bytes"],
+                 "b_resume_peak_memory_bytes": s["b"]["peak_memory_bytes"],
+                 "b_checkpoint_save_s": r["b"]["save_s"],
+                 "b_checkpoint_restore_s": s["b"]["restore_s"],
+                 "b_step2_collectives": r["b"]["step_collectives"],
+                 "c_step_collectives": r["c"]["step_collectives"]}
+                for r, s in zip(ranks, resumed)]
+    out["b_c"] = {"checks": checks, "ranks": per_rank,
+                  "world_s": run_s, "resume_world_s": resume_s}
+    emit({"phase": "mesh_training_gloo_ranks", "ranks": MESH_RANKS,
+          "mesh": {"data": 2, "model": 2}, "questions": MESH_QUESTIONS,
+          "optimizer": MESH_OPT, "moe_layers": MESH_MOE_LAYERS,
+          "moe_capacity_factor": MOE_AMPLE_CAPACITY,
+          "loss_rtol": MESH_LOSS_RTOL, "grad_norm_rtol": MESH_NORM_RTOL,
+          "note": "four gloo ranks share one card and stage every "
+                  "collective through host memory: no multi-GPU speed",
+          **out["b_c"]})
+    for label in ("b", "c"):
+        c = checks[label]
+        check(c["loss_rel_diff"] <= MESH_LOSS_RTOL
+              and c["grad_norm_rel_diff"] <= MESH_NORM_RTOL
+              and c["excess_over_bound"] <= 0 and c["replicated_equal"]
+              and c["same_on_every_rank"],
+              f"phase 26 ({label}) against one device: {c}")
+    check(checks["resume_bit_equal"], "phase 26: the resumed world against "
+          "the uninterrupted run")
+    check(all(r["b1_launches"] == r["b2_launches"] == 0 and not r["tf32"]
+              for r in per_rank), f"phase 26 ranks: {per_rank}")
+
+    # ---- (d) torchrun train fit on the card, started before (b) -------
+    try:
+        torchrun.wait(timeout=CLI_TIMEOUT_S)
+    finally:
+        torchrun.kill()
+        for f in logs:
+            f.seek(0)
+        err = logs[1].read()
+        for f in logs:
+            f.close()
+    torchrun_s = time.perf_counter() - t_torchrun
+    check(torchrun.returncode == 0, f"torchrun train fit: {err[-4000:]}")
+    got = [json.loads(ln)["loss"] for ln in (
+        workdir / "torchrun_ckpt" / "log.jsonl").read_text().splitlines()]
+    ref = [json.loads(ln)["loss"] for ln in (
+        workdir.parent / "train_ckpt" / "log.jsonl").read_text(
+        ).splitlines()][: len(got)]
+    out["d"] = {"wall_s_beside_the_ranks": torchrun_s, "losses": got,
+                "phase_21_losses": ref, "bit_equal": got == ref,
+                "rank_files": sorted(p.name for p in (
+                    workdir / "torchrun_ckpt" / "step_4").iterdir())}
+    emit({"phase": "mesh_training_torchrun", **out["d"]})
+    check(len(got) == 4 and np.allclose(got, ref, rtol=1e-5, atol=0)
+          and out["d"]["rank_files"] == ["rank0.pt"],
+          f"torchrun train fit against phase 21's fit: {out['d']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "mesh_training_seconds", "seconds": out["seconds"]})
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5195,7 +5788,7 @@ def main() -> int:
         t0 = time.perf_counter()
         del main_path["index"], main_path["embedder"], shared
         torch.cuda.empty_cache()
-        phase_training(dev, tokenizer, workdir)
+        training = phase_training(dev, tokenizer, workdir)
         launches_by_path["training"] = {
             "b1": mips_fused.fused_score_segmax_qmajor.launches,
             "b2": mips_fused.fused_score_segmax.launches}
@@ -5215,6 +5808,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches_by_path["sharded_serving"] = phase_sharded_serving(
             dev, main_path, bm25_ref, workdir / "sharded")
+        # phase 26 reaches no kernel either: its counts are read to show it
+        torch.cuda.empty_cache()
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        mips_fused.fused_score_segmax.launches = 0
+        mesh_training = phase_mesh_training(
+            dev, tokenizer, workdir / "mesh",
+            training["dpr"].get("with_remat", {}).get("step_ms"))
+        launches_by_path["mesh_training"] = {
+            "b1": mips_fused.fused_score_segmax_qmajor.launches,
+            "b2": mips_fused.fused_score_segmax.launches,
+            "ranks": [{"b1": r["b1_launches"], "b2": r["b2_launches"]}
+                      for r in mesh_training["b_c"]["ranks"]]}
+        check(launches_by_path["mesh_training"]["b1"] == 0
+              and launches_by_path["mesh_training"]["b2"] == 0,
+              f"phase 26 launched a kernel: "
+              f"{launches_by_path['mesh_training']}")
     kernels[0]["launches_by_path"] = launches_by_path
     emit({"phase": "device_memory",
           "max_memory_allocated_reader_phases": reader_peak,

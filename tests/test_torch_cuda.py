@@ -1599,3 +1599,98 @@ def test_moe_bert_layer_on_gpu_matches_cpu(cuda):
         if dtype == torch.float32:
             assert float(got["moe_aux"]) == pytest.approx(
                 float(ref["moe_aux"]), rel=1e-5)
+
+
+# --------------------------------------------------------------------------
+# training on the mesh
+# --------------------------------------------------------------------------
+def _world_of_one(backend, tmp_path, dev):
+    import datetime
+
+    import torch.distributed as dist
+
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60), **kw)
+
+
+def test_mesh_training_on_a_nccl_world_of_one_matches_the_cpu(cuda,
+                                                              tmp_path):
+    """The tiny DPR biencoder trained on cuda:0 on a NCCL world of one
+    (make_mesh(data=1, model=1) with the towers' param_spec) against the
+    plain Trainer on the CPU, one SGD-like AdamW step from the same
+    weights: the loss within 1e-5 relative, every parameter within 1e-6
+    + 2 lr (card and CPU sum the f32 products in other orders)."""
+    import torch.distributed as dist
+
+    import torch_train_helpers as tth
+    from viquae_torch.core import mesh
+    from viquae_torch.train import optim
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    n, length = 8, 12
+    batch = {"question_inputs": {"input_ids": rng.integers(5, 50, (n, length)),
+                                 "attention_mask": np.ones((n, length),
+                                                           np.int64)},
+             "context_inputs": {"input_ids": rng.integers(5, 50, (2 * n,
+                                                                  length)),
+                                "attention_mask": np.ones((2 * n, length),
+                                                          np.int64)},
+             "labels": np.arange(n) * 2}
+    opt = dict(lr=1e-3, warmup_steps=0, total_steps=10, grad_clip=1.0)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        tt = tth.make_trainee("dpr")
+        if where == "cuda":
+            _world_of_one("nccl", tmp_path, dev)
+            ctx = mesh.make_mesh(data=1, model=1, device=dev)
+            kw = dict(mesh_ctx=ctx, spec=tth.trainee_spec(tt))
+        else:
+            kw = {}
+        try:
+            trainer, out = tth.train(tt, [batch], 1,
+                                     opt=optim.make_optimizer(tt.params,
+                                                              **opt), **kw)
+        finally:
+            if where == "cuda":
+                dist.destroy_process_group()
+        runs[where] = (out["history"][0]["loss"],
+                       {k: p.detach().cpu() for k, p in
+                        trainer.state.params.named_parameters()})
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k, p in p_cpu.items():
+        assert float((p_gpu[k] - p).abs().max()) <= 1e-6 + 2 * opt["lr"], k
+
+
+def test_gloo_collectives_take_cuda_tensors_through_host_memory(cuda,
+                                                                tmp_path):
+    """On a gloo world (the card's way to host several ranks), the
+    training collectives take CUDA tensors: the sum, the mean, the
+    reduce-scatter and the differentiable gather come back on the card
+    with the right values, and the route names the host staging."""
+    import torch.distributed as dist
+
+    from viquae_torch.core import mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _world_of_one("gloo", tmp_path, dev)
+    try:
+        ctx = mesh.make_mesh(data=1, model=1, device=dev)
+        assert mesh.collective_route(ctx) == "gloo-cuda-staged"
+        x = torch.arange(12.0, device=dev).reshape(3, 4)
+        for got in (mesh.all_reduce(ctx, x, "data"),
+                    mesh.all_reduce(ctx, x, "model", op="mean"),
+                    mesh.reduce_scatter(ctx, x, "model", dim=1)):
+            assert got.is_cuda and torch.equal(got, x)
+        y = x.clone().requires_grad_(True)
+        g = mesh.gather_from(y, "data", 0, ctx)
+        g.sum().backward()
+        assert torch.equal(g, x) and torch.equal(y.grad, torch.ones_like(x))
+        assert [op for op, _, _ in ctx.collective_log] == [
+            "all_reduce", "all_reduce", "reduce_scatter", "all_gather",
+            "reduce_scatter"]
+    finally:
+        dist.destroy_process_group()

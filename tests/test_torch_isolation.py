@@ -27,7 +27,8 @@ LAZY_ONLY = ("datasets", "transformers", "yaml", "PIL", "safetensors",
 def _port_sources():
     return sorted((ROOT / "viquae_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "kernel_probe.py",
-        ROOT / "tests" / "torch_dist_helpers.py"]
+        ROOT / "tests" / "torch_dist_helpers.py",
+        ROOT / "tests" / "torch_train_helpers.py"]
 
 
 def test_importing_every_port_module_loads_no_forbidden_package():
@@ -68,7 +69,8 @@ print(json.dumps({{"modules": names, "forbidden": bad}}))
                    "data.kilt2vqa", "ops.ivf", "ops.moe", "data.labelstudio",
                    "data.mscelebs", "data.wikidump", "data.wit", "viz",
                    "viz.html", "viz.projection", "viz.stats", "viz.umap",
-                   "viz.wtl_filter", "core.mesh", "parallel"):
+                   "viz.wtl_filter", "core.mesh", "parallel",
+                   "models.sharding", "train.data_parallel"):
         assert f"viquae_torch.{module}" in res["modules"]
 
 

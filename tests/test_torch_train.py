@@ -782,7 +782,8 @@ def test_microbatch_collate_validation():
 
 def test_trainer_config_validation():
     """A monitor_mode typo and microbatched with accum 1 are __init__
-    errors; the JAX trainer's mesh arguments name A17."""
+    errors; the JAX trainer's mesh arguments are taken (a world of one, an
+    empty spec), and a param_spec naming no parameter is an error."""
     params = Weights(w=np.ones(2))
 
     def loss_fn(p, b, g=None):
@@ -793,10 +794,15 @@ def test_trainer_config_validation():
     with pytest.raises(ValueError, match="microbatched"):
         Trainer(loss_fn, params, SGD(0.1),
                 TrainerConfig(microbatched=True, grad_accum=1))
-    for kw in ({"mesh_ctx": object()}, {"param_spec": {}},
-               {"batch_spec": {}}):
-        with pytest.raises(NotImplementedError, match="A17"):
-            Trainer(loss_fn, params, SGD(0.1), TrainerConfig(), **kw)
+    from viquae_torch.core import mesh
+
+    for kw in ({"mesh_ctx": mesh.make_mesh(device="cpu")},
+               {"param_spec": {}}, {"batch_spec": {}}):
+        t = Trainer(loss_fn, params, SGD(0.1), TrainerConfig(), **kw)
+        assert not t.mesh_ctx.distributed
+    with pytest.raises(ValueError, match="names no parameter"):
+        Trainer(loss_fn, params, SGD(0.1), TrainerConfig(),
+                param_spec={"v": None})
 
 
 def test_trainer_donation_does_not_clobber_caller_params():

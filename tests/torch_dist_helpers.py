@@ -32,8 +32,9 @@ class WorldTimeout(AssertionError):
 
 def run_world(program: str, world: int, tmp_path, timeout: float =
               JOIN_TIMEOUT_S, **kwargs) -> list:
-    """Run ``PROGRAMS[program](rank=r, tmp=dir, **kwargs)`` on ``world``
-    gloo ranks and return each rank's result, in rank order."""
+    """Run ``PROGRAMS[program](rank=r, tmp=dir, **kwargs)`` (or the
+    program of that name in ``torch_train_helpers``) on ``world`` gloo
+    ranks and return each rank's result, in rank order."""
     tmp = Path(tmp_path) / f"world_{program}_{time.monotonic_ns()}"
     tmp.mkdir(parents=True)
     spec = tmp / "spec.pkl"
@@ -446,8 +447,13 @@ def _main(spec_path: str, rank: int) -> None:
         "gloo", init_method=spec["init"], rank=rank,
         world_size=spec["world"],
         timeout=datetime.timedelta(seconds=spec["timeout"]))
+    programs = PROGRAMS
+    if spec["program"] not in programs:     # the training worlds' programs
+        import torch_train_helpers
+
+        programs = torch_train_helpers.PROGRAMS
     try:
-        result = PROGRAMS[spec["program"]](
+        result = programs[spec["program"]](
             rank=rank, tmp=Path(spec_path).parent, **spec["kwargs"])
     finally:
         dist.destroy_process_group()

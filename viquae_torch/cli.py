@@ -648,7 +648,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 # the commands that run on a mesh of torchrun's world
-_MESH_COMMANDS = ("serve", "answer")
+_MESH_COMMANDS = ("serve", "answer", "train")
 
 
 def _writes() -> bool:
@@ -673,7 +673,10 @@ def main(argv=None):
                          f"torchrun only {list(_MESH_COMMANDS)} run")
     args.device = mesh.init_from_env(args.device)
     try:
-        with mesh.use(mesh.make_kb_mesh(device=args.device)):
+        # serving splits the KB over every rank; training its batches
+        ctx = (mesh.make_mesh(device=args.device) if args.command == "train"
+               else mesh.make_kb_mesh(device=args.device))
+        with mesh.use(ctx):
             args.fn(args)
     finally:
         dist.destroy_process_group()

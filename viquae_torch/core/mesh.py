@@ -6,7 +6,10 @@ axes, in the reference's grid order (data, pipe, model, kb):
 
 - ``data``  — batch parallelism: the embedders split each batch's rows
   over it and gather the outputs back in order.
-- ``model`` — tensor parallelism (training; not used by serving yet).
+- ``model`` — tensor, sequence and expert parallelism (training): the
+  Megatron column / row split of attention heads and MLP units, the L
+  axis of the activations between layers, the stacked experts of a MoE
+  FFN (models/sharding.py, models/layers.py, ops/moe.py).
 - ``kb``    — the retrieval scale axis: a KB matrix (or a BM25 corpus) is
   row-split over it; each rank searches its shard and the candidates are
   merged after one all-gather (ops/mips.topk_sharded).
@@ -26,9 +29,25 @@ contract (candidate-sized for search, never score- or KB-sized). The log
 keeps the last ``COLLECTIVE_LOG_LEN`` entries: a long-running server's
 memory does not grow with its requests.
 
-gloo and CUDA tensors: gloo's all-gather takes CUDA tensors and stages
-them through host memory itself; :func:`collective_route` names the route
-a context's collectives take (``"nccl"``, ``"gloo"`` or
+Training adds :func:`all_reduce`, :func:`reduce_scatter` and
+differentiable operators (``torch.autograd.Function``), the Megatron
+pair and its sequence-parallel companions:
+
+- :func:`copy_to`: identity forward, all-reduce backward (Megatron *f*);
+- :func:`reduce_from`: all-reduce forward, identity backward (*g*);
+- :func:`gather_from`: all-gather along ``dim`` forward, this rank's
+  slice of the summed cotangent backward (a reduce-scatter);
+- :func:`scatter_to`: this rank's slice forward, all-gather backward;
+- :func:`gather_to`: all-gather forward, this rank's slice backward (its
+  adjoint, for a gathered tensor every rank then uses alike);
+- :func:`reduce_scatter_to`: reduce-scatter forward, all-gather backward
+  (the sequence-parallel row-parallel output).
+
+gloo and CUDA tensors: gloo takes CUDA tensors in every collective used
+here (all-gather, all-reduce, broadcast, reduce-scatter; checked on the
+card, torch 2.11, ``chip_smoke.gloo_cuda_collectives``) and stages them
+through host memory itself; :func:`collective_route` names the route a
+context's collectives take (``"nccl"``, ``"gloo"`` or
 ``"gloo-cuda-staged"``) so that a caller can print it.
 """
 from __future__ import annotations
@@ -266,3 +285,188 @@ def gather_rows(ctx: MeshContext, local: torch.Tensor, n: int,
     every rank along ``axis`` in order, the padding rows cut off (the
     first ``n`` rows)."""
     return all_gather(ctx, local, axis).flatten(0, 1)[:n]
+
+
+# ---- training collectives ---------------------------------------------------
+def _log(ctx: MeshContext, op: str, axis: str, x: torch.Tensor) -> None:
+    ctx.collective_log.append((op, axis, x.numel() * x.element_size()))
+
+
+def all_reduce(ctx: MeshContext, x: torch.Tensor, axis: str,
+               op: str = "sum") -> torch.Tensor:
+    """The sum (or, with ``op="mean"``, the mean) of every rank's ``x``
+    along ``axis``, as a new tensor (``x`` is left as it is). Without a
+    process group, ``x``."""
+    if op not in ("sum", "mean"):
+        raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
+    group = ctx.group(axis)
+    if group is None:
+        return x
+    y = x.detach().clone()
+    dist.all_reduce(y, group=group)
+    _log(ctx, "all_reduce", axis, y)
+    return y / ctx.size(axis) if op == "mean" else y
+
+
+def reduce_scatter(ctx: MeshContext, x: torch.Tensor, axis: str,
+                   dim: int = 0) -> torch.Tensor:
+    """This rank's block, along ``dim``, of the sum of every rank's ``x``
+    along ``axis`` (``x.shape[dim]`` must divide by the axis' size). Logs
+    the bytes of ``x``."""
+    group = ctx.group(axis)
+    if group is None:
+        return x
+    size = ctx.size(axis)
+    if x.shape[dim] % size:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not divide by the {axis!r} axis' {size}")
+    _log(ctx, "reduce_scatter", axis, x)
+    moved = x.detach().movedim(dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // size,) + moved.shape[1:])
+    dist.reduce_scatter_tensor(out, moved, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _cat_gather(ctx: MeshContext, x: torch.Tensor, axis: str, dim: int
+                ) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated along ``dim``."""
+    parts = all_gather(ctx, x.detach(), axis)
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+def _slice(ctx: MeshContext, x: torch.Tensor, axis: str, dim: int
+           ) -> torch.Tensor:
+    size = ctx.size(axis)
+    if x.shape[dim] % size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"by the {axis!r} axis' {size}")
+    return x.chunk(size, dim)[ctx.coordinate(axis)].contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axis):
+        fctx.mesh, fctx.axis = ctx, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return all_reduce(fctx.mesh, g, fctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axis):
+        return all_reduce(ctx, x, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axis, dim):
+        fctx.mesh, fctx.axis, fctx.dim = ctx, axis, dim
+        return _cat_gather(ctx, x, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (reduce_scatter(fctx.mesh, g, fctx.axis, fctx.dim), None,
+                None, None)
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axis, dim):
+        fctx.mesh, fctx.axis, fctx.dim = ctx, axis, dim
+        return _slice(ctx, x, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _cat_gather(fctx.mesh, g, fctx.axis, fctx.dim), None, None, \
+            None
+
+
+class _GatherTo(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axis, dim):
+        fctx.mesh, fctx.axis, fctx.dim = ctx, axis, dim
+        return _cat_gather(ctx, x, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _slice(fctx.mesh, g, fctx.axis, fctx.dim), None, None, None
+
+
+class _ReduceScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axis, dim):
+        fctx.mesh, fctx.axis, fctx.dim = ctx, axis, dim
+        return reduce_scatter(ctx, x, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _cat_gather(fctx.mesh, g, fctx.axis, fctx.dim), None, None, \
+            None
+
+
+def _active(ctx: Optional[MeshContext], axis: str) -> Optional[MeshContext]:
+    ctx = ctx if ctx is not None else current()
+    return ctx if ctx.group(axis) is not None else None
+
+
+def copy_to(x: torch.Tensor, axis: str = MODEL_AXIS,
+            ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """Megatron *f*: ``x`` forward; the cotangent summed over ``axis``
+    backward (the input of a column-parallel layer). ``ctx`` defaults to
+    :func:`current`; without a process group, ``x``."""
+    ctx = _active(ctx, axis)
+    return x if ctx is None else _CopyTo.apply(x, ctx, axis)
+
+
+def reduce_from(x: torch.Tensor, axis: str = MODEL_AXIS,
+                ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """Megatron *g*: the sum of every rank's ``x`` over ``axis`` forward;
+    the cotangent as it is backward (the output of a row-parallel
+    layer)."""
+    ctx = _active(ctx, axis)
+    return x if ctx is None else _ReduceFrom.apply(x, ctx, axis)
+
+
+def gather_from(x: torch.Tensor, axis: str = DATA_AXIS, dim: int = 0,
+                ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """Every rank's ``x`` over ``axis`` concatenated along ``dim``
+    forward; backward, this rank's block of the cotangent summed over the
+    axis. Every rank that computes the same loss from the gathered tensor
+    sends back ``size(axis)`` times its gradient: a trainer that averages
+    gradients over ``axis`` then holds the gradient of that one loss."""
+    ctx = _active(ctx, axis)
+    return x if ctx is None else _GatherFrom.apply(x, ctx, axis, dim)
+
+
+def gather_to(x: torch.Tensor, axis: str = MODEL_AXIS, dim: int = 1,
+              ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """Every rank's ``x`` over ``axis`` concatenated along ``dim``
+    forward; backward, this rank's block of its own cotangent. For a
+    gathered tensor that every rank of the axis then computes with in the
+    same way (the cotangents agree): the adjoint of :func:`scatter_to`."""
+    ctx = _active(ctx, axis)
+    return x if ctx is None else _GatherTo.apply(x, ctx, axis, dim)
+
+
+def scatter_to(x: torch.Tensor, axis: str = MODEL_AXIS, dim: int = 1,
+               ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` forward (the inverse of
+    :func:`gather_from`); the cotangents gathered back backward."""
+    ctx = _active(ctx, axis)
+    return x if ctx is None else _ScatterTo.apply(x, ctx, axis, dim)
+
+
+def reduce_scatter_to(x: torch.Tensor, axis: str = MODEL_AXIS, dim: int = 1,
+                      ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``axis`` forward;
+    the cotangents gathered back backward (a sequence-parallel row-parallel
+    layer's output, split on L)."""
+    ctx = _active(ctx, axis)
+    return x if ctx is None else _ReduceScatterTo.apply(x, ctx, axis, dim)

@@ -15,6 +15,15 @@ output, FFN output), ``generator``
 (the CPU ``torch.Generator`` the dropout seeds are drawn from) and
 ``remat_layers`` (each layer under ``torch.utils.checkpoint``, its seeds
 drawn before it, so the recomputed masks are the same).
+
+On a mesh: :func:`param_spec` is the reference's tensor-parallel layout
+(attention heads and MLP units over ``model``, the experts of a MoE layer
+over ``model``, the rest replicated), for ``models.sharding``; the layers
+then run on their shards (``layers.mha`` / ``mlp``, ``moe.moe_apply``).
+``activation_sharding`` is the sequence-parallel seam: with L over
+``model`` the activations between layers are this rank's slice of the
+sequence, LayerNorm, dropout and the residual run on it, and each block
+gathers the whole sequence (a reduce-scatter returns its output's slice).
 :func:`params_to_hf_state_dict` / :func:`save_pretrained_hf` export the
 weights as an HF ``BertModel``.
 """
@@ -27,6 +36,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from viquae_torch.core import mesh as meshlib
+from viquae_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 from viquae_torch.models import layers as L
 from viquae_torch.ops import moe as moe_lib
 
@@ -85,6 +96,47 @@ def _ffn_init(cfg: BertConfig, i: int, **factory) -> Dict[str, nn.Module]:
                                          cfg.moe_experts, **factory)}
     return {"mlp": L.mlp_init(cfg.hidden_size, cfg.intermediate_size,
                               **factory)}
+
+
+def param_spec(cfg: BertConfig) -> dict:
+    """Tensor parallelism over ``model`` (the reference's
+    ``bert.param_spec``): each layer's attention (``layers.mha_spec``,
+    whole heads) and MLP (``layers.mlp_spec``), or its experts
+    (``moe.moe_spec``) on a MoE layer; embeddings, LayerNorms and the
+    pooler replicated."""
+    def layer_spec(i):
+        s = {"attention": L.mha_spec(cfg.num_attention_heads),
+             "attention_ln": L.layer_norm_spec(),
+             "output_ln": L.layer_norm_spec()}
+        if _is_moe_layer(cfg, i):
+            s["moe"] = moe_lib.moe_spec()
+        else:
+            s["mlp"] = L.mlp_spec()
+        return s
+
+    table = {"weight": None}
+    spec = {"embeddings": {"word": table, "position": dict(table),
+                           "token_type": dict(table),
+                           "ln": L.layer_norm_spec()},
+            "layers": [layer_spec(i) for i in range(cfg.num_hidden_layers)]}
+    if cfg.add_pooler:
+        spec["pooler"] = L.dense_spec()
+    return spec
+
+
+def _sequence_axis(activation_sharding) -> Optional[str]:
+    """The mesh axis the L dimension of (B, L, D) is split over: the
+    seam takes the reference's PartitionSpec entries, (batch axis or None,
+    ``model``, None)."""
+    if activation_sharding is None:
+        return None
+    spec = tuple(activation_sharding) + (None,) * (
+        3 - len(tuple(activation_sharding)))
+    if spec[0] not in (None, DATA_AXIS) or spec[1] not in (None, MODEL_AXIS) \
+            or spec[2] is not None:
+        raise ValueError(f"activation_sharding: (B, L, D) may split B over "
+                         f"data and L over model, got {spec}")
+    return spec[1]
 
 
 class Bert(nn.Module):
@@ -147,28 +199,35 @@ def embed(
 
 def _layer_forward(layer: nn.ModuleDict, x, bias, cfg: BertConfig,
                    compute_dtype, seeds: Sequence[Optional[int]] = (
-                       None, None, None), token_mask=None):
+                       None, None, None), token_mask=None, seq_axis=None):
     """One post-LN transformer block; ``seeds`` = the dropout seeds of the
     attention probabilities, the attention output and the FFN output.
     Returns (y, moe_aux): moe_aux is None for a dense FFN. ``token_mask``
-    (B, L) keeps padding tokens out of MoE routing."""
+    (B, L) keeps padding tokens out of MoE routing. With ``seq_axis``,
+    ``x`` and the output are this rank's slice of L."""
     seed_a, seed_h, seed_b = seeds
+    folds = (DATA_AXIS,) if seq_axis is None else (DATA_AXIS, seq_axis)
+    eps = cfg.layer_norm_eps
     attn = L.mha(layer["attention"], x, bias=bias,
                  n_heads=cfg.num_attention_heads, compute_dtype=compute_dtype,
-                 dropout_rate=cfg.attention_probs_dropout_prob, seed=seed_a)
-    attn = L.dropout(attn, cfg.hidden_dropout_prob, seed_h)
-    x = L.layer_norm(layer["attention_ln"], x + attn, cfg.layer_norm_eps)
+                 dropout_rate=cfg.attention_probs_dropout_prob, seed=seed_a,
+                 seq_axis=seq_axis)
+    attn = L.dropout(attn, cfg.hidden_dropout_prob, seed_h, folds)
+    x = L.layer_norm(layer["attention_ln"], x + attn, eps, seq_axis)
     aux = None
     if "moe" in layer:
+        whole = x if seq_axis is None else meshlib.gather_to(x, seq_axis, 1)
         ff, aux = moe_lib.moe_apply(
-            layer["moe"], x, top_k=cfg.moe_top_k,
+            layer["moe"], whole, top_k=cfg.moe_top_k,
             capacity_factor=cfg.moe_capacity_factor, act=cfg.hidden_act,
             compute_dtype=compute_dtype, group_size=cfg.moe_group_size,
             token_mask=token_mask)
+        if seq_axis is not None:
+            ff = meshlib.scatter_to(ff, seq_axis, 1)
     else:
-        ff = L.mlp(layer["mlp"], x, cfg.hidden_act, compute_dtype)
-    ff = L.dropout(ff, cfg.hidden_dropout_prob, seed_b)
-    return L.layer_norm(layer["output_ln"], x + ff, cfg.layer_norm_eps), aux
+        ff = L.mlp(layer["mlp"], x, cfg.hidden_act, compute_dtype, seq_axis)
+    ff = L.dropout(ff, cfg.hidden_dropout_prob, seed_b, folds)
+    return L.layer_norm(layer["output_ln"], x + ff, eps, seq_axis), aux
 
 
 def encode(
@@ -183,6 +242,7 @@ def encode(
     generator: Optional[torch.Generator] = None,
     remat_layers: bool = False,
     return_moe_aux: bool = False,
+    activation_sharding=None,
 ):
     """Encoder stack over (B, L, D) hidden states. ``segment_ids`` (B, L),
     0 = padding: packed-canvas mode — attention is block-diagonal per
@@ -194,7 +254,13 @@ def encode(
     With ``return_moe_aux`` (MoE configs) the summed load-balance term of
     the MoE layers is appended: (x[, hidden], aux). Training a MoE config
     without asking for it raises: a loss without the balance term lets
-    the experts collapse."""
+    the experts collapse.
+
+    ``activation_sharding`` (the reference's PartitionSpec entries over
+    (B, L, D), e.g. ``(DATA_AXIS, MODEL_AXIS, None)``) is the
+    sequence-parallel seam: L is split over ``model`` of the current mesh
+    between the layers (it must divide), and the outputs are whole
+    again."""
     if cfg.moe_experts > 0 and not deterministic and not return_moe_aux:
         raise ValueError(
             "moe_experts > 0 in training mode requires return_moe_aux="
@@ -215,23 +281,36 @@ def encode(
     # outside any checkpointed region
     seeds = L.dropout_seeds(generator, 3 * len(params.layers),
                             deterministic)
-    x = hidden
-    all_hidden = [x]
+    seq_axis = _sequence_axis(activation_sharding)
+    if seq_axis is not None and meshlib.current().group(seq_axis) is None:
+        seq_axis = None      # a world of one: nothing to split
+    if seq_axis is not None and l % meshlib.current().size(seq_axis):
+        raise ValueError(f"sequence parallelism: L = {l} does not divide "
+                         f"by the {seq_axis!r} axis' "
+                         f"{meshlib.current().size(seq_axis)}")
+
+    def whole(t):
+        return t if seq_axis is None else meshlib.gather_to(t, seq_axis, 1)
+
+    x = hidden if seq_axis is None else meshlib.scatter_to(hidden, seq_axis,
+                                                           1)
+    all_hidden = [hidden]
     moe_aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i, layer in enumerate(params.layers):
         layer_seeds = tuple(seeds[3 * i: 3 * i + 3])
         if remat_layers and torch.is_grad_enabled():
             x, aux = checkpoint(_layer_forward, layer, x, bias, cfg,
                                 compute_dtype, layer_seeds, token_mask,
-                                use_reentrant=False,
+                                seq_axis, use_reentrant=False,
                                 preserve_rng_state=False)
         else:
             x, aux = _layer_forward(layer, x, bias, cfg, compute_dtype,
-                                    layer_seeds, token_mask)
+                                    layer_seeds, token_mask, seq_axis)
         if aux is not None:
             moe_aux = moe_aux + aux
         if output_hidden_states:
-            all_hidden.append(x)
+            all_hidden.append(whole(x))
+    x = whole(x)
     out = (x,)
     if output_hidden_states:
         out = out + (all_hidden,)
@@ -253,6 +332,7 @@ def apply(
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
     remat_layers: bool = False,
+    activation_sharding=None,
 ) -> Dict[str, torch.Tensor]:
     """embed -> encode -> optional tanh pooler.
 
@@ -271,7 +351,8 @@ def apply(
                segment_ids=segment_ids,
                output_hidden_states=output_hidden_states,
                deterministic=deterministic, generator=generator,
-               remat_layers=remat_layers, return_moe_aux=moe)
+               remat_layers=remat_layers, return_moe_aux=moe,
+               activation_sharding=activation_sharding)
     hidden_states = moe_aux = None
     if moe:
         *x, moe_aux = x

@@ -301,6 +301,26 @@ def module_from_tree(module_cls, *args, tree, device=None,
 # --------------------------------------------------------------------------
 # the inverse map: a module's tensors -> JAX param-tree paths
 # --------------------------------------------------------------------------
+# a JAX kernel is the port's weight permuted by these axes, by its number
+# of dimensions: dense (in, out) from (out, in), expert stacks (E, in, out)
+# as they are, convolutions HWIO from OIHW
+KERNEL_AXES = {2: (1, 0), 3: (0, 1, 2), 4: (2, 3, 1, 0)}
+
+
+def torch_partition(partition, ndim: int, kernel: bool = True):
+    """A JAX leaf's partition (one mesh axis name or None for each of its
+    dimensions, as a ``PartitionSpec``; missing trailing entries are None)
+    as the port's ``(dim, axis)`` on the same tensor: a kernel's dimension
+    maps through :data:`KERNEL_AXES`, any other leaf's is its own. None
+    when the leaf is replicated."""
+    partition = tuple(partition) + (None,) * (ndim - len(tuple(partition)))
+    axes = KERNEL_AXES[ndim] if kernel else tuple(range(ndim))
+    split = [(axes[d], a) for d, a in enumerate(partition) if a is not None]
+    if len(split) > 1:
+        raise ValueError(f"one sharded dimension a tensor, got {partition}")
+    return split[0] if split else None
+
+
 def _leaf_name(mod: nn.Module, name: str) -> str:
     """The JAX tree's name of ``mod``'s direct tensor ``name`` ("" for a
     bare embedding table, which is a leaf of its own in the tree)."""
@@ -357,7 +377,7 @@ def tree_from_module(module: nn.Module) -> Dict[str, Any]:
     flat = {}
     for name, path in jax_paths(module, buffers=True).items():
         a = tensors[name].detach().to("cpu", torch.float32).numpy()
-        if path.endswith("kernel") and a.ndim != 3:  # 3-D: expert stacks
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        if path.endswith("kernel"):
+            a = a.transpose(KERNEL_AXES[a.ndim])
         flat[path] = np.ascontiguousarray(a)
     return _unflatten(flat)

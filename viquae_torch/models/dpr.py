@@ -93,6 +93,11 @@ def make_packed_apply(cfg: DPRConfig):
     return fn
 
 
+def param_spec(cfg: DPRConfig) -> dict:
+    """Tensor parallelism of the tower: ``bert.param_spec``."""
+    return bert.param_spec(cfg.bert)
+
+
 def init(cfg: DPRConfig, seed: int = 0, device=None) -> bert.Bert:
     """Seeded random tower on ``device`` (default: the GPU), drawn with a
     ``torch.Generator`` from the JAX ``init``'s distribution (truncated

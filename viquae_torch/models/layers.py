@@ -25,15 +25,39 @@ recomputed under ``torch.utils.checkpoint`` then draws the same masks
 again (checkpoint restores only the global RNG, not a generator passed
 in by hand). :func:`init_weights_` draws seeded random weights for a
 module built from a config.
+
+Tensor parallelism (the JAX package's ``*_spec`` companions): a spec
+names, for each parameter of a block, its ``(dim, mesh axis)`` on the
+port's tensor, or None when it is replicated; a third entry counts the
+whole units (attention heads) the split must keep together. The specs
+are the reference's PartitionSpecs put through
+``models.convert.torch_partition``, so a dense kernel's ``shard_out``
+is the ``nn.Linear`` weight's dim 0. When ``models.sharding`` has split
+a block's weights, :func:`mha` and :func:`mlp` run it Megatron-style on
+the current mesh (``core.mesh.current``): the input through ``copy_to``,
+q / k / v (whole heads) and ``mlp.in`` column-parallel, ``o`` and
+``mlp.out`` row-parallel with one ``reduce_from`` before their
+replicated bias. With ``seq_axis`` (sequence parallelism) the input is
+this rank's slice of L: ``gather_from`` makes it whole for the block and
+a reduce-scatter returns the output's slice.
+
+Under a mesh, :func:`dropout` folds the ``data`` coordinate into its
+seed (the rows are split over ``data``, and each rank must drop other
+positions), and the callers fold ``model`` where the activation itself is
+split over it (attention heads, a sequence slice); an activation
+replicated over ``model`` gets the same mask on every ``model`` rank.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from viquae_torch.core import mesh as meshlib
+from viquae_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -51,13 +75,32 @@ def dropout_seeds(generator: Optional[torch.Generator], n: int,
     return torch.randint(0, 1 << 62, (n,), generator=generator).tolist()
 
 
-def dropout(x: torch.Tensor, rate: float, seed: Optional[int]
-            ) -> torch.Tensor:
+# odd multipliers that fold a mesh coordinate into a dropout seed, one per
+# axis, so that the data and model folds never cancel
+_FOLD = {DATA_AXIS: 0x9E3779B97F4A7C15, MODEL_AXIS: 0xC2B2AE3D27D4EB4F}
+
+
+def fold_seed(seed: int, axes: Sequence[str] = (DATA_AXIS,)) -> int:
+    """``seed`` with this rank's coordinate on each of ``axes`` (of the
+    current mesh) folded in; unchanged where an axis has one rank."""
+    ctx = meshlib.current()
+    for axis in axes:
+        if ctx.size(axis) > 1:
+            seed = (seed ^ ((ctx.coordinate(axis) + 1) * _FOLD[axis])) \
+                % (1 << 62)
+    return seed
+
+
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int],
+            split_axes: Sequence[str] = (DATA_AXIS,)) -> torch.Tensor:
     """Inverted dropout: keep each entry with probability 1 - rate and
     scale it by 1 / (1 - rate); the identity for ``seed`` None or rate 0.
-    The mask is a function of ``seed`` and the shape alone."""
+    The mask is a function of ``seed``, the shape and this rank's
+    coordinates on ``split_axes`` (:func:`fold_seed`), the mesh axes ``x``
+    is split over."""
     if seed is None or rate == 0.0:
         return x
+    seed = fold_seed(seed, split_axes)
     gen = torch.Generator(device=x.device)
     gen.manual_seed(seed)
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
@@ -116,8 +159,9 @@ class ExpertDense(nn.Module):
         self.bias = nn.Parameter(torch.empty((n_experts, d_out), **factory))
 
 
-def dense(lin: nn.Linear, x: torch.Tensor,
-          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def _matmul(lin: nn.Linear, x: torch.Tensor,
+            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`dense` without its bias."""
     weight = lin.weight
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -125,7 +169,66 @@ def dense(lin: nn.Linear, x: torch.Tensor,
     else:
         x = x.to(torch.promote_types(x.dtype, weight.dtype))
         weight = weight.to(x.dtype)
-    return _dot_f32(x, weight) + lin.bias
+    return _dot_f32(x, weight)
+
+
+def dense(lin: nn.Linear, x: torch.Tensor,
+          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    return _matmul(lin, x, compute_dtype) + lin.bias
+
+
+def dense_spec(shard_out: bool = False, shard_in: bool = False,
+               units: Optional[int] = None) -> dict:
+    """The reference's ``dense_spec`` (kernel P(in, out), bias P(out)) on
+    an ``nn.Linear``: ``shard_out`` splits the weight's dim 0 and the
+    bias, ``shard_in`` the weight's dim 1 (the bias stays replicated).
+    ``units``: the whole units (heads) the split dimension holds."""
+    from viquae_torch.models.convert import torch_partition
+
+    weight = torch_partition((MODEL_AXIS if shard_in else None,
+                              MODEL_AXIS if shard_out else None), 2)
+    bias = torch_partition((MODEL_AXIS if shard_out else None,), 1,
+                           kernel=False)
+    if units is not None:
+        weight = weight and weight + (units,)
+        bias = bias and bias + (units,)
+    return {"weight": weight, "bias": bias}
+
+
+def shard_axis(module: nn.Module, name: str = "weight") -> Optional[str]:
+    """The mesh axis ``module``'s parameter ``name`` is split over
+    (``models.sharding.shard_module`` records it), or None."""
+    entry = getattr(module, "sharded", {}).get(name)
+    return entry[1] if entry else None
+
+
+def _enter(x: torch.Tensor, axis: Optional[str], seq_axis: Optional[str]
+           ) -> torch.Tensor:
+    """A block's input in its tensor-parallel region: ``copy_to`` over
+    the weights' axis; under sequence parallelism the whole sequence from
+    this rank's slice (``gather_from`` when the weights are split, else a
+    plain gather whose backward takes this rank's slice)."""
+    if seq_axis is not None:
+        if axis is not None:
+            return meshlib.gather_from(x, seq_axis, dim=1)
+        return meshlib.gather_to(x, seq_axis, dim=1)
+    return x if axis is None else meshlib.copy_to(x, axis)
+
+
+def _leave(y: torch.Tensor, lin: nn.Linear, axis: Optional[str],
+           seq_axis: Optional[str]) -> torch.Tensor:
+    """A block's output ``y`` (without ``lin``'s bias) out of its
+    tensor-parallel region, plus the bias: the row-parallel sum
+    (``reduce_from``; a reduce-scatter to this rank's slice of L under
+    sequence parallelism). A bias added to a slice of L sums its gradient
+    over the slices (``copy_to``)."""
+    if seq_axis is not None:
+        y = (meshlib.reduce_scatter_to(y, axis, dim=1) if axis is not None
+             else meshlib.scatter_to(y, seq_axis, dim=1))
+        return y + meshlib.copy_to(lin.bias, seq_axis)
+    if axis is not None:
+        y = meshlib.reduce_from(y, axis)
+    return y + lin.bias
 
 
 # ---- layer norm -----------------------------------------------------------
@@ -133,13 +236,23 @@ def layer_norm_init(dim: int, eps: float = 1e-12, **factory) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=eps, **factory)
 
 
-def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-12
-               ) -> torch.Tensor:
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-12,
+               seq_axis: Optional[str] = None) -> torch.Tensor:
+    """LayerNorm in f32. With ``seq_axis``, ``x`` is this rank's slice of
+    L and the scale and shift sum their gradients over the slices."""
     x = x.float()
     mean = x.mean(dim=-1, keepdim=True)
     var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
     y = (x - mean) * torch.rsqrt(var + eps)
-    return y * ln.weight + ln.bias
+    weight, bias = ln.weight, ln.bias
+    if seq_axis is not None:
+        weight = meshlib.copy_to(weight, seq_axis)
+        bias = meshlib.copy_to(bias, seq_axis)
+    return y * weight + bias
+
+
+def layer_norm_spec() -> dict:
+    return {"weight": None, "bias": None}
 
 
 # ---- activations ----------------------------------------------------------
@@ -161,6 +274,14 @@ def mha_init(dim: int, **factory) -> nn.ModuleDict:
                           for name in ("q", "k", "v", "o")})
 
 
+def mha_spec(n_heads: Optional[int] = None) -> dict:
+    """q, k, v column-parallel and o row-parallel over ``model``, whole
+    heads each (the reference's ``mha_spec``)."""
+    col = dense_spec(shard_out=True, units=n_heads)
+    return {"q": col, "k": dict(col), "v": dict(col),
+            "o": dense_spec(shard_in=True, units=n_heads)}
+
+
 def mha(
     attn: nn.ModuleDict,
     x: torch.Tensor,
@@ -170,21 +291,28 @@ def mha(
     kv: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    seq_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention of the queries of ``x`` over the keys
     and values of ``kv`` (default ``x``: self-attention).
 
     x: (B, Lq, D); kv: (B, Lk, Dkv); bias: additive f32 bias broadcastable
     to (B, H, Lq, Lk). With a ``seed``, dropout at ``dropout_rate`` on the
-    f32 attention probabilities.
+    f32 attention probabilities. ``n_heads`` counts every head; when the
+    weights hold a shard of them (tensor parallelism) this rank runs its
+    own heads. With ``seq_axis``, ``x`` is this rank's slice of L
+    (self-attention only) and so is the output.
     """
-    if kv is None:
-        kv = x
+    axis = shard_axis(attn["o"])
+    self_attention = kv is None
+    x = _enter(x, axis, seq_axis)
+    kv = x if self_attention else _enter(kv, axis, None)
     b, length, dim = x.shape
     head_dim = dim // n_heads
+    width = attn["q"].weight.shape[0]       # this rank's heads x head_dim
 
-    def heads(t):  # (B, L, D) -> (B, H, L, hd)
-        return t.reshape(b, -1, n_heads, head_dim).transpose(1, 2)
+    def heads(t):  # (B, L, width) -> (B, heads, L, hd)
+        return t.reshape(b, -1, width // head_dim, head_dim).transpose(1, 2)
 
     q = heads(dense(attn["q"], x, compute_dtype))
     k = heads(dense(attn["k"], kv, compute_dtype))
@@ -192,10 +320,13 @@ def mha(
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim)
     if bias is not None:
         scores = scores + bias
-    probs = dropout(torch.softmax(scores.float(), dim=-1), dropout_rate, seed)
+    folds = (DATA_AXIS,) if axis is None else (DATA_AXIS, axis)
+    probs = dropout(torch.softmax(scores.float(), dim=-1), dropout_rate, seed,
+                    folds)
     probs = probs.to(compute_dtype or probs.dtype).float()
-    ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, length, dim)
-    return dense(attn["o"], ctx, compute_dtype)
+    ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, length, width)
+    return _leave(_matmul(attn["o"], ctx, compute_dtype), attn["o"], axis,
+                  seq_axis)
 
 
 # ---- MLP ------------------------------------------------------------------
@@ -204,10 +335,21 @@ def mlp_init(dim: int, hidden: int, **factory) -> nn.ModuleDict:
                           "out": dense_init(hidden, dim, **factory)})
 
 
+def mlp_spec() -> dict:
+    """``in`` column-parallel, ``out`` row-parallel over ``model``."""
+    return {"in": dense_spec(shard_out=True),
+            "out": dense_spec(shard_in=True)}
+
+
 def mlp(m: nn.ModuleDict, x: torch.Tensor, act: str = "gelu",
-        compute_dtype: Optional[torch.dtype] = torch.float32) -> torch.Tensor:
-    return dense(m["out"], ACT[act](dense(m["in"], x, compute_dtype)),
-                 compute_dtype)
+        compute_dtype: Optional[torch.dtype] = torch.float32,
+        seq_axis: Optional[str] = None) -> torch.Tensor:
+    """The two-layer FFN; tensor-parallel when its weights are split, on a
+    slice of L with ``seq_axis`` (as :func:`mha`)."""
+    axis = shard_axis(m["out"])
+    h = ACT[act](dense(m["in"], _enter(x, axis, seq_axis), compute_dtype))
+    return _leave(_matmul(m["out"], h, compute_dtype), m["out"], axis,
+                  seq_axis)
 
 
 # ---- masks ----------------------------------------------------------------

@@ -49,6 +49,13 @@ class NER(nn.Module):
                                        **factory)
 
 
+def param_spec(cfg: NERConfig) -> dict:
+    """The BERT tensor-parallel over ``model``, the classifier
+    replicated."""
+    return {"bert": bert.param_spec(cfg.bert),
+            "classifier": L.dense_spec()}
+
+
 def init(cfg: NERConfig, seed: int = 0, device=None) -> NER:
     """Seeded random NER model on ``device`` (default: the GPU): the JAX
     init's distribution (truncated normal, std 0.02), not its values."""

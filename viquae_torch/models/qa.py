@@ -64,6 +64,15 @@ class Reader(nn.Module):
         return reader_apply(self, self.cfg, input_ids, **kw)
 
 
+def param_spec(cfg: ReaderConfig) -> dict:
+    """The BERT tensor-parallel over ``model`` (``bert.param_spec``); the
+    span head and the IR-score fusion scalars replicated."""
+    spec = {"bert": bert.param_spec(cfg.bert), "qa_outputs": L.dense_spec()}
+    if cfg.fuse_ir_score:
+        spec["score_proj_w"] = spec["score_proj_b"] = None
+    return spec
+
+
 def init(cfg: ReaderConfig, seed: int = 0, device=None) -> Reader:
     """Seeded random reader on ``device`` (default: the GPU) from the JAX
     ``init``'s distribution (truncated normal, std 0.02; identity

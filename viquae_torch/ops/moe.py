@@ -1,6 +1,5 @@
-"""Mixture-of-Experts FFN on one device (counterpart of
-viquae_tpu/ops/moe.py; its expert-parallel sharding, ``moe_spec`` and
-``expert_sharding``, belongs to the multi-GPU slice).
+"""Mixture-of-Experts FFN (counterpart of viquae_tpu/ops/moe.py), on one
+device or expert-parallel over the ``model`` mesh axis.
 
 GShard routing (arXiv:2006.16668) with the reference's semantics:
 
@@ -28,6 +27,22 @@ GShard routing (arXiv:2006.16668) with the reference's semantics:
 :func:`moe_apply` returns ``(y, aux)``: ``aux`` is the Switch
 load-balance loss (E · sum_e f_e · p_e over the valid tokens' top-1
 choices; 1 at perfect balance), for the caller to add to its loss.
+
+**Expert parallelism** (:func:`moe_spec`: the stacked experts split on E
+over ``model``, the router replicated; ``models.sharding`` places them).
+The tokens are replicated within a ``model`` group, so every rank routes
+them alike, on the replicated router, with the same capacity, slot order
+and groups as one device. A rank then fills and runs only the slots of its
+E/model experts, and ``core.mesh.reduce_from`` sums the combined outputs
+over ``model``; a token's at most ``top_k`` non-zero terms are added in
+another order only when they are more than two. The gates reach the
+router through ``copy_to`` (each rank's cotangent covers its own experts)
+and the aux is computed once, on the router's probabilities before it.
+While gradients are on and the batch rows are split over ``data``, the
+aux's statistics are summed over ``data`` (``gather_from``): the aux of
+the global batch, as the reference's single program computes it. The
+capacity is still budgeted from this rank's tokens: it equals the global
+one when nothing drops, or when each rank's tokens are whole groups.
 """
 from __future__ import annotations
 
@@ -38,6 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from viquae_torch.core import mesh as meshlib
+from viquae_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 from viquae_torch.models import layers as L
 
 
@@ -53,6 +70,16 @@ def moe_init(dim: int, hidden: int, n_experts: int, **factory
     })
 
 
+def moe_spec() -> dict:
+    """The expert axis of ``in`` / ``out`` (weights and biases) over
+    ``model``; the router replicated — the reference's ep sharding."""
+    from viquae_torch.models.convert import torch_partition
+
+    experts = {"weight": torch_partition((MODEL_AXIS,), 3),
+               "bias": torch_partition((MODEL_AXIS,), 2, kernel=False)}
+    return {"router": {"weight": None}, "in": experts, "out": dict(experts)}
+
+
 def _act(name: str, h: torch.Tensor) -> torch.Tensor:
     """The reference applies the activation to the hidden layer rounded to
     the compute dtype; its "gelu" takes the tanh form on bf16 input."""
@@ -62,17 +89,21 @@ def _act(name: str, h: torch.Tensor) -> torch.Tensor:
 
 
 def _route(params, tokens, valid, top_k: int, capacity: int,
-           n_groups: int, tg: int):
+           n_groups: int, tg: int, axis=None):
     """(probs, gates, expert ids, slots) of the (G*Tg, D) tokens: the f32
     router's softmax, each token's ``top_k`` experts (ties to the lower
     expert) with their renormalized gates, and the (G*Tg, top_k) slot of
     each choice in the (E, G, C) expert batches — ``E*G*C`` (one past the
-    last slot) where the choice is dropped or the token is not valid."""
-    n_experts = params["in"].weight.shape[0]
+    last slot) where the choice is dropped or the token is not valid.
+    With the experts split over ``axis``, the gates read the
+    probabilities through ``copy_to``."""
+    n_experts = params["router"].weight.shape[0]
     logits = torch.matmul(tokens.float(), params["router"].weight.float().T)
     probs = torch.softmax(logits, dim=-1)                  # (G*Tg, E)
-    gate_v, gate_i = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_v, gate_i = gate_v[:, :top_k], gate_i[:, :top_k]
+    gate_i = torch.sort(probs, dim=-1, descending=True,
+                        stable=True)[1][:, :top_k]
+    gated = probs if axis is None else meshlib.copy_to(probs, axis)
+    gate_v = torch.gather(gated, 1, gate_i)
     gate_v = gate_v / torch.clamp(gate_v.sum(-1, keepdim=True), min=1e-9)
     # choice by choice, with running per-(group, expert) fill counts
     gi = gate_i.view(n_groups, tg, top_k)
@@ -103,16 +134,22 @@ def moe_apply(
     compute_dtype: Optional[torch.dtype] = torch.float32,
     group_size: int = 1024,
     token_mask: Optional[torch.Tensor] = None,
+    expert_sharding: Optional[str] = None,
 ):
     """MoE FFN over (..., D) activations -> (y f32 of x's shape, aux f32
     scalar). ``token_mask`` (x's leading shape, non-zero = real token)
-    keeps padding out of routing, capacity and the aux loss."""
+    keeps padding out of routing, capacity and the aux loss.
+    ``expert_sharding``: the mesh axis the experts are split over (by
+    default the one ``models.sharding`` recorded on ``params["in"]``);
+    this rank then runs its own experts and the outputs are summed over
+    the axis (module docstring)."""
     orig_shape = x.shape
     dim = orig_shape[-1]
     tokens = x.reshape(-1, dim)
     t = tokens.shape[0]
     device = x.device
-    n_experts = params["in"].weight.shape[0]
+    axis = expert_sharding or L.shard_axis(params["in"])
+    n_experts = params["router"].weight.shape[0]
     top_k = min(top_k, n_experts)
     n_groups = max(1, math.ceil(t / max(1, group_size)))
     tg = math.ceil(t / n_groups)
@@ -128,16 +165,24 @@ def moe_apply(
         tokens = torch.cat([tokens, tokens.new_zeros((pad, dim))])
 
     probs, gate_v, gate_i, slots = _route(
-        params, tokens, valid, top_k, capacity, n_groups, tg)
+        params, tokens, valid, top_k, capacity, n_groups, tg, axis)
     n_slots = n_experts * n_groups * capacity
+    local_experts = params["in"].weight.shape[0]
+    if local_experts != n_experts:
+        # this rank's experts own one block of the (E, G, C) slots
+        n_local = local_experts * n_groups * capacity
+        lo = meshlib.current().coordinate(axis) * n_local
+        slots = slots - lo
+        slots = torch.where((slots >= 0) & (slots < n_local), slots, n_local)
+        n_slots = n_local
 
     cd = compute_dtype or tokens.dtype
-    src = tokens.to(cd)
+    src = (tokens if axis is None else meshlib.copy_to(tokens, axis)).to(cd)
     expert_in = src.new_zeros((n_slots + 1, dim))          # + a drop row
     for j in range(top_k):
         # kept slots are distinct; dropped choices all land on the drop row
         expert_in.index_copy_(0, slots[:, j], src)
-    ei = expert_in[:n_slots].view(n_experts, n_groups * capacity, dim)
+    ei = expert_in[:n_slots].view(local_experts, n_groups * capacity, dim)
     h = L._bmm_f32(ei, params["in"].weight.to(cd)) \
         + params["in"].bias[:, None, :]
     h = _act(act, h.to(cd))
@@ -149,12 +194,19 @@ def moe_apply(
     y = (gate_v.to(cd).float()[..., None] * picked.float()).sum(dim=1)
     if pad:
         y = y[:t]
+    if axis is not None:
+        y = meshlib.reduce_from(y, axis)
 
     # Switch load-balance loss over the valid tokens' top-1 choices
     top1 = F.one_hot(gate_i[:, 0], n_experts).float()
     vf = valid.float()[:, None]
-    denom = torch.clamp(vf.sum(), min=1.0)
-    f = (top1 * vf).sum(dim=0) / denom
-    p = (probs * vf).sum(dim=0) / denom
+    sums = torch.cat([(top1 * vf).sum(dim=0), (probs * vf).sum(dim=0),
+                      vf.sum()[None]])
+    if torch.is_grad_enabled() and meshlib.current().size(DATA_AXIS) > 1:
+        # the global batch's statistics (module docstring)
+        sums = meshlib.gather_from(sums[None], DATA_AXIS).sum(dim=0)
+    denom = torch.clamp(sums[-1], min=1.0)
+    f = sums[:n_experts] / denom
+    p = sums[n_experts: 2 * n_experts] / denom
     aux = n_experts * torch.sum(f * p)
     return y.reshape(orig_shape), aux

@@ -4,7 +4,13 @@ viquae_tpu/train/checkpoint.py).
 :func:`save_state` writes a trainer's whole state (parameters, optimizer
 and schedule, step) with ``torch.save`` under ``<dir>/step_<n>/state.pt``
 and keeps the newest ``keep``; :func:`restore_state` loads the newest (or
-a given) step into a template that has ``load_state_dict``.
+a given) step into a template that has ``load_state_dict``. On a mesh
+each rank writes its own shard (parameters, AdamW moments, schedule,
+step, generator state and the mesh it ran on) to
+``<dir>/step_<n>/rank<r>.pt`` and reads it back, so a resume on the same
+mesh continues bit for bit; :func:`export_params` takes full parameters
+(the trainer gathers its shards first), so an export is the same file
+as one device's.
 
 An export directory holds ``params.npz``, one array per leaf of a param
 tree named by its path ("/"-joined dict keys and list indices, as
@@ -24,42 +30,60 @@ import numpy as np
 import torch
 
 
-def save_state(ckpt_dir, state, step: int, keep: Optional[int] = None):
-    """``state.state_dict()`` to ``ckpt_dir/step_<step>``; with ``keep``,
-    only the newest ``keep`` steps stay."""
+def _file(rank: Optional[int]) -> str:
+    return "state.pt" if rank is None else f"rank{rank}.pt"
+
+
+def save_state(ckpt_dir, state, step: int, keep: Optional[int] = None,
+               rank: Optional[int] = None):
+    """``state.state_dict()`` to ``ckpt_dir/step_<step>`` (``state.pt``,
+    or ``rank<r>.pt`` for one rank of a mesh); with ``keep``, only the
+    newest ``keep`` steps stay (each rank removes its own files)."""
     ckpt_dir = Path(ckpt_dir).resolve()
     path = ckpt_dir / f"step_{step}"
     path.mkdir(parents=True, exist_ok=True)
-    tmp = path / "state.pt.tmp"
+    name = _file(rank)
+    tmp = path / f"{name}.tmp"
     torch.save(state.state_dict(), tmp)
-    tmp.replace(path / "state.pt")
+    tmp.replace(path / name)
     if keep is not None:
-        for old in sorted(all_steps(ckpt_dir))[:-keep]:
-            shutil.rmtree(ckpt_dir / f"step_{old}", ignore_errors=True)
+        for old in sorted(all_steps(ckpt_dir, rank))[:-keep]:
+            old_dir = ckpt_dir / f"step_{old}"
+            if rank is None:
+                shutil.rmtree(old_dir, ignore_errors=True)
+                continue
+            (old_dir / name).unlink(missing_ok=True)
+            try:
+                old_dir.rmdir()         # the last rank out removes it
+            except OSError:
+                pass
     return path
 
 
-def all_steps(ckpt_dir):
+def all_steps(ckpt_dir, rank: Optional[int] = None):
+    """The steps under ``ckpt_dir`` that hold ``state.pt`` (or, for a
+    rank of a mesh, its ``rank<r>.pt``)."""
     ckpt_dir = Path(ckpt_dir)
+    name = _file(rank)
     return [
         int(p.name.split("_")[1])
-        for p in ckpt_dir.glob("step_*") if (p / "state.pt").is_file()
+        for p in ckpt_dir.glob("step_*") if (p / name).is_file()
     ]
 
 
 def restore_state(ckpt_dir, template, step: Optional[int] = None,
-                  map_location="cpu"):
+                  map_location="cpu", rank: Optional[int] = None):
     """(``template`` with the checkpoint loaded, step): ``template`` has
     ``load_state_dict`` (a ``trainer.TrainState``); ``step`` defaults to
-    the newest."""
+    the newest; ``rank`` reads one rank's shard of a mesh."""
     ckpt_dir = Path(ckpt_dir).resolve()
     if step is None:
-        steps = all_steps(ckpt_dir)
+        steps = all_steps(ckpt_dir, rank)
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
         step = max(steps)
     template.load_state_dict(torch.load(
-        ckpt_dir / f"step_{step}" / "state.pt", map_location=map_location,
+        ckpt_dir / f"step_{step}" / _file(rank), map_location=map_location,
         weights_only=True))
     return template, step
 

@@ -11,7 +11,10 @@
   :class:`AdamWSpec` that a trainer binds to its own parameters
   (:class:`Optimizer`): ``torch.optim.AdamW`` over a decay and a no-decay
   group of the trainable parameters, a ``LambdaLR`` holding the schedule,
-  and global-norm clipping over the trainable gradients only;
+  and global-norm clipping over the trainable gradients only; on a
+  mesh the norm is the full parameter set's: the squares of gradients
+  split over an axis (``models.sharding``) are summed over it, the
+  replicated ones counted once;
 - :func:`remat`: per-call gradient checkpointing;
 - :func:`multi_passage_rc_loss`: (N*M, L) start/end logits get ONE softmax
   shared across the M passages of a question (reshape to (N, M*L)),
@@ -93,12 +96,18 @@ class Optimizer:
     the trainer's ``grad_norm``, as in the JAX trainer."""
 
     def __init__(self, spec: "AdamWSpec", params: nn.Module):
+        from viquae_torch.models.sharding import sharded_parameters
+
         self.spec = spec
         named = dict(params.named_parameters())
+        split = sharded_parameters(params)
         trainable = freeze_mask(params, spec.freeze_regex)
         decays = decay_mask(params)
         self.trainable: List[torch.Tensor] = [
             p for n, p in named.items() if trainable[n]]
+        # the mesh axis each trainable parameter is split over, or None
+        self.axes = [split.get(n, (None, None))[1] for n, p in named.items()
+                     if trainable[n]]
         groups = [
             {"params": [p for n, p in named.items()
                         if trainable[n] and decays[n]],
@@ -122,7 +131,8 @@ class Optimizer:
         """Clip the trainable gradients (global norm, on the device, no
         host read), take the AdamW step, advance the schedule."""
         if self.spec.grad_clip:
-            clip_by_global_norm_(self.trainable, self.spec.grad_clip)
+            clip_by_global_norm_(self.trainable, self.spec.grad_clip,
+                                 self.axes)
         self.adamw.step()
         self.scheduler.step()
 
@@ -135,20 +145,41 @@ class Optimizer:
         self.scheduler.load_state_dict(state["scheduler"])
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry (optax.global_norm)."""
-    norms = torch._foreach_norm(list(tensors))
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tensors, axes: Optional[List[Optional[str]]] = None,
+                mesh_ctx=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry (optax.global_norm).
+    ``axes`` (one per tensor): the mesh axis a tensor is one rank's block
+    of, whose squares are summed over that axis of ``mesh_ctx`` (default:
+    the current mesh); None counts a replicated tensor once."""
+    tensors = list(tensors)
+    norms = torch._foreach_norm(tensors)
+    if not axes or not any(axes):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    from viquae_torch.core import mesh
+
+    ctx = mesh_ctx if mesh_ctx is not None else mesh.current()
+    total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    for axis in dict.fromkeys(axes):
+        sq = torch.stack([n.float() for n, a in zip(norms, axes)
+                          if a == axis]).square().sum()
+        total = total + (sq if axis is None
+                         else mesh.all_reduce(ctx, sq, axis))
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float):
+def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float,
+                         axes: Optional[List[Optional[str]]] = None,
+                         mesh_ctx=None):
     """optax.clip_by_global_norm on the ``.grad`` of ``params``, in place:
     unchanged while the global norm is below ``max_norm``, else scaled by
-    max_norm / norm (without torch's 1e-6 in the denominator)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    max_norm / norm (without torch's 1e-6 in the denominator). ``axes``:
+    as :func:`global_norm`, one per parameter."""
+    pairs = [(p.grad, a) for p, a in zip(params, axes or [None] * len(
+        params)) if p.grad is not None]
+    if not pairs:
         return
-    norm = global_norm(grads)
+    grads = [g for g, _ in pairs]
+    norm = global_norm(grads, [a for _, a in pairs], mesh_ctx)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)

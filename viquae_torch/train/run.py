@@ -25,6 +25,14 @@ Everything is built on ``device`` (the GPU unless the caller names
 another). Models drawn from a ``seed`` take the port's own draws, so a
 parity run between the packages shares weights through an export
 directory (``pretrained_model_name_or_path``).
+
+Under a process group (``torchrun``) the run is data-parallel over every
+rank, as the JAX command is over every device: the mesh
+(``core.mesh.make_mesh``, every rank on ``data``, or the caller's
+current mesh) goes to the trainer, every rank builds the same batches
+from the seed and trains on its rows, each rank writes its checkpoint
+shard, and rank 0 alone writes the export, the test files and the
+printed result.
 """
 from __future__ import annotations
 
@@ -194,10 +202,18 @@ def run_from_config(config_path, subcommand: str = "fit",
     """``fit`` (train, checkpoint, resume from ``ckpt_path``, export),
     ``test`` (the trainee's full test protocol from a checkpoint) or any
     other subcommand (``validate``: mean loss + the trainee's metrics)."""
+    import torch.distributed as dist
+
+    from viquae_torch.core import mesh as meshlib
     from viquae_torch.train import checkpoint as ckpt_lib
     from viquae_torch.train.trainer import Trainer, TrainerConfig
 
     device = resolve_device(device)
+    ctx = meshlib.current()
+    if not ctx.distributed and dist.is_initialized():
+        ctx = meshlib.make_mesh(device=device)
+    writes = ctx.rank == 0
+    rank = ctx.rank if ctx.distributed else None   # its checkpoint files
     config = load_config(config_path)
     if ckpt_path is not None:
         config["ckpt_path"] = ckpt_path
@@ -223,7 +239,7 @@ def run_from_config(config_path, subcommand: str = "fit",
                 f"--ckpt-path {fit_dir!r} conflicts with "
                 f"trainer.ckpt_dir {trainer_cfg.ckpt_dir!r}; resume uses "
                 "one checkpoint dir")
-        if not ckpt_lib.all_steps(fit_dir):
+        if not ckpt_lib.all_steps(fit_dir, rank):
             raise ValueError(
                 f"--ckpt-path {fit_dir!r} holds no checkpoint steps to "
                 "resume from")
@@ -238,7 +254,7 @@ def run_from_config(config_path, subcommand: str = "fit",
         collate_fn = microbatch_collate(collate_fn, trainer_cfg.grad_accum)
         trainer_cfg = dataclasses.replace(trainer_cfg, microbatched=True)
     trainer = Trainer(
-        trainee.loss_fn, trainee.params, tx, trainer_cfg,
+        trainee.loss_fn, trainee.params, tx, trainer_cfg, mesh_ctx=ctx,
         eval_fn=getattr(trainee, "eval_fn", None),
     )
     if subcommand == "fit":
@@ -261,7 +277,9 @@ def run_from_config(config_path, subcommand: str = "fit",
         )
         export = config.get("export")
         if export and hasattr(trainee, "export"):
-            trainee.export(export, params=trainer.state["params"])
+            params = trainer.full_params()   # every rank gathers
+            if writes:
+                trainee.export(export, params=params)
     elif subcommand == "test" and hasattr(trainee, "test"):
         # restore order: explicit `ckpt_path` > ckpt_dir/best > latest
         # ckpt_dir step; a missing checkpoint is an error (testing random
@@ -269,13 +287,13 @@ def run_from_config(config_path, subcommand: str = "fit",
         ckpt_path = config.get("ckpt_path")
         if not ckpt_path and trainer_cfg.ckpt_dir:
             best = Path(trainer_cfg.ckpt_dir) / "best"
-            if ckpt_lib.all_steps(best):
+            if ckpt_lib.all_steps(best, rank):
                 ckpt_path = best
-            elif ckpt_lib.all_steps(trainer_cfg.ckpt_dir):
+            elif ckpt_lib.all_steps(trainer_cfg.ckpt_dir, rank):
                 ckpt_path = trainer_cfg.ckpt_dir
         if ckpt_path:
             ckpt_lib.restore_state(ckpt_path, trainer.state,
-                                   map_location=device)
+                                   map_location=device, rank=rank)
         elif not trainee_cfg_had_pretrained:
             raise FileNotFoundError(
                 "train test: no checkpoint found (set `ckpt_path`, "
@@ -283,14 +301,16 @@ def run_from_config(config_path, subcommand: str = "fit",
                 "`pretrained:`)"
             )
         log_dir = (config.get("export") or trainer_cfg.ckpt_dir or ".")
+        # the test protocol writes its files: rank 0 runs it
         result = trainee.test(
             trainer.state["params"],
             _batches(dataset, collator.collate_fn, batch_size),
             log_dir,
-        )
+        ) if writes else None
     else:
         result = trainer.evaluate(
             _batches(dataset, collator.collate_fn, batch_size)
         )
-    print(result)
+    if writes:
+        print(result)
     return result

@@ -25,6 +25,16 @@ over host (numpy) outputs — plus ``export(dir)``, the save_ptm contract
 An encoder whose BERT has Mixture-of-Experts layers surfaces their
 load-balance term; the BERT-family trainees add it to the task loss,
 scaled by ``moe_aux_weight``, and report it as ``outputs["moe_aux"]``.
+
+On a mesh the trainer hands each rank its rows of the global batch
+(``train.data_parallel``). Every trainee runs its encoders on those rows
+and makes their per-sequence outputs global before the objective (the
+pooled vectors; on a packed canvas the CLS / ``gather_idx`` reads through
+rebased pointers, summed over ``data``), and reads the global labels,
+pointers and per-sequence inputs: the objective, its in-batch negatives
+and its normalisers are the global batch's, as XLA's single program makes
+them in the JAX trainees. A question's M passages are read wherever their
+canvas rows fall; the reader's loss runs on every passage's logits.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from torch import nn
 from viquae_torch.models import bert
 from viquae_torch.models.convert import tree_from_module
 from viquae_torch.train import checkpoint as ckpt_lib
+from viquae_torch.train import data_parallel as dp
 from viquae_torch.train import metrics as tmetrics
 from viquae_torch.train import objectives
 
@@ -84,6 +95,24 @@ def _text_kwargs(inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if "token_type_ids" in text:
         out["token_type_ids"] = text["token_type_ids"]
     return out
+
+
+def _packed_read(packed_apply, params, canvas, pointers, *visual, **kw):
+    """A packed apply over this rank's canvas rows: ``canvas`` = (ids,
+    segments, positions[, token types]), ``pointers`` = (cls rows, cls
+    cols[, vis rows, vis cols]) of the global canvas, ``visual`` the
+    per-sequence inputs; (the global per-sequence outputs, moe_aux or
+    None) — moe_aux when ``kw`` asks ``return_aux``."""
+    rows, cols, *vis = [dp.global_rows(p) for p in pointers]
+    rows, keep = dp.rebase_rows(rows, canvas[0])
+    if keep is not None:
+        rows = torch.where(keep, rows, 0)
+    if vis:
+        vis[0] = dp.rebase_rows(vis[0], canvas[0])[0]
+    visual = [dp.global_rows(v) if v is not None else None for v in visual]
+    res = packed_apply(params, *canvas, rows, cols, *vis, *visual, **kw)
+    out, aux = res if kw.get("return_aux") else (res, None)
+    return dp.combine_pointed(out, keep), aux
 
 
 def _export(path, module: nn.Module):
@@ -148,9 +177,6 @@ class BiEncoderTrainee:
         moe = _moe_experts(model) > 0
         packed_kw = dict(kw, return_aux=True) if moe else kw
 
-        def packed_out(res):
-            return res if moe else (res, None)
-
         if "face_inputs" in inputs and not hasattr(model,
                                                     "PACKED_NEEDS_VIS"):
             # a text-only tower (DPR) given multimodal inputs — the ICT
@@ -161,9 +187,16 @@ class BiEncoderTrainee:
             if "canvas_vis_rows" in text:
                 from viquae_torch.models.mm import mask_visual_slots
 
+                segments = text["canvas_segment_ids"]
+                vis_rows = dp.rebase_rows(dp.global_rows(
+                    text.pop("canvas_vis_rows")), segments)[0]
                 text["canvas_segment_ids"] = mask_visual_slots(
-                    text["canvas_segment_ids"], text.pop("canvas_vis_rows"),
-                    text.pop("canvas_vis_cols"))
+                    segments, vis_rows,
+                    dp.global_rows(text.pop("canvas_vis_cols")))
+                layout = dp.current_layout()
+                if layout is not None:  # the same rows as the canvas
+                    layout.record(text["canvas_segment_ids"],
+                                  dp.is_split(segments))
             inputs = text
         if "face_inputs" in inputs:
             # multimodal encoder inputs ({"text_inputs", "face_inputs",
@@ -172,31 +205,31 @@ class BiEncoderTrainee:
             if "canvas_input_ids" in text and packed_apply is not None:
                 # packed mm canvas: eca_apply_packed takes the visual-slot
                 # pointers; ilf_apply_packed has no reserved slots
-                canvas = (
-                    text["canvas_input_ids"], text["canvas_segment_ids"],
-                    text["canvas_position_ids"],
-                    text["canvas_cls_rows"], text["canvas_cls_cols"],
-                )
+                canvas = (text["canvas_input_ids"], text["canvas_segment_ids"],
+                          text["canvas_position_ids"])
+                pointers = (text["canvas_cls_rows"], text["canvas_cls_cols"])
                 if "canvas_vis_rows" in text:
-                    canvas = canvas + (
-                        text["canvas_vis_rows"], text["canvas_vis_cols"],
-                    )
-                return packed_out(packed_apply(
-                    params, *canvas, inputs["face_inputs"],
-                    inputs.get("image_inputs"), **packed_kw))
+                    pointers += (text["canvas_vis_rows"],
+                                 text["canvas_vis_cols"])
+                return _packed_read(
+                    packed_apply, params, canvas, pointers,
+                    inputs["face_inputs"], inputs.get("image_inputs"),
+                    **packed_kw)
             out = model.apply_fn(
                 params, _text_kwargs(inputs), inputs["face_inputs"],
                 inputs.get("image_inputs"), **kw)
-            return out.pooler_output, out.moe_aux
+            return (dp.gather_outputs(out.pooler_output, text["input_ids"]),
+                    out.moe_aux)
         if "canvas_input_ids" in inputs and packed_apply is not None:
-            return packed_out(packed_apply(
-                params,
-                inputs["canvas_input_ids"], inputs["canvas_segment_ids"],
-                inputs["canvas_position_ids"],
-                inputs["canvas_cls_rows"], inputs["canvas_cls_cols"],
-                **packed_kw))
+            return _packed_read(
+                packed_apply, params,
+                (inputs["canvas_input_ids"], inputs["canvas_segment_ids"],
+                 inputs["canvas_position_ids"]),
+                (inputs["canvas_cls_rows"], inputs["canvas_cls_cols"]),
+                **packed_kw)
         out = model.apply_fn(params, **_text_kwargs(inputs), **kw)
-        return out["pooler_output"], out.get("moe_aux")
+        return (dp.gather_outputs(out["pooler_output"], inputs["input_ids"]),
+                out.get("moe_aux"))
 
     def _encode_pair(self, params, batch, generator, deterministic):
         """(question embeddings, context embeddings, the scaled sum of
@@ -214,9 +247,8 @@ class BiEncoderTrainee:
                 deterministic: bool = False):
         q, c, aux = self._encode_pair(params, batch, generator,
                                       deterministic)
-        return _with_moe_aux(*objectives.biencoder_loss(q, c,
-                                                        batch["labels"]),
-                             aux)
+        return _with_moe_aux(*objectives.biencoder_loss(
+            q, c, dp.global_rows(batch["labels"])), aux)
 
     def eval_fn(self, outputs: List[dict]) -> Dict[str, float]:
         return tmetrics.accumulate_batch_metrics([
@@ -266,11 +298,12 @@ class CrossModalTrainee:
 
     def loss_fn(self, params, batch, generator=None,
                 deterministic: bool = False):
-        text = self.text_model.apply_fn(
-            params["text"], **_text_kwargs(batch["text_inputs"])
-        )["text_embeds"]
-        image = self.vision_model.apply_fn(
-            params["vision"], batch["pixel_values"])["image_embeds"]
+        text_kw = _text_kwargs(batch["text_inputs"])
+        text = dp.gather_outputs(self.text_model.apply_fn(
+            params["text"], **text_kw)["text_embeds"], text_kw["input_ids"])
+        image = dp.gather_outputs(self.vision_model.apply_fn(
+            params["vision"], batch["pixel_values"])["image_embeds"],
+            batch["pixel_values"])
         return objectives.clip_contrastive_loss(
             _l2norm(text), _l2norm(image), torch.exp(params["logit_scale"]))
 
@@ -312,23 +345,26 @@ class JointMonoAndCrossModalTrainee:
 
     def loss_fn(self, params, batch, generator=None,
                 deterministic: bool = False):
-        q_img = _l2norm(self.vision_model.apply_fn(
-            params["vision"], batch["pixel_values"])["image_embeds"])
-        c_img = _l2norm(self.vision_model.apply_fn(
-            params["vision"], batch["paired_pixel_values"])["image_embeds"])
-        titles = _l2norm(self.text_model.apply_fn(
-            params["text"], **_text_kwargs(batch["text_inputs"])
-        )["text_embeds"])
+        def image(key):
+            return dp.gather_outputs(_l2norm(self.vision_model.apply_fn(
+                params["vision"], batch[key])["image_embeds"]), batch[key])
+
+        q_img, c_img = image("pixel_values"), image("paired_pixel_values")
+        text_kw = _text_kwargs(batch["text_inputs"])
+        titles = dp.gather_outputs(_l2norm(self.text_model.apply_fn(
+            params["text"], **text_kw)["text_embeds"]),
+            text_kw["input_ids"])
         scale = torch.exp(params["logit_scale"])
         image_sim = scale * (q_img @ c_img.T)
         cm_sim = scale * (q_img @ titles.T)
         similarities = (params["image_weight"] * image_sim
                         + params["cm_weight"] * cm_sim)
+        labels = dp.global_rows(batch["labels"])
         loss, log_probs = objectives._nll_from_similarities(
-            similarities, batch["labels"])
+            similarities, labels)
         return loss, {
             "log_probs": log_probs,
-            "labels": batch["labels"],
+            "labels": labels,
             "image_similarities": image_sim,
             "cm_similarities": cm_sim,
         }
@@ -386,18 +422,19 @@ class JointBiEncoderAndClipTrainee(BiEncoderTrainee):
                 deterministic: bool = False):
         q, c, aux = self._encode_pair(params, batch, generator,
                                       deterministic)
-        q_img = self.clip_vision_model.apply_fn(
-            params["clip_vision"], batch["question_pixel_values"]
-        )["image_embeds"]
-        c_img = self.clip_vision_model.apply_fn(
-            params["clip_vision"], batch["context_pixel_values"]
-        )["image_embeds"]
-        titles = self.clip_text_model.apply_fn(
-            params["clip_text"],
-            **_text_kwargs(batch["context_inputs"]["titles"])
-        )["text_embeds"]
+        def image(key):
+            return dp.gather_outputs(self.clip_vision_model.apply_fn(
+                params["clip_vision"], batch[key])["image_embeds"],
+                batch[key])
+
+        q_img = image("question_pixel_values")
+        c_img = image("context_pixel_values")
+        title_kw = _text_kwargs(batch["context_inputs"]["titles"])
+        titles = dp.gather_outputs(self.clip_text_model.apply_fn(
+            params["clip_text"], **title_kw)["text_embeds"],
+            title_kw["input_ids"])
         return _with_moe_aux(*objectives.joint_mono_cross_modal_loss(
-            q, c, q_img, c_img, titles, batch["labels"],
+            q, c, q_img, c_img, titles, dp.global_rows(batch["labels"]),
             params["question_weight"], params["image_weight"],
             params["cm_weight"], params["temperature"]), aux)
 
@@ -424,18 +461,26 @@ class ReRankerTrainee:
         packed_apply = getattr(self.model, "packed_apply_fn", None)
         kw = dict(deterministic=deterministic, generator=generator)
         if "canvas_input_ids" in batch and packed_apply is not None:
+            canvas = batch["canvas_input_ids"]
+            rows, keep = dp.rebase_rows(dp.global_rows(
+                batch["canvas_cls_rows"]), canvas)
+            if keep is not None:
+                rows = torch.where(keep, rows, 0)
             out = packed_apply(
-                params,
-                batch["canvas_input_ids"], batch["canvas_segment_ids"],
+                params, canvas, batch["canvas_segment_ids"],
                 batch["canvas_position_ids"],
                 batch["canvas_token_type_ids"],
-                batch["canvas_cls_rows"], batch["canvas_cls_cols"], **kw)
+                rows, dp.global_rows(batch["canvas_cls_cols"]), **kw)
+            scores = dp.combine_pointed(out.logits, keep)
         else:
-            out = self.model.apply_fn(params, **_text_kwargs(batch), **kw)
-        logits = out.logits.reshape(-1, self.M)
-        loss, log_probs = objectives.reranker_loss(logits, batch["labels"])
+            text_kw = _text_kwargs(batch)
+            out = self.model.apply_fn(params, **text_kw, **kw)
+            scores = dp.gather_outputs(out.logits, text_kw["input_ids"])
+        logits = scores.reshape(-1, self.M)
+        labels = dp.global_rows(batch["labels"])
+        loss, log_probs = objectives.reranker_loss(logits, labels)
         return _with_moe_aux(
-            loss, {"log_probs": log_probs, "labels": batch["labels"],
+            loss, {"log_probs": log_probs, "labels": labels,
                    "logits": logits},
             None if out.moe_aux is None else self.moe_aux_weight * out.moe_aux)
 
@@ -477,28 +522,37 @@ class ReaderTrainee:
 
     def loss_fn(self, params, batch, generator=None,
                 deterministic: bool = False):
-        common = dict(
-            passage_scores=(batch.get("passage_scores")
-                            if self.cfg.fuse_ir_score else None),
-            start_positions=batch["start_positions"],
-            end_positions=batch["end_positions"],
-            answer_mask=batch["answer_mask"],
-            m_passages=self.M,
-            deterministic=deterministic,
-            generator=generator,
-        )
+        scores = (batch.get("passage_scores") if self.cfg.fuse_ir_score
+                  else None)
+        common = dict(m_passages=self.M, deterministic=deterministic,
+                      generator=generator)
         if "canvas_input_ids" in batch:
-            # packed canvas from ReaderCollator(packed=True)
+            # packed canvas from ReaderCollator(packed=True); gather_idx
+            # and the passage scores are the global batch's
+            canvas = batch["canvas_input_ids"]
+            idx, keep = dp.rebase_flat(dp.global_rows(batch["gather_idx"]),
+                                       canvas)
             out = self.qa.reader_apply_packed(
-                params, self.cfg,
-                batch["canvas_input_ids"], batch["canvas_segment_ids"],
+                params, self.cfg, canvas, batch["canvas_segment_ids"],
                 batch["canvas_position_ids"], batch["canvas_token_type_ids"],
-                batch["gather_idx"], batch["gather_mask"], **common)
+                idx, dp.global_rows(batch["gather_mask"]),
+                passage_scores=dp.global_rows(scores), **common)
+            start, end = (dp.combine_pointed(t, keep) for t in (
+                out.start_logits, out.end_logits))
         else:
+            ids = batch["input_ids"]
             out = self.qa.reader_apply(
-                params, self.cfg, batch["input_ids"],
+                params, self.cfg, ids,
                 attention_mask=batch.get("attention_mask"),
-                token_type_ids=batch.get("token_type_ids"), **common)
+                token_type_ids=batch.get("token_type_ids"),
+                passage_scores=scores, **common)
+            start, end = (dp.gather_outputs(t, ids) for t in (
+                out.start_logits, out.end_logits))
+        out = self.qa.reader_output(
+            start, end, dp.global_rows(batch["start_positions"]),
+            dp.global_rows(batch["end_positions"]),
+            dp.global_rows(batch["answer_mask"]), self.M
+        )._replace(moe_aux=out.moe_aux)
         return _with_moe_aux(
             out.loss, {"start_log_probs": out.start_log_probs,
                        "end_log_probs": out.end_log_probs},

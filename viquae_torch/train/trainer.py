@@ -12,8 +12,20 @@ log. The step makes no host read: loss and grad norm stay device tensors
 and are read on ``log_every`` steps only (and on every step under
 ``debug_nans``).
 
-Single device. The JAX trainer's mesh arguments (``mesh_ctx``,
-``param_spec``, ``batch_spec``) raise by name (ROADMAP A17b-2).
+On a mesh (``mesh_ctx``, default ``core.mesh.current()``; the JAX
+trainer's contract): ``param_spec`` shards the parameters over ``model``
+(``models.sharding``; their AdamW state follows, as it is built on the
+shards), every rank builds the same global batch and keeps its rows
+(``train.data_parallel.split_batch``: the leading dim split over ``data``
+when it divides, ``batch_spec`` overrides by key, host-only leaves
+dropped; under ``microbatched`` the rule applies to each microbatch),
+the loss runs under the mesh with the batch's layout (the trainees gather
+their per-sequence outputs over ``data`` before the objective), and after
+backward every gradient is averaged over ``data`` in one all-reduce (never
+over ``model``). The global norm counts the shards' squares over
+``model`` and the replicated gradients once. Checkpoints are per rank
+(``train.checkpoint``); only rank 0 prints and writes the log;
+:meth:`Trainer.full_params` gathers the shards back.
 """
 from __future__ import annotations
 
@@ -29,9 +41,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from viquae_torch.core import mesh as meshlib
 from viquae_torch.core.device import upload_batch
 from viquae_torch.core.prng import DEFAULT_SEED, SeedBundle
+from viquae_torch.models import sharding
 from viquae_torch.train import checkpoint as ckpt_lib
+from viquae_torch.train import data_parallel as dp
 from viquae_torch.train.optim import AdamWSpec, global_norm
 
 
@@ -61,24 +76,43 @@ class TrainerConfig:
 
 class TrainState:
     """What a checkpoint holds: the parameters, the optimizer (AdamW
-    moments and the schedule's count) and the step. ``state["params"]``
+    moments and the schedule's count) and the step; on a mesh also the
+    mesh's shape and this rank's coordinates (a resume must be on the same
+    mesh) and the seed bundle's host generator state. ``state["params"]``
     and ``state["step"]`` read as the JAX trainer's state dict."""
 
-    def __init__(self, params: nn.Module, optimizer, step: int = 0):
+    def __init__(self, params: nn.Module, optimizer, step: int = 0,
+                 mesh_ctx=None, seeds: Optional[SeedBundle] = None):
         self.params = params
         self.optimizer = optimizer
         self.step = step
+        self.mesh_ctx = mesh_ctx
+        self.seeds = seeds
 
     def __getitem__(self, key: str):
         return {"params": self.params, "opt_state": self.optimizer,
                 "step": self.step}[key]
 
     def state_dict(self) -> dict:
-        return {"params": self.params.state_dict(),
-                "opt_state": self.optimizer.state_dict(),
-                "step": self.step}
+        state = {"params": self.params.state_dict(),
+                 "opt_state": self.optimizer.state_dict(),
+                 "step": self.step}
+        if self.mesh_ctx is not None:
+            state["mesh"] = {"sizes": dict(self.mesh_ctx.sizes),
+                             "coords": dict(self.mesh_ctx.coords)}
+            state["generator"] = json.dumps(
+                self.seeds.host.bit_generator.state)
+        return state
 
     def load_state_dict(self, state: dict):
+        if self.mesh_ctx is not None:
+            here = {"sizes": dict(self.mesh_ctx.sizes),
+                    "coords": dict(self.mesh_ctx.coords)}
+            if state.get("mesh") != here:
+                raise ValueError(f"the checkpoint was written on the mesh "
+                                 f"{state.get('mesh')}, this rank is {here}")
+            self.seeds.host.bit_generator.state = json.loads(
+                state["generator"])
         self.params.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])
@@ -107,8 +141,10 @@ class Trainer:
     """Drives a loss function over batches.
 
     loss_fn(params, batch, generator, deterministic=False) -> (loss,
-    aux_dict). Batches are dicts of host arrays with a LEADING batch dim
-    (plus a leading grad_accum dim when ``microbatched``)."""
+    aux_dict). Batches are dicts of host arrays with a LEADING GLOBAL
+    batch dim (plus a leading grad_accum dim when ``microbatched``); on a
+    mesh the trainer splits them over ``data`` and keeps the parameters
+    per ``param_spec`` (replicated by default)."""
 
     def __init__(
         self,
@@ -121,11 +157,6 @@ class Trainer:
         eval_fn: Optional[Callable] = None,
         batch_spec: Optional[dict] = None,
     ):
-        if mesh_ctx is not None or param_spec is not None \
-                or batch_spec is not None:
-            raise NotImplementedError(
-                "mesh_ctx / param_spec / batch_spec: the port trains on one "
-                "device; sharded training is ROADMAP.md A17b-2")
         self.cfg = config
         if config.monitor_mode not in ("max", "min"):
             # anything else would silently freeze best-keeping after the
@@ -141,11 +172,47 @@ class Trainer:
         self.eval_fn = eval_fn
         self.seeds = SeedBundle(config.seed)
         self.history: list = []
-        # own the parameters: a deep copy, so the steps never write into
-        # the caller's modules through shared storage
-        params = copy.deepcopy(params).requires_grad_(True)
+        self.mesh_ctx = ctx = mesh_ctx or meshlib.current()
+        self.batch_spec = batch_spec
+        # own the parameters: a copy (the shard module, or a deep copy),
+        # so the steps never write into the caller's modules
+        params = (sharding.shard_module(params, param_spec, ctx)
+                  if param_spec is not None else copy.deepcopy(params))
+        if ctx.device is not None:
+            params = params.to(ctx.device)
+        params = params.requires_grad_(True)
         self.device = next(iter(params.parameters())).device
-        self.state = TrainState(params, optimizer.build(params))
+        split = sharding.sharded_parameters(params)
+        # the mesh axis each parameter is a block of (global norm)
+        self._axes = [split.get(n, (None, None))[1]
+                      for n, _ in params.named_parameters()]
+        self.state = TrainState(
+            params, optimizer.build(params), mesh_ctx=(
+                ctx if ctx.distributed else None), seeds=self.seeds)
+
+    @property
+    def _rank(self) -> Optional[int]:
+        """This rank, for its checkpoint files (None without a process
+        group: one ``state.pt``)."""
+        return self.mesh_ctx.rank if self.mesh_ctx.distributed else None
+
+    def full_params(self) -> nn.Module:
+        """The trained parameters whole: the shards gathered over their
+        axes (every rank calls this together), else the parameters."""
+        params = self.state.params
+        if not sharding.sharded_parameters(params):
+            return params
+        return sharding.gather_module(params, self.mesh_ctx)
+
+    def _shard_batch(self, batch):
+        """(this rank's batch on the device, its layout): the rows of each
+        leaf split over ``data`` by the JAX trainer's rule
+        (``data_parallel.split_batch``)."""
+        local, flags = dp.split_batch(self.mesh_ctx, batch, self.batch_spec)
+        dev = upload_batch(local, self.device)
+        layout = dp.BatchLayout(self.mesh_ctx)
+        layout.record(dev, flags)
+        return dev, layout
 
     # ------------------------------------------------------------------
     def _microbatches(self, batch):
@@ -202,6 +269,7 @@ class Trainer:
         """One optimizer step over a host batch; returns (loss, grad_norm,
         aux) as device tensors (aux of the last microbatch)."""
         params, opt = self.state.params, self.state.optimizer
+        ctx = self.mesh_ctx
         micro = self._microbatches(batch)
         accum = len(micro)
         for p in params.parameters():
@@ -209,14 +277,28 @@ class Trainer:
         loss = 0.0
         for mb in micro:
             # one microbatch's inputs on the device at a time
-            dev = upload_batch(mb, self.device)
-            mb_loss, aux = self.loss_fn(params, dev, generator)
-            (mb_loss / accum).backward()
+            dev, layout = self._shard_batch(mb)
+            with meshlib.use(ctx), dp.use_layout(layout):
+                mb_loss, aux = self.loss_fn(params, dev, generator)
+                (mb_loss / accum).backward()
             loss = loss + mb_loss.detach()
         loss = loss / accum
-        grads = [p.grad for p in params.parameters() if p.grad is not None]
-        grad_norm = global_norm(grads)
-        opt.step()
+        with_grad = [(p, a) for p, a in zip(params.parameters(), self._axes)
+                     if p.grad is not None]
+        grads = [p.grad for p, _ in with_grad]
+        if ctx.distributed:
+            # one all-reduce over data: the mean of every rank's gradients
+            flat = meshlib.all_reduce(
+                ctx, torch._utils._flatten_dense_tensors(grads),
+                meshlib.DATA_AXIS, op="mean")
+            torch._foreach_copy_(grads, list(
+                torch._utils._unflatten_dense_tensors(flat, grads)))
+            del flat
+            loss = meshlib.all_reduce(ctx, loss, meshlib.DATA_AXIS,
+                                      op="mean")
+        grad_norm = global_norm(grads, [a for _, a in with_grad], ctx)
+        with meshlib.use(ctx):      # the clipping norm's collectives
+            opt.step()
         self.state.step += 1
         return loss, grad_norm, aux
 
@@ -232,9 +314,11 @@ class Trainer:
         (data.step_indexed_batches)."""
         cfg = self.cfg
         start_step = 0
-        if resume and cfg.ckpt_dir and ckpt_lib.all_steps(cfg.ckpt_dir):
+        if resume and cfg.ckpt_dir and ckpt_lib.all_steps(cfg.ckpt_dir,
+                                                          self._rank):
             _, start_step = ckpt_lib.restore_state(
-                cfg.ckpt_dir, self.state, map_location=self.device)
+                cfg.ckpt_dir, self.state, map_location=self.device,
+                rank=self._rank)
         best_metric, best_step, since_best = None, None, 0
         t0 = time.time()
         step = start_step
@@ -285,7 +369,7 @@ class Trainer:
                 if cfg.ckpt_every and cfg.ckpt_dir \
                         and step % cfg.ckpt_every == 0:
                     ckpt_lib.save_state(cfg.ckpt_dir, self.state, step,
-                                        keep=cfg.keep_ckpts)
+                                        keep=cfg.keep_ckpts, rank=self._rank)
                 if cfg.eval_every and step % cfg.eval_every == 0 \
                         and eval_batches:
                     eval_metrics = self.evaluate(eval_batches())
@@ -309,7 +393,7 @@ class Trainer:
                                 # restored: keep=1
                                 ckpt_lib.save_state(
                                     Path(cfg.ckpt_dir) / "best", self.state,
-                                    step, keep=1)
+                                    step, keep=1, rank=self._rank)
                         else:
                             since_best += 1
                             if (cfg.early_stop_patience
@@ -318,7 +402,7 @@ class Trainer:
                                 break
         if cfg.ckpt_dir:
             ckpt_lib.save_state(cfg.ckpt_dir, self.state, step,
-                                keep=cfg.keep_ckpts)
+                                keep=cfg.keep_ckpts, rank=self._rank)
         return {
             "final_step": step,
             "best_metric": best_metric,
@@ -336,11 +420,17 @@ class Trainer:
             accepts_det = False
         kw = {"deterministic": True} if accepts_det else {}
         outputs, host_batches, losses = [], [], []
+        ctx = self.mesh_ctx
         with torch.no_grad():
             for i, batch in enumerate(eval_batches):
-                loss, aux = self.loss_fn(
-                    self.state.params, upload_batch(batch, self.device),
-                    self.seeds.split(f"eval{i}"), **kw)
+                dev, layout = self._shard_batch(batch)
+                with meshlib.use(ctx), dp.use_layout(layout):
+                    loss, aux = self.loss_fn(
+                        self.state.params, dev, self.seeds.split(f"eval{i}"),
+                        **kw)
+                if ctx.distributed:
+                    loss = meshlib.all_reduce(ctx, loss, meshlib.DATA_AXIS,
+                                              op="mean")
                 losses.append(float(loss))
                 outputs.append(_to_host(aux))
                 host_batches.append(batch)
@@ -359,6 +449,8 @@ class Trainer:
         return metrics
 
     def _log(self, entry: dict):
+        if self.mesh_ctx.rank != 0:
+            return
         print(json.dumps(entry))
         if self.cfg.ckpt_dir:
             path = Path(self.cfg.ckpt_dir)
