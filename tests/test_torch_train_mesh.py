@@ -177,6 +177,100 @@ def test_mesh_dropout_folds_data_and_split_axes():
     assert 0.2 < float(plain.float().mean()) < 0.4
 
 
+def test_whole_view_holds_an_axis_whole():
+    """core.mesh.whole: the axis reads size 1 and coordinate 0, its
+    collectives are identities, the other axes and the collective log are
+    the mesh's; the dropout mask of rows under it is one device's."""
+    ctx = fake_mesh(data=(1, 2), model=(1, 2))
+    view = mesh.whole(ctx, mesh.DATA_AXIS)
+    assert (view.size(mesh.DATA_AXIS), view.coordinate(mesh.DATA_AXIS),
+            view.data_size) == (1, 0, 1)
+    assert (view.size(mesh.MODEL_AXIS), view.coordinate(mesh.MODEL_AXIS)) \
+        == (2, 1)
+    assert view.collective_log is ctx.collective_log
+    assert view.group(mesh.DATA_AXIS) is None
+    x = torch.ones(64, 32)
+    with mesh.use(view):
+        masked = tlayers.dropout(x, 0.3, 99)
+    assert torch.equal(masked, tlayers.dropout(x, 0.3, 99))
+
+
+def moe_case(seed=25):
+    """A 4-expert MoE FFN (D 8, H 16) drawn by the port, its JAX tree, and
+    32 gaussian tokens (4 x 8, the last two of row 1 padding). At seed 25
+    the router sends more than a capacity of 1.25 to an expert of a group
+    of 8: choices drop."""
+    import jax.numpy as jnp
+
+    p = tlayers.seeded(tmoe.moe_init, 8, 16, 4, seed=seed, device="cpu")
+    tlayers.init_weights_(p, seed, linear_std=0.3)
+    tree = jax.tree.map(jnp.asarray, tree_from_module(p))
+    x = np.random.default_rng(seed + 1).standard_normal(
+        (4, 8, 8)).astype(np.float32)
+    mask = np.ones((4, 8), bool)
+    mask[1, 6:] = False
+    return p, tree, x, mask
+
+
+def moe_on_ranks(p, x, mask, **kw):
+    """moe_apply on each half of the rows, as the two ranks of a data = 2
+    mesh compute them while training, side by side."""
+    out = []
+    for r in (0, 1):
+        with mesh.use(fake_mesh(data=(r, 2))), torch.enable_grad():
+            y, _ = tmoe.moe_apply(p, torch.from_numpy(x[2 * r: 2 * r + 2]),
+                                  token_mask=torch.from_numpy(
+                                      mask[2 * r: 2 * r + 2]), **kw)
+        out.append(y.detach().numpy())
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(top_k=2, capacity_factor=1.25, group_size=8),     # drops
+    dict(top_k=2, capacity_factor=2.0, group_size=12),     # none can drop
+], ids=["whole_groups_with_drops", "split_groups_without_drops"])
+def test_moe_groups_are_the_global_batchs_on_split_rows(kw):
+    """ops/moe.py while training on rows split over data: the groups, their
+    length and the capacity are the global batch's, so the two ranks'
+    outputs side by side equal one device's and the JAX moe_apply's on the
+    whole batch (f32 within 2e-6 of the output's scale, as
+    tests/test_torch_moe.py holds the two packages) — with drops where
+    each rank's tokens are whole groups (the drops are real: capacity 8
+    gives another output), and where a group straddles the ranks but no
+    choice can drop."""
+    from viquae_tpu.ops import moe as jmoe
+
+    p, tree, x, mask = moe_case()
+    got = moe_on_ranks(p, x, mask, **kw)
+    one = tmoe.moe_apply(p, torch.from_numpy(x),
+                         token_mask=torch.from_numpy(mask), **kw)[0]
+    ref = np.asarray(jmoe.moe_apply(tree, x, token_mask=mask, **kw)[0])
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(got, one.detach().numpy(), rtol=0,
+                               atol=2e-6 * scale)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6 * scale)
+    if kw["capacity_factor"] < 2:
+        ample = tmoe.moe_apply(p, torch.from_numpy(x),
+                               token_mask=torch.from_numpy(mask),
+                               **dict(kw, capacity_factor=8.0))[0]
+        assert not np.allclose(ample.detach().numpy(), ref,
+                               atol=2e-6 * scale)
+
+
+def test_moe_refuses_straddling_groups_that_can_drop():
+    """A group of the global batch that straddles two ranks' tokens (16
+    tokens a rank, groups of 11), at a capacity that can drop a choice:
+    each rank would drop other choices than one device, so the call
+    raises; outside training (no gradients) each rank groups its own."""
+    p, _, x, mask = moe_case()
+    kw = dict(top_k=2, capacity_factor=1.25, group_size=12)
+    with pytest.raises(ValueError, match="not whole groups"):
+        moe_on_ranks(p, x, mask, **kw)
+    with mesh.use(fake_mesh(data=(0, 2))), torch.no_grad():
+        y, _ = tmoe.moe_apply(p, torch.from_numpy(x[:2]), **kw)
+    assert y.shape == (2, 8, 8)
+
+
 def test_parallel_reexports_the_training_surface():
     for name in ("copy_to", "reduce_from", "gather_from", "scatter_to",
                  "gather_to", "reduce_scatter_to", "all_reduce",

@@ -31,7 +31,6 @@ import torch_train_helpers as tth
 from viquae_torch.core import mesh
 from viquae_torch.models.convert import tree_from_module
 from viquae_torch.train import data as tdata
-from viquae_torch.train import data_parallel as dp
 from viquae_torch.train.trainer import Trainer, TrainerConfig
 from viquae_tpu.core import mesh as jmesh
 from viquae_tpu.models import bert as jbert
@@ -106,6 +105,11 @@ CASES = [
          batches=[biencoder_batch(7, ignore=(0, 1, 2))], steps=1, sgd=1.0),
     dict(name="replicated", trainee=("dpr", {}), mesh=DM, spec=True,
          batches=[biencoder_batch(8, n=3)], steps=1, sgd=1.0),
+    dict(name="replicated_dropout", trainee=("dpr", dict(
+        DROPOUT, **dict(tth.MOE, moe_capacity_factor=1.25),
+        moe_group_size=16)),
+        mesh=dict(data=4), batches=[biencoder_batch(8, n=3)], steps=1,
+        sgd=1.0),
     dict(name="straight", trainee=("dpr", {}), mesh=DM, spec=True,
          batches=BATCHES, steps=4),
     dict(name="resumed", trainee=("dpr", {}), mesh=DM, spec=True,
@@ -318,6 +322,24 @@ def test_a_leaf_not_divisible_by_data_is_replicated_and_counted_once(world):
                            sgd_grads("replicated", ref))
 
 
+def test_replicated_rows_run_as_on_one_device(world):
+    """3 questions and 6 passages on data = 4: no leaf divides, so every
+    rank computes every row, under the view of the mesh that holds data
+    whole: the dropout masks are one device's (no data coordinate folded
+    in) and the MoE layers group the tokens as one device does (at a
+    capacity of 1.25, where choices drop; were the rows taken for a block
+    of the global batch, the groups would not be whole and the layer would
+    raise). The SGD(1.0) step equals one device's."""
+    trainer, out = one_device("replicated_dropout")
+    ref = {n: p.detach().numpy() for n, p in
+           trainer.state.params.named_parameters()}
+    for r in ranks(world, "replicated_dropout"):
+        np.testing.assert_allclose(r["losses"], [out["history"][0]["loss"]],
+                                   rtol=1e-5)
+        assert_grads_equal(sgd_grads("replicated_dropout", r["params"]),
+                           sgd_grads("replicated_dropout", ref))
+
+
 @pytest.mark.parametrize("name", ["loop_dm", "straight", "resumed",
                                   "dropout_a"])
 def test_replicated_parameters_stay_bit_equal_across_model_ranks(world,
@@ -358,7 +380,8 @@ def test_export_from_a_mesh_is_one_devices_file(world):
     tt = make("export")
     tt.export(tmp / "one")
     for tower in ("question_model", "context_model"):
-        with np.load(tmp / "export" / tower / "params.npz") as got,                 np.load(tmp / "one" / tower / "params.npz") as ref:
+        with np.load(tmp / "export" / tower / "params.npz") as got, \
+                np.load(tmp / "one" / tower / "params.npz") as ref:
             assert got.files == ref.files
             for k in ref.files:
                 assert got[k].dtype == ref[k].dtype
@@ -374,9 +397,10 @@ def test_collective_bytes_per_step_match_their_contract(world):
       inputs), each of the (rows / data, L, D) f32 activation;
     - per tower one data all-gather of the (N_local, D) pooled outputs for
       the in-batch negatives (logged as the gathered bytes), reduce-
-      scattered back in the backward, and one of the int64 labels;
-    - the global norm's scalar all-reduces over model (trainer and
-      clipping)."""
+      scattered back in the backward; the labels are the global batch's
+      on every rank, so nothing else is gathered;
+    - one scalar all-reduce over model, the global norm's (the trainer's,
+      which the clipping reuses)."""
     from viquae_torch.models import sharding
 
     tt = make("one_step")
@@ -398,9 +422,9 @@ def test_collective_bytes_per_step_match_their_contract(world):
         model = [x for x in log["all_reduce/model"] if x > 4]
         assert sorted(model) == sorted(
             [act["question"], act["context"]] * 4 * layers * steps)
-        assert len([x for x in log["all_reduce/model"] if x == 4]) ==             2 * steps
+        assert len([x for x in log["all_reduce/model"] if x == 4]) == steps
         assert sorted(log["all_gather/data"]) == sorted(
-            [n * dim * 4, nm * dim * 4, n * 8] * steps)
+            [n * dim * 4, nm * dim * 4] * steps)
         assert sorted(log["reduce_scatter/data"]) == sorted(
             [n * dim * 4, nm * dim * 4] * steps)
         assert r["route"] == "gloo"
@@ -445,20 +469,35 @@ def test_mesh_dropout_runs_is_seeded_and_stochastic(world):
 
 def test_shard_batch_keeps_rectangular_lists():
     """tests/test_train.py::test_shard_batch_keeps_rectangular_lists on a
-    data = 2 mesh: rectangular numeric lists are split like arrays,
-    strings and ragged lists are dropped, a batch_spec entry replicates."""
+    data = 2 mesh: the loss gets the whole global batch on every rank,
+    rectangular numeric lists kept as arrays, strings and ragged lists
+    dropped; a batch_spec in the reference's form is taken (every rank
+    holds the whole batch), and an entry naming no mesh axis raises."""
     ctx = mesh.MeshContext({**{a: 1 for a in mesh.AXES}, "data": 2},
                            {**{a: 0 for a in mesh.AXES}, "data": 1})
+    seen = {}
+
+    def loss_fn(p, b, r):
+        seen.update({k: tuple(v.shape) for k, v in b.items()})
+        return torch.mean(p.w ** 2), dict(b)
+
+    params = torch.nn.Module()
+    params.w = torch.nn.Parameter(torch.ones(2))
     batch = {"labels": [[1, 2], [3, 4]], "answers": ["a", "b"],
              "ragged": [[1], [2, 3]], "ids": np.ones((8, 4), np.int32),
              "odd": np.arange(3)}
-    local, flags = dp.split_batch(ctx, batch)
-    assert sorted(local) == ["ids", "labels", "odd"]
-    np.testing.assert_array_equal(local["labels"], [[3, 4]])
-    assert local["ids"].shape == (4, 4) and local["odd"].shape == (3,)
-    assert flags == {"labels": True, "ids": True, "odd": False}
-    local, flags = dp.split_batch(ctx, batch, {"ids": (None,)})
-    assert local["ids"].shape == (8, 4) and flags["ids"] is False
+    for spec in (None, {"ids": (None,)}, {"ids": ("data", None)}):
+        seen.clear()
+        t = Trainer(loss_fn, params, tth.SGD(0.1),
+                    TrainerConfig(max_steps=1, log_every=0), mesh_ctx=ctx,
+                    batch_spec=spec)
+        _, _, aux = t._train_step(batch, t.seeds.split("step0"))
+        assert seen == {"labels": (2, 2), "ids": (8, 4), "odd": (3,)}
+        np.testing.assert_array_equal(aux["labels"].numpy(),
+                                      [[1, 2], [3, 4]])
+    with pytest.raises(ValueError, match="mesh axes"):
+        Trainer(loss_fn, params, tth.SGD(0.1), TrainerConfig(),
+                mesh_ctx=ctx, batch_spec={"ids": ("rows",)})
 
 
 def test_grad_accum_rejects_inbatch_labels():

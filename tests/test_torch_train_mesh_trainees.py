@@ -170,6 +170,7 @@ def setting(tmp_path_factory):
         "reader_padded": reader_batch(),
         "reader_packed": reader_packed,
         "moe_packed": bi_packed,
+        "moe_drops": bi_packed,
         "reranker_packed": reranker,
         "crossmodal": clip_batch(),
         "jcm": clip_batch(),
@@ -181,6 +182,9 @@ def setting(tmp_path_factory):
         "reader_padded": ("reader", {"fuse": True, "vocab": vocab}),
         "reader_packed": ("reader", {"vocab": vocab}),
         "moe_packed": ("dpr", dict(tth.MOE, moe_aux_weight=0.05)),
+        "moe_drops": ("dpr", dict(tth.MOE, moe_aux_weight=0.05,
+                                  moe_capacity_factor=1.25,
+                                  moe_group_size=16)),
         "reranker_packed": ("reranker", {}), "crossmodal": ("crossmodal", {}),
         "jcm": ("jcm", {}), "joint": ("joint", {}),
     }
@@ -389,6 +393,20 @@ def test_moe_biencoder_packed_training(setting):
                                    [h["loss"] for h in out["history"]],
                                    rtol=1e-5)
         assert r["moe_adamw"]["replicated_equal"] is True
+
+
+def test_moe_drops_are_one_devices_on_split_rows(setting):
+    """The hazard of budgeting a MoE layer's groups from a rank's own
+    tokens: at a capacity factor of 1.25 (the configured one) choices
+    drop, and which ones depends on the groups. The groups are the global
+    batch's (16 tokens, one canvas row each, so every rank's rows are whole
+    groups): one SGD step on data = 2 x model = 2 equals one device's and
+    the JAX Trainer's on a JAX mesh. The drops are real: the loss differs
+    from the same weights' at capacity 8, where nothing drops."""
+    check_case(setting, "moe_drops")
+    _, _, drops = one_device(setting, "moe_drops")
+    _, _, ample = one_device(setting, "moe_packed")
+    assert drops["history"][0]["loss"] != ample["history"][0]["loss"]
 
 
 @pytest.fixture(scope="module")

@@ -161,7 +161,8 @@ def make_trainee(kind: str, seed: int = 0, **kw):
 class PackedRegression:
     """tests/test_train.py::test_grad_accum_packed_microbatched's loss as
     a trainee: the packed DPR tower's CLS states against targets, a mean
-    squared error over the global rows (``train.data_parallel``)."""
+    squared error over the global rows (the CLS states gathered over
+    ``data``, the targets as the batch holds them)."""
 
     def __init__(self, seed: int = 0):
         self.encoder = dpr_encoder(seed)
@@ -171,7 +172,6 @@ class PackedRegression:
                 deterministic: bool = False):
         import torch
 
-        from viquae_torch.train import data_parallel as dp
         from viquae_torch.train.trainee import _packed_read
 
         out, _ = _packed_read(
@@ -180,7 +180,7 @@ class PackedRegression:
              batch["canvas_position_ids"]),
             (batch["canvas_cls_rows"], batch["canvas_cls_cols"]),
             deterministic=True)
-        target = dp.global_rows(batch["target"])
+        target = batch["target"]
         return torch.mean((out[: target.shape[0]] - target) ** 2), {}
 
 
@@ -410,8 +410,9 @@ def encoder_program(rank, tmp, tree, ids, mask):
 def moe_program(rank, tmp, tree, x, mask, configs):
     """ops/moe.py's expert parallelism on a data = 2 x model = 2 mesh:
     the experts of a MoE FFN from a JAX tree split over model, the tokens
-    replicated; for each config (moe_apply kwargs) the output and aux, and
-    the gradients of sum(w * y^2) + aux (experts gathered over model)."""
+    replicated (over data too: under the view that holds data whole); for
+    each config (moe_apply kwargs) the output and aux, and the gradients
+    of sum(w * y^2) + aux (experts gathered over model)."""
     import torch
 
     from viquae_torch.core import mesh
@@ -425,7 +426,7 @@ def moe_program(rank, tmp, tree, x, mask, configs):
                             len(tree["in"]["kernel"]), tree=tree,
                             device="cpu")
     out = {}
-    with mesh.use(ctx):
+    with mesh.use(mesh.whole(ctx, mesh.DATA_AXIS)):
         for name, kw in configs.items():
             split = sharding.shard_module(full, moe.moe_spec(), ctx)
             split.requires_grad_(True)

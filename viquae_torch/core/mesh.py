@@ -86,22 +86,24 @@ class MeshContext:
     collective_log: "collections.deque[Tuple[str, str, int]]" = (
         dataclasses.field(default_factory=lambda: collections.deque(
             maxlen=COLLECTIVE_LOG_LEN), compare=False))
+    # the axes this view holds whole (:func:`whole`)
+    whole: Tuple[str, ...] = ()
 
     @property
     def data_size(self) -> int:
-        return self.sizes[DATA_AXIS]
+        return self.size(DATA_AXIS)
 
     @property
     def model_size(self) -> int:
-        return self.sizes[MODEL_AXIS]
+        return self.size(MODEL_AXIS)
 
     @property
     def kb_size(self) -> int:
-        return self.sizes[KB_AXIS]
+        return self.size(KB_AXIS)
 
     @property
     def pipe_size(self) -> int:
-        return self.sizes[PIPE_AXIS]
+        return self.size(PIPE_AXIS)
 
     @property
     def distributed(self) -> bool:
@@ -115,14 +117,15 @@ class MeshContext:
         return dist.get_rank() if self.distributed else 0
 
     def coordinate(self, axis: str) -> int:
-        return self.coords[axis]
+        return 0 if axis in self.whole else self.coords[axis]
 
     def size(self, axis: str) -> int:
-        return self.sizes[axis]
+        return 1 if axis in self.whole else self.sizes[axis]
 
     def group(self, axis: str):
-        """The process group of ``axis`` (None without a process group)."""
-        if not self.distributed:
+        """The process group of ``axis`` (None without a process group,
+        or where this view holds the axis whole)."""
+        if not self.distributed or axis in self.whole:
             return None
         return self.device_mesh.get_group(mesh_dim=axis)
 
@@ -183,6 +186,15 @@ def use(ctx: MeshContext):
         yield ctx
     finally:
         _ACTIVE.pop()
+
+
+def whole(ctx: MeshContext, axis: str) -> MeshContext:
+    """A view of ``ctx`` that holds ``axis`` whole: its size reads 1, its
+    coordinate 0, and its collectives are identities. For work that every
+    rank of the axis does alike on the same data (the rows of a batch that
+    the ``data`` axis does not split); the other axes and the collective
+    log are ``ctx``'s."""
+    return dataclasses.replace(ctx, whole=ctx.whole + (axis,))
 
 
 def current() -> MeshContext:
@@ -293,19 +305,22 @@ def _log(ctx: MeshContext, op: str, axis: str, x: torch.Tensor) -> None:
 
 
 def all_reduce(ctx: MeshContext, x: torch.Tensor, axis: str,
-               op: str = "sum") -> torch.Tensor:
+               op: str = "sum", inplace: bool = False) -> torch.Tensor:
     """The sum (or, with ``op="mean"``, the mean) of every rank's ``x``
-    along ``axis``, as a new tensor (``x`` is left as it is). Without a
-    process group, ``x``."""
+    along ``axis``: a new tensor (``x`` is left as it is), or with
+    ``inplace`` ``x`` itself, reduced where it lies. Without a process
+    group, ``x``."""
     if op not in ("sum", "mean"):
         raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
     group = ctx.group(axis)
     if group is None:
         return x
-    y = x.detach().clone()
+    y = x.detach() if inplace else x.detach().clone()
     dist.all_reduce(y, group=group)
     _log(ctx, "all_reduce", axis, y)
-    return y / ctx.size(axis) if op == "mean" else y
+    if op == "mean":
+        y = y.div_(ctx.size(axis)) if inplace else y / ctx.size(axis)
+    return y
 
 
 def reduce_scatter(ctx: MeshContext, x: torch.Tensor, axis: str,

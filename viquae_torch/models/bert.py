@@ -230,6 +230,13 @@ def _layer_forward(layer: nn.ModuleDict, x, bias, cfg: BertConfig,
     return L.layer_norm(layer["output_ln"], x + ff, eps, seq_axis), aux
 
 
+def _layer_under(ctx, *args):
+    """:func:`_layer_forward` under the mesh ``ctx``: the recomputation
+    of a remat layer in the backward pass sees the forward's mesh."""
+    with meshlib.use(ctx):
+        return _layer_forward(*args)
+
+
 def encode(
     params: Bert,
     cfg: BertConfig,
@@ -299,9 +306,9 @@ def encode(
     for i, layer in enumerate(params.layers):
         layer_seeds = tuple(seeds[3 * i: 3 * i + 3])
         if remat_layers and torch.is_grad_enabled():
-            x, aux = checkpoint(_layer_forward, layer, x, bias, cfg,
-                                compute_dtype, layer_seeds, token_mask,
-                                seq_axis, use_reentrant=False,
+            x, aux = checkpoint(_layer_under, meshlib.current(), layer, x,
+                                bias, cfg, compute_dtype, layer_seeds,
+                                token_mask, seq_axis, use_reentrant=False,
                                 preserve_rng_state=False)
         else:
             x, aux = _layer_forward(layer, x, bias, cfg, compute_dtype,

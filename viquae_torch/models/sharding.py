@@ -54,6 +54,14 @@ def sharded_parameters(module: nn.Module) -> Dict[str, Tuple[int, str]]:
     return out
 
 
+def parameter_axes(module: nn.Module) -> Dict[str, Optional[str]]:
+    """{parameter name: the mesh axis it is one rank's block of, or None
+    where it is replicated}, in ``named_parameters`` order."""
+    split = sharded_parameters(module)
+    return {n: split[n][1] if n in split else None
+            for n, _ in module.named_parameters()}
+
+
 @torch.no_grad()
 def shard_module(module: nn.Module, spec, ctx: meshlib.MeshContext
                  ) -> nn.Module:

@@ -38,11 +38,17 @@ over ``model``; a token's at most ``top_k`` non-zero terms are added in
 another order only when they are more than two. The gates reach the
 router through ``copy_to`` (each rank's cotangent covers its own experts)
 and the aux is computed once, on the router's probabilities before it.
-While gradients are on and the batch rows are split over ``data``, the
-aux's statistics are summed over ``data`` (``gather_from``): the aux of
-the global batch, as the reference's single program computes it. The
-capacity is still budgeted from this rank's tokens: it equals the global
-one when nothing drops, or when each rank's tokens are whole groups.
+
+**Split rows.** While gradients are on and the current mesh has a
+``data`` axis, the tokens are this rank's block of the global batch's
+(``train.data_parallel.Rows``; rows that every rank computes run under a
+view that holds ``data`` whole). The groups, their length and the capacity
+are then the global batch's, as the reference's single program makes
+them, and this rank takes its own groups: that needs its tokens to be
+whole groups, and where they are not and a choice could drop, the call
+raises (without drops the groups change nothing). The aux's statistics
+are summed over ``data`` (``gather_from``): the aux of the global batch.
+Without gradients (evaluation, serving) each rank groups its own tokens.
 """
 from __future__ import annotations
 
@@ -134,26 +140,37 @@ def moe_apply(
     compute_dtype: Optional[torch.dtype] = torch.float32,
     group_size: int = 1024,
     token_mask: Optional[torch.Tensor] = None,
-    expert_sharding: Optional[str] = None,
 ):
     """MoE FFN over (..., D) activations -> (y f32 of x's shape, aux f32
     scalar). ``token_mask`` (x's leading shape, non-zero = real token)
-    keeps padding out of routing, capacity and the aux loss.
-    ``expert_sharding``: the mesh axis the experts are split over (by
-    default the one ``models.sharding`` recorded on ``params["in"]``);
-    this rank then runs its own experts and the outputs are summed over
-    the axis (module docstring)."""
+    keeps padding out of routing, capacity and the aux loss. Experts that
+    ``models.sharding`` split over a mesh axis (the axis it recorded on
+    ``params["in"]``) run on this rank alone, and the outputs are summed
+    over the axis (module docstring)."""
     orig_shape = x.shape
     dim = orig_shape[-1]
     tokens = x.reshape(-1, dim)
     t = tokens.shape[0]
     device = x.device
-    axis = expert_sharding or L.shard_axis(params["in"])
+    axis = L.shard_axis(params["in"])
     n_experts = params["router"].weight.shape[0]
     top_k = min(top_k, n_experts)
-    n_groups = max(1, math.ceil(t / max(1, group_size)))
-    tg = math.ceil(t / n_groups)
+    # while training on split rows, the groups are the global batch's
+    split = (torch.is_grad_enabled()
+             and meshlib.current().size(DATA_AXIS) > 1)
+    ranks = meshlib.current().size(DATA_AXIS) if split else 1
+    n_groups = max(1, math.ceil(t * ranks / max(1, group_size)))
+    tg = math.ceil(t * ranks / n_groups)
     capacity = max(1, math.ceil(capacity_factor * top_k * tg / n_experts))
+    if ranks > 1 and tg and t % tg and capacity < tg:
+        raise ValueError(
+            f"moe_apply: this rank's {t} tokens are not whole groups of "
+            f"{tg} (the global batch's {t * ranks} tokens in groups of at "
+            f"most {group_size}), and a capacity of {capacity} can drop "
+            "tokens: the drops would differ from one device's. Make each "
+            "rank's tokens a multiple of the group length, or raise "
+            "moe_capacity_factor to E / top_k or more")
+    n_groups = math.ceil(t / tg) if tg else 1
     pad = n_groups * tg - t
     valid = torch.arange(n_groups * tg, device=device) < t
     if token_mask is not None:
@@ -202,7 +219,7 @@ def moe_apply(
     vf = valid.float()[:, None]
     sums = torch.cat([(top1 * vf).sum(dim=0), (probs * vf).sum(dim=0),
                       vf.sum()[None]])
-    if torch.is_grad_enabled() and meshlib.current().size(DATA_AXIS) > 1:
+    if split:
         # the global batch's statistics (module docstring)
         sums = meshlib.gather_from(sums[None], DATA_AXIS).sum(dim=0)
     denom = torch.clamp(sums[-1], min=1.0)

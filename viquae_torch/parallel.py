@@ -4,10 +4,10 @@ the mesh contract (axes ``data`` / ``pipe`` / ``model`` / ``kb``, over
 
 - data parallelism: the embedders split a batch's rows over ``data`` and
   gather the outputs back in order (ir/embedding.py, image/embedding.py);
-  the trainer splits each global batch over ``data``, the trainees gather
-  their per-sequence outputs for global in-batch negatives and global
-  normalisers, and the gradients are averaged over ``data``
-  (train/trainer.py, train/data_parallel.py);
+  in training every rank holds the global batch, the trainees run their
+  encoders on their rows and gather the per-sequence outputs for global
+  in-batch negatives and global normalisers, and the gradients are
+  averaged over ``data`` (train/trainer.py, train/data_parallel.py);
 - KB sharding: embedding matrices row-split over ``kb``, per-shard top-k
   (kernel B1 for a fused index) and one candidate all-gather + merge
   (ops.mips.topk_sharded); BM25 postings split the same way
@@ -19,8 +19,8 @@ the mesh contract (axes ``data`` / ``pipe`` / ``model`` / ``kb``, over
 - sequence parallelism: ``bert.encode``'s ``activation_sharding`` seam (L
   over ``model`` between the layers; ``gather_from`` / ``reduce_scatter_to``
   around each block);
-- expert parallelism: ``moe_spec`` and ``moe_apply``'s ``expert_sharding``
-  (ops/moe.py).
+- expert parallelism: ``moe_spec``; ``moe_apply`` runs the experts that
+  ``shard_module`` split on this rank alone (ops/moe.py).
 
 Only the pipeline (``pipeline_apply`` / ``stack_stages`` /
 ``unstack_stages`` over ``pipe``, ops/pipeline.py in the reference) is not

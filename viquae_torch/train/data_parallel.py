@@ -1,201 +1,132 @@
-"""The ``data`` axis of training: a global batch split over its ranks, and
-the global-batch view of what each rank computes (the JAX trainer's
+"""The ``data`` axis of training: the rows of a global batch that each rank
+computes, and the global-batch view of what it computes (the JAX trainer's
 sharded batch and XLA's global program, made explicit).
 
-Every rank builds the same global batch (same data, same seed) and keeps
-its own rows (:func:`split_batch`): a leaf whose leading dimension divides
-by the ``data`` axis' size is split into equal blocks, in rank order; any
-other leaf is replicated; host-only leaves (strings, ragged or string
-lists) are dropped (:func:`is_host_only`, the JAX trainer's rule). A
-``batch_spec`` entry (a leaf's own key -> the reference's PartitionSpec
-entries) overrides the rule: a leading ``data`` entry splits, anything
-else replicates.
+Every rank builds the same global batch (same data, same seed), and the
+trainer hands the whole of it to the loss on every rank, with its
+host-only leaves (strings, ragged or string lists) dropped
+(``core.device.upload_batch``, the JAX trainer's rule). Labels, pointers and
+every other leaf are thus global as they are. A trainee takes this rank's
+rows of its encoder inputs only (:class:`Rows`): a block of them over
+``data`` when their count divides by the axis' size (the JAX trainer's
+default rule), else every row, computed alike on every rank under a view
+of the mesh that holds ``data`` whole (``core.mesh.whole``). It runs the
+encoder on those rows, then makes the per-sequence outputs global
+(:meth:`Rows.gather`: one ``gather_from`` over ``data``, whose backward
+sums each rank's cotangent, so that with the trainer's mean over ``data``
+the gradient is that of the one global loss). The objective then runs on
+the global batch: its in-batch negatives are every rank's rows and its
+normalisers count the global batch. A loss that takes no rows of its own
+computes the whole batch on every rank, and the mean is its gradient.
 
-The trainer records which device tensors hold a block of rows in a
-:class:`BatchLayout` that the trainees read during the step
-(:func:`current_layout`). A trainee runs its encoders on the local rows,
-then makes the per-sequence outputs global (:func:`gather_outputs`: one
-``gather_from`` over ``data``, whose backward sums each rank's cotangent,
-so that with the trainer's mean over ``data`` the gradient is that of the
-one global loss) and reads the global labels and pointers
-(:func:`global_rows`). The objective then runs on the global batch: its
-in-batch negatives are every rank's rows and its normalisers count the
-global batch. A packed canvas's rows split like any leaf, while its
-pointers (``canvas_cls_rows``, ``gather_idx``, ...) index the global canvas:
-:func:`rebase_rows` / :func:`rebase_flat` turn them into this rank's rows
-and a mask, and :func:`combine_pointed` sums the masked per-sequence
+A packed canvas's rows split like any encoder input, while its pointers
+(``canvas_cls_rows``, ``gather_idx``, ...) index the global canvas:
+:meth:`Rows.rebase` / :meth:`Rows.rebase_flat` turn them into this rank's
+rows and a mask, and :meth:`Rows.combine` sums the masked per-sequence
 outputs over ``data`` (each sequence lives on one rank's rows). The whole
-canvas is never gathered. Without a layout (one device, or a replicated
-leaf) each helper returns its input.
+canvas is never gathered.
 """
 from __future__ import annotations
 
-import contextlib
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from viquae_torch.core import mesh as meshlib
 from viquae_torch.core.mesh import DATA_AXIS
 
-_LAYOUTS: List["BatchLayout"] = []
+
+def _first_tensor(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            t = _first_tensor(v)
+            if t is not None:
+                return t
+        return None
+    return tree if isinstance(tree, torch.Tensor) else None
 
 
-def is_host_only(v) -> bool:
-    """Strings, and lists that are not rectangular numeric data."""
-    if isinstance(v, (str, bytes)):
-        return True
-    if isinstance(v, list):
-        try:
-            arr = np.asarray(v)
-        except (ValueError, TypeError):
-            return True
-        return arr.dtype.kind in "OUS"
-    return False
+class Rows:
+    """The rows of a global batch of ``n`` rows that this rank computes,
+    on the mesh ``ctx`` (default: the current one): a block of ``per`` rows
+    from ``start`` when ``n`` divides by the ``data`` axis' size
+    (``split``), else all ``n``."""
 
+    def __init__(self, n: int, ctx: Optional[meshlib.MeshContext] = None):
+        self.ctx = ctx = ctx if ctx is not None else meshlib.current()
+        size = ctx.size(DATA_AXIS)
+        self.n = n
+        self.split = (ctx.group(DATA_AXIS) is not None and size > 1
+                      and n % size == 0)
+        self.per = n // size if self.split else n
+        self.start = ctx.coordinate(DATA_AXIS) * self.per if self.split \
+            else 0
 
-def _is_split(ctx, key, arr, batch_spec) -> bool:
-    spec = (batch_spec or {}).get(key)
-    if spec is not None:
-        return len(tuple(spec)) > 0 and tuple(spec)[0] == DATA_AXIS
-    return arr.ndim > 0 and arr.shape[0] % ctx.data_size == 0
+    @classmethod
+    def of(cls, tree) -> "Rows":
+        """The rows of a batch tree (its first tensor's leading dim)."""
+        return cls(_first_tensor(tree).shape[0])
 
+    def take(self, tree):
+        """This rank's rows of every tensor of ``tree`` (dicts walked,
+        anything else kept)."""
+        if isinstance(tree, dict):
+            return {k: self.take(v) for k, v in tree.items()}
+        if not self.split or not isinstance(tree, torch.Tensor):
+            return tree
+        if tree.shape[0] != self.n:
+            raise ValueError(f"a leaf of {tree.shape[0]} rows among "
+                             f"inputs of {self.n}")
+        return tree[self.start: self.start + self.per]
 
-def split_batch(ctx: meshlib.MeshContext, batch, batch_spec=None):
-    """(this rank's host batch, a tree of the same keys holding True where
-    the leaf was split over ``data``)."""
-    if isinstance(batch, dict):
-        local, flags = {}, {}
-        for k, v in batch.items():
-            if is_host_only(v):
-                continue
-            if isinstance(v, dict):
-                local[k], flags[k] = split_batch(ctx, v, batch_spec)
-                continue
-            arr = v if isinstance(v, (np.ndarray, torch.Tensor)) \
-                else np.asarray(v)
-            split = ctx.data_size > 1 and _is_split(ctx, k, arr, batch_spec)
-            if split:
-                per = arr.shape[0] // ctx.data_size
-                lo = ctx.coordinate(DATA_AXIS) * per
-                arr = arr[lo: lo + per]
-            local[k], flags[k] = arr, split
-        return local, flags
-    raise TypeError(f"a batch is a dict of arrays, got {type(batch)}")
+    def scope(self):
+        """The mesh to compute these rows under: the mesh itself for a
+        block of rows, else a view that holds ``data`` whole (every rank
+        computes the same rows alike: the same dropout masks, groups and
+        statistics, no ``data`` collective)."""
+        return meshlib.use(self.ctx if self.split
+                           else meshlib.whole(self.ctx, DATA_AXIS))
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global rows of ``x``, an output of these rows."""
+        if not self.split:
+            return x
+        return meshlib.gather_from(x, DATA_AXIS, 0, self.ctx)
 
-class BatchLayout:
-    """Which device tensors of a step's batch hold a block of the global
-    rows: ``id(tensor) -> (first row, rows, global rows)`` (the tensors are
-    kept alive with it)."""
+    def rebase(self, rows: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Global canvas-row pointers as rows of this rank's block: (local
+        rows, mask of the pointers that land in it). Pointers that land
+        elsewhere get the row one past the block (a write through them
+        drops, a read must use the mask). Unsplit: (rows, None)."""
+        if not self.split:
+            return rows, None
+        local = rows.long() - self.start
+        keep = (local >= 0) & (local < self.per)
+        return torch.where(keep, local, self.per), keep
 
-    def __init__(self, ctx: meshlib.MeshContext):
-        self.ctx = ctx
-        self._rows: Dict[int, Tuple[int, int, int]] = {}
-        self._keep: list = []
+    def rebase_flat(self, flat: torch.Tensor, width: int
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Flat canvas positions (row * width + col) as positions in this
+        rank's block, as :meth:`rebase`; positions that land elsewhere
+        read position 0 (use the mask)."""
+        if not self.split:
+            return flat, None
+        local = flat.long() - self.start * width
+        keep = (local >= 0) & (local < self.per * width)
+        return torch.where(keep, local, 0), keep
 
-    def record(self, device_batch, flags) -> None:
-        if isinstance(device_batch, dict):
-            for k, v in device_batch.items():
-                self.record(v, flags[k])
-            return
-        self._keep.append(device_batch)
-        if flags:
-            per = device_batch.shape[0]
-            self._rows[id(device_batch)] = (
-                self.ctx.coordinate(DATA_AXIS) * per, per,
-                per * self.ctx.data_size)
-
-    def rows(self, t) -> Optional[Tuple[int, int, int]]:
-        return self._rows.get(id(t)) if isinstance(t, torch.Tensor) else None
-
-
-@contextlib.contextmanager
-def use_layout(layout: Optional[BatchLayout]):
-    _LAYOUTS.append(layout)
-    try:
-        yield layout
-    finally:
-        _LAYOUTS.pop()
-
-
-def current_layout() -> Optional[BatchLayout]:
-    return _LAYOUTS[-1] if _LAYOUTS else None
-
-
-def is_split(t) -> bool:
-    """Whether ``t`` (a batch tensor of the current step) holds a block of
-    the global rows."""
-    layout = current_layout()
-    return layout is not None and layout.rows(t) is not None
-
-
-def gather_outputs(x: torch.Tensor, like) -> torch.Tensor:
-    """The global rows of an output ``x`` computed from the batch tensor
-    ``like``: ``gather_from`` over ``data`` when ``like`` was split, else
-    ``x``."""
-    if not is_split(like):
-        return x
-    return meshlib.gather_from(x, DATA_AXIS, 0, current_layout().ctx)
-
-
-def global_rows(t):
-    """A batch tensor's global rows (no gradient): an all-gather over
-    ``data`` when it was split. Applies to every leaf of a dict."""
-    if isinstance(t, dict):
-        return {k: global_rows(v) for k, v in t.items()}
-    if not is_split(t):
-        return t
-    ctx = current_layout().ctx
-    return meshlib.all_gather(ctx, t, DATA_AXIS).flatten(0, 1)
-
-
-def rebase_rows(rows: torch.Tensor, canvas) -> Tuple[torch.Tensor,
-                                                     Optional[torch.Tensor]]:
-    """Global canvas-row pointers as rows of this rank's block of
-    ``canvas``: (local rows, mask of the pointers that land in it).
-    Pointers that land elsewhere get the row one past the block (a write
-    through them drops, a read must use the mask). Without a split canvas,
-    (rows, None)."""
-    layout = current_layout()
-    span = layout.rows(canvas) if layout is not None else None
-    if span is None:
-        return rows, None
-    start, per, _ = span
-    local = rows.long() - start
-    keep = (local >= 0) & (local < per)
-    return torch.where(keep, local, per), keep
-
-
-def rebase_flat(flat: torch.Tensor, canvas) -> Tuple[torch.Tensor,
-                                                     Optional[torch.Tensor]]:
-    """Flat canvas positions (row * width + col) as positions in this
-    rank's block of ``canvas``, as :func:`rebase_rows`; positions that land
-    elsewhere read position 0 (use the mask)."""
-    layout = current_layout()
-    span = layout.rows(canvas) if layout is not None else None
-    if span is None:
-        return flat, None
-    start, per, _ = span
-    width = canvas.shape[1]
-    local = flat.long() - start * width
-    keep = (local >= 0) & (local < per * width)
-    return torch.where(keep, local, 0), keep
-
-
-def combine_pointed(x: torch.Tensor, keep: Optional[torch.Tensor]
-                    ) -> torch.Tensor:
-    """Per-sequence outputs read through rebased pointers (``keep``: the
-    entries this rank's rows hold, broadcast from the left) summed over
-    ``data``: each entry comes from the one rank that holds it, whole
-    (adding zeros changes no bit)."""
-    if keep is None:
-        return x
-    keep = keep.reshape(keep.shape + (1,) * (x.dim() - keep.dim()))
-    ctx = current_layout().ctx
-    masked = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
-                                              device=x.device))
-    size = ctx.data_size
-    return meshlib.gather_from(masked, DATA_AXIS, 0, ctx).reshape(
-        (size,) + x.shape).sum(dim=0)
+    def combine(self, x: torch.Tensor, keep: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+        """Per-sequence outputs read through rebased pointers (``keep``:
+        the entries this rank's rows hold, broadcast from the left) summed
+        over ``data``: each entry comes from the one rank that holds it,
+        whole (adding zeros changes no bit)."""
+        if keep is None:
+            return x
+        keep = keep.reshape(keep.shape + (1,) * (x.dim() - keep.dim()))
+        masked = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+        size = self.ctx.size(DATA_AXIS)
+        return meshlib.gather_from(masked, DATA_AXIS, 0, self.ctx).reshape(
+            (size,) + x.shape).sum(dim=0)

@@ -96,18 +96,18 @@ class Optimizer:
     the trainer's ``grad_norm``, as in the JAX trainer."""
 
     def __init__(self, spec: "AdamWSpec", params: nn.Module):
-        from viquae_torch.models.sharding import sharded_parameters
+        from viquae_torch.models.sharding import parameter_axes
 
         self.spec = spec
         named = dict(params.named_parameters())
-        split = sharded_parameters(params)
+        axes = parameter_axes(params)
         trainable = freeze_mask(params, spec.freeze_regex)
         decays = decay_mask(params)
         self.trainable: List[torch.Tensor] = [
             p for n, p in named.items() if trainable[n]]
+        self.all_trainable = len(self.trainable) == len(named)
         # the mesh axis each trainable parameter is split over, or None
-        self.axes = [split.get(n, (None, None))[1] for n, p in named.items()
-                     if trainable[n]]
+        self.axes = [axes[n] for n in named if trainable[n]]
         groups = [
             {"params": [p for n, p in named.items()
                         if trainable[n] and decays[n]],
@@ -127,12 +127,16 @@ class Optimizer:
             self.adamw,
             lambda step: schedule(step) / spec.lr if spec.lr else 0.0)
 
-    def step(self):
+    def step(self, grad_norm: Optional[torch.Tensor] = None):
         """Clip the trainable gradients (global norm, on the device, no
-        host read), take the AdamW step, advance the schedule."""
+        host read), take the AdamW step, advance the schedule.
+        ``grad_norm``: the global norm of every gradient, where the caller
+        has it; the clipping reuses it when every parameter is
+        trainable."""
         if self.spec.grad_clip:
-            clip_by_global_norm_(self.trainable, self.spec.grad_clip,
-                                 self.axes)
+            clip_by_global_norm_(
+                self.trainable, self.spec.grad_clip, self.axes,
+                norm=grad_norm if self.all_trainable else None)
         self.adamw.step()
         self.scheduler.step()
 
@@ -169,17 +173,19 @@ def global_norm(tensors, axes: Optional[List[Optional[str]]] = None,
 
 def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float,
                          axes: Optional[List[Optional[str]]] = None,
-                         mesh_ctx=None):
+                         mesh_ctx=None, norm: Optional[torch.Tensor] = None):
     """optax.clip_by_global_norm on the ``.grad`` of ``params``, in place:
     unchanged while the global norm is below ``max_norm``, else scaled by
     max_norm / norm (without torch's 1e-6 in the denominator). ``axes``:
-    as :func:`global_norm`, one per parameter."""
+    as :func:`global_norm`, one per parameter; ``norm``: their global norm,
+    where the caller has computed it."""
     pairs = [(p.grad, a) for p, a in zip(params, axes or [None] * len(
         params)) if p.grad is not None]
     if not pairs:
         return
     grads = [g for g, _ in pairs]
-    norm = global_norm(grads, [a for _, a in pairs], mesh_ctx)
+    if norm is None:
+        norm = global_norm(grads, [a for _, a in pairs], mesh_ctx)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)

@@ -26,15 +26,16 @@ An encoder whose BERT has Mixture-of-Experts layers surfaces their
 load-balance term; the BERT-family trainees add it to the task loss,
 scaled by ``moe_aux_weight``, and report it as ``outputs["moe_aux"]``.
 
-On a mesh the trainer hands each rank its rows of the global batch
-(``train.data_parallel``). Every trainee runs its encoders on those rows
-and makes their per-sequence outputs global before the objective (the
-pooled vectors; on a packed canvas the CLS / ``gather_idx`` reads through
-rebased pointers, summed over ``data``), and reads the global labels,
-pointers and per-sequence inputs: the objective, its in-batch negatives
-and its normalisers are the global batch's, as XLA's single program makes
-them in the JAX trainees. A question's M passages are read wherever their
-canvas rows fall; the reader's loss runs on every passage's logits.
+On a mesh the trainer hands every rank the whole global batch. Every
+trainee runs its encoders on this rank's rows of their inputs
+(``train.data_parallel.Rows``) and makes their per-sequence outputs
+global before the objective (the pooled vectors; on a packed canvas the
+CLS / ``gather_idx`` reads through pointers rebased to its rows, summed
+over ``data``). Labels, pointers and per-sequence inputs are read as the
+batch holds them: the objective, its in-batch negatives and its
+normalisers are the global batch's, as XLA's single program makes them in
+the JAX trainees. A question's M passages are read wherever their canvas
+rows fall; the reader's loss runs on every passage's logits.
 """
 from __future__ import annotations
 
@@ -97,22 +98,32 @@ def _text_kwargs(inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _on_rows(fn, *inputs):
+    """``fn`` on this rank's rows of ``inputs`` (trees of the global
+    batch's rows): (its output, the :class:`data_parallel.Rows`)."""
+    rows = dp.Rows.of(inputs[0])
+    with rows.scope():
+        return fn(*(rows.take(t) for t in inputs)), rows
+
+
 def _packed_read(packed_apply, params, canvas, pointers, *visual, **kw):
     """A packed apply over this rank's canvas rows: ``canvas`` = (ids,
-    segments, positions[, token types]), ``pointers`` = (cls rows, cls
+    segments, positions[, token types]) and ``pointers`` = (cls rows, cls
     cols[, vis rows, vis cols]) of the global canvas, ``visual`` the
     per-sequence inputs; (the global per-sequence outputs, moe_aux or
     None) — moe_aux when ``kw`` asks ``return_aux``."""
-    rows, cols, *vis = [dp.global_rows(p) for p in pointers]
-    rows, keep = dp.rebase_rows(rows, canvas[0])
+    rows_of = dp.Rows.of(canvas[0])
+    rows, keep = rows_of.rebase(pointers[0])
     if keep is not None:
         rows = torch.where(keep, rows, 0)
+    cols, *vis = pointers[1:]
     if vis:
-        vis[0] = dp.rebase_rows(vis[0], canvas[0])[0]
-    visual = [dp.global_rows(v) if v is not None else None for v in visual]
-    res = packed_apply(params, *canvas, rows, cols, *vis, *visual, **kw)
+        vis[0] = rows_of.rebase(vis[0])[0]
+    with rows_of.scope():
+        res = packed_apply(params, *(rows_of.take(c) for c in canvas), rows,
+                           cols, *vis, *visual, **kw)
     out, aux = res if kw.get("return_aux") else (res, None)
-    return dp.combine_pointed(out, keep), aux
+    return rows_of.combine(out, keep), aux
 
 
 def _export(path, module: nn.Module):
@@ -187,16 +198,9 @@ class BiEncoderTrainee:
             if "canvas_vis_rows" in text:
                 from viquae_torch.models.mm import mask_visual_slots
 
-                segments = text["canvas_segment_ids"]
-                vis_rows = dp.rebase_rows(dp.global_rows(
-                    text.pop("canvas_vis_rows")), segments)[0]
                 text["canvas_segment_ids"] = mask_visual_slots(
-                    segments, vis_rows,
-                    dp.global_rows(text.pop("canvas_vis_cols")))
-                layout = dp.current_layout()
-                if layout is not None:  # the same rows as the canvas
-                    layout.record(text["canvas_segment_ids"],
-                                  dp.is_split(segments))
+                    text["canvas_segment_ids"], text.pop("canvas_vis_rows"),
+                    text.pop("canvas_vis_cols"))
             inputs = text
         if "face_inputs" in inputs:
             # multimodal encoder inputs ({"text_inputs", "face_inputs",
@@ -215,11 +219,11 @@ class BiEncoderTrainee:
                     packed_apply, params, canvas, pointers,
                     inputs["face_inputs"], inputs.get("image_inputs"),
                     **packed_kw)
-            out = model.apply_fn(
-                params, _text_kwargs(inputs), inputs["face_inputs"],
-                inputs.get("image_inputs"), **kw)
-            return (dp.gather_outputs(out.pooler_output, text["input_ids"]),
-                    out.moe_aux)
+            out, rows = _on_rows(
+                lambda t, f, i: model.apply_fn(params, t, f, i, **kw),
+                _text_kwargs(inputs), inputs["face_inputs"],
+                inputs.get("image_inputs"))
+            return rows.gather(out.pooler_output), out.moe_aux
         if "canvas_input_ids" in inputs and packed_apply is not None:
             return _packed_read(
                 packed_apply, params,
@@ -227,9 +231,9 @@ class BiEncoderTrainee:
                  inputs["canvas_position_ids"]),
                 (inputs["canvas_cls_rows"], inputs["canvas_cls_cols"]),
                 **packed_kw)
-        out = model.apply_fn(params, **_text_kwargs(inputs), **kw)
-        return (dp.gather_outputs(out["pooler_output"], inputs["input_ids"]),
-                out.get("moe_aux"))
+        out, rows = _on_rows(lambda t: model.apply_fn(params, **t, **kw),
+                             _text_kwargs(inputs))
+        return rows.gather(out["pooler_output"]), out.get("moe_aux")
 
     def _encode_pair(self, params, batch, generator, deterministic):
         """(question embeddings, context embeddings, the scaled sum of
@@ -248,7 +252,7 @@ class BiEncoderTrainee:
         q, c, aux = self._encode_pair(params, batch, generator,
                                       deterministic)
         return _with_moe_aux(*objectives.biencoder_loss(
-            q, c, dp.global_rows(batch["labels"])), aux)
+            q, c, batch["labels"]), aux)
 
     def eval_fn(self, outputs: List[dict]) -> Dict[str, float]:
         return tmetrics.accumulate_batch_metrics([
@@ -298,12 +302,13 @@ class CrossModalTrainee:
 
     def loss_fn(self, params, batch, generator=None,
                 deterministic: bool = False):
-        text_kw = _text_kwargs(batch["text_inputs"])
-        text = dp.gather_outputs(self.text_model.apply_fn(
-            params["text"], **text_kw)["text_embeds"], text_kw["input_ids"])
-        image = dp.gather_outputs(self.vision_model.apply_fn(
-            params["vision"], batch["pixel_values"])["image_embeds"],
-            batch["pixel_values"])
+        text, rows = _on_rows(lambda t: self.text_model.apply_fn(
+            params["text"], **t)["text_embeds"],
+            _text_kwargs(batch["text_inputs"]))
+        text = rows.gather(text)
+        image, rows = _on_rows(lambda px: self.vision_model.apply_fn(
+            params["vision"], px)["image_embeds"], batch["pixel_values"])
+        image = rows.gather(image)
         return objectives.clip_contrastive_loss(
             _l2norm(text), _l2norm(image), torch.exp(params["logit_scale"]))
 
@@ -346,25 +351,25 @@ class JointMonoAndCrossModalTrainee:
     def loss_fn(self, params, batch, generator=None,
                 deterministic: bool = False):
         def image(key):
-            return dp.gather_outputs(_l2norm(self.vision_model.apply_fn(
-                params["vision"], batch[key])["image_embeds"]), batch[key])
+            emb, rows = _on_rows(lambda px: _l2norm(self.vision_model.apply_fn(
+                params["vision"], px)["image_embeds"]), batch[key])
+            return rows.gather(emb)
 
         q_img, c_img = image("pixel_values"), image("paired_pixel_values")
-        text_kw = _text_kwargs(batch["text_inputs"])
-        titles = dp.gather_outputs(_l2norm(self.text_model.apply_fn(
-            params["text"], **text_kw)["text_embeds"]),
-            text_kw["input_ids"])
+        titles, rows = _on_rows(lambda t: _l2norm(self.text_model.apply_fn(
+            params["text"], **t)["text_embeds"]),
+            _text_kwargs(batch["text_inputs"]))
+        titles = rows.gather(titles)
         scale = torch.exp(params["logit_scale"])
         image_sim = scale * (q_img @ c_img.T)
         cm_sim = scale * (q_img @ titles.T)
         similarities = (params["image_weight"] * image_sim
                         + params["cm_weight"] * cm_sim)
-        labels = dp.global_rows(batch["labels"])
         loss, log_probs = objectives._nll_from_similarities(
-            similarities, labels)
+            similarities, batch["labels"])
         return loss, {
             "log_probs": log_probs,
-            "labels": labels,
+            "labels": batch["labels"],
             "image_similarities": image_sim,
             "cm_similarities": cm_sim,
         }
@@ -423,18 +428,17 @@ class JointBiEncoderAndClipTrainee(BiEncoderTrainee):
         q, c, aux = self._encode_pair(params, batch, generator,
                                       deterministic)
         def image(key):
-            return dp.gather_outputs(self.clip_vision_model.apply_fn(
-                params["clip_vision"], batch[key])["image_embeds"],
-                batch[key])
+            emb, rows = _on_rows(lambda px: self.clip_vision_model.apply_fn(
+                params["clip_vision"], px)["image_embeds"], batch[key])
+            return rows.gather(emb)
 
         q_img = image("question_pixel_values")
         c_img = image("context_pixel_values")
-        title_kw = _text_kwargs(batch["context_inputs"]["titles"])
-        titles = dp.gather_outputs(self.clip_text_model.apply_fn(
-            params["clip_text"], **title_kw)["text_embeds"],
-            title_kw["input_ids"])
+        titles, rows = _on_rows(lambda t: self.clip_text_model.apply_fn(
+            params["clip_text"], **t)["text_embeds"],
+            _text_kwargs(batch["context_inputs"]["titles"]))
         return _with_moe_aux(*objectives.joint_mono_cross_modal_loss(
-            q, c, q_img, c_img, titles, dp.global_rows(batch["labels"]),
+            q, c, q_img, c_img, rows.gather(titles), batch["labels"],
             params["question_weight"], params["image_weight"],
             params["cm_weight"], params["temperature"]), aux)
 
@@ -461,26 +465,26 @@ class ReRankerTrainee:
         packed_apply = getattr(self.model, "packed_apply_fn", None)
         kw = dict(deterministic=deterministic, generator=generator)
         if "canvas_input_ids" in batch and packed_apply is not None:
-            canvas = batch["canvas_input_ids"]
-            rows, keep = dp.rebase_rows(dp.global_rows(
-                batch["canvas_cls_rows"]), canvas)
+            rows_of = dp.Rows.of(batch["canvas_input_ids"])
+            rows, keep = rows_of.rebase(batch["canvas_cls_rows"])
             if keep is not None:
                 rows = torch.where(keep, rows, 0)
-            out = packed_apply(
-                params, canvas, batch["canvas_segment_ids"],
-                batch["canvas_position_ids"],
-                batch["canvas_token_type_ids"],
-                rows, dp.global_rows(batch["canvas_cls_cols"]), **kw)
-            scores = dp.combine_pointed(out.logits, keep)
+            canvas = (batch[k] for k in (
+                "canvas_input_ids", "canvas_segment_ids",
+                "canvas_position_ids", "canvas_token_type_ids"))
+            with rows_of.scope():
+                out = packed_apply(params, *map(rows_of.take, canvas), rows,
+                                   batch["canvas_cls_cols"], **kw)
+            scores = rows_of.combine(out.logits, keep)
         else:
-            text_kw = _text_kwargs(batch)
-            out = self.model.apply_fn(params, **text_kw, **kw)
-            scores = dp.gather_outputs(out.logits, text_kw["input_ids"])
+            out, rows_of = _on_rows(
+                lambda t: self.model.apply_fn(params, **t, **kw),
+                _text_kwargs(batch))
+            scores = rows_of.gather(out.logits)
         logits = scores.reshape(-1, self.M)
-        labels = dp.global_rows(batch["labels"])
-        loss, log_probs = objectives.reranker_loss(logits, labels)
+        loss, log_probs = objectives.reranker_loss(logits, batch["labels"])
         return _with_moe_aux(
-            loss, {"log_probs": log_probs, "labels": labels,
+            loss, {"log_probs": log_probs, "labels": batch["labels"],
                    "logits": logits},
             None if out.moe_aux is None else self.moe_aux_weight * out.moe_aux)
 
@@ -529,30 +533,30 @@ class ReaderTrainee:
         if "canvas_input_ids" in batch:
             # packed canvas from ReaderCollator(packed=True); gather_idx
             # and the passage scores are the global batch's
-            canvas = batch["canvas_input_ids"]
-            idx, keep = dp.rebase_flat(dp.global_rows(batch["gather_idx"]),
-                                       canvas)
-            out = self.qa.reader_apply_packed(
-                params, self.cfg, canvas, batch["canvas_segment_ids"],
-                batch["canvas_position_ids"], batch["canvas_token_type_ids"],
-                idx, dp.global_rows(batch["gather_mask"]),
-                passage_scores=dp.global_rows(scores), **common)
-            start, end = (dp.combine_pointed(t, keep) for t in (
+            canvas = [batch[k] for k in (
+                "canvas_input_ids", "canvas_segment_ids",
+                "canvas_position_ids", "canvas_token_type_ids")]
+            rows = dp.Rows.of(canvas[0])
+            idx, keep = rows.rebase_flat(batch["gather_idx"],
+                                         canvas[0].shape[1])
+            with rows.scope():
+                out = self.qa.reader_apply_packed(
+                    params, self.cfg, *map(rows.take, canvas), idx,
+                    batch["gather_mask"], passage_scores=scores, **common)
+            start, end = (rows.combine(t, keep) for t in (
                 out.start_logits, out.end_logits))
         else:
-            ids = batch["input_ids"]
-            out = self.qa.reader_apply(
-                params, self.cfg, ids,
-                attention_mask=batch.get("attention_mask"),
-                token_type_ids=batch.get("token_type_ids"),
-                passage_scores=scores, **common)
-            start, end = (dp.gather_outputs(t, ids) for t in (
+            inputs = {k: batch.get(k) for k in (
+                "input_ids", "attention_mask", "token_type_ids")}
+            out, rows = _on_rows(
+                lambda t, s: self.qa.reader_apply(
+                    params, self.cfg, t.pop("input_ids"), **t,
+                    passage_scores=s, **common), inputs, scores)
+            start, end = (rows.gather(t) for t in (
                 out.start_logits, out.end_logits))
         out = self.qa.reader_output(
-            start, end, dp.global_rows(batch["start_positions"]),
-            dp.global_rows(batch["end_positions"]),
-            dp.global_rows(batch["answer_mask"]), self.M
-        )._replace(moe_aux=out.moe_aux)
+            start, end, batch["start_positions"], batch["end_positions"],
+            batch["answer_mask"], self.M)._replace(moe_aux=out.moe_aux)
         return _with_moe_aux(
             out.loss, {"start_log_probs": out.start_log_probs,
                        "end_log_probs": out.end_log_probs},

@@ -15,17 +15,19 @@ and are read on ``log_every`` steps only (and on every step under
 On a mesh (``mesh_ctx``, default ``core.mesh.current()``; the JAX
 trainer's contract): ``param_spec`` shards the parameters over ``model``
 (``models.sharding``; their AdamW state follows, as it is built on the
-shards), every rank builds the same global batch and keeps its rows
-(``train.data_parallel.split_batch``: the leading dim split over ``data``
-when it divides, ``batch_spec`` overrides by key, host-only leaves
-dropped; under ``microbatched`` the rule applies to each microbatch),
-the loss runs under the mesh with the batch's layout (the trainees gather
-their per-sequence outputs over ``data`` before the objective), and after
-backward every gradient is averaged over ``data`` in one all-reduce (never
-over ``model``). The global norm counts the shards' squares over
-``model`` and the replicated gradients once. Checkpoints are per rank
-(``train.checkpoint``); only rank 0 prints and writes the log;
-:meth:`Trainer.full_params` gathers the shards back.
+shards), every rank builds the same global batch and the loss gets the
+whole of it, under the mesh (each microbatch's under ``microbatched``):
+the trainees split their encoder inputs' rows over ``data`` and gather the
+per-sequence outputs before the objective (``train.data_parallel``), and a
+loss that does not computes the whole batch on every rank. After backward
+every gradient is averaged over ``data`` in one all-reduce (never over
+``model``). The global norm counts the shards' squares over ``model`` and
+the replicated gradients once; the optimizer's clipping reuses it.
+``batch_spec``, the JAX trainer's layout of named batch keys, is checked
+and changes nothing: every rank holds the whole batch, which any layout's
+ranks can read, and in JAX too the layout changes no result. Checkpoints
+are per rank (``train.checkpoint``); only rank 0 prints and writes the
+log; :meth:`Trainer.full_params` gathers the shards back.
 """
 from __future__ import annotations
 
@@ -46,8 +48,7 @@ from viquae_torch.core.device import upload_batch
 from viquae_torch.core.prng import DEFAULT_SEED, SeedBundle
 from viquae_torch.models import sharding
 from viquae_torch.train import checkpoint as ckpt_lib
-from viquae_torch.train import data_parallel as dp
-from viquae_torch.train.optim import AdamWSpec, global_norm
+from viquae_torch.train.optim import AdamWSpec, Optimizer, global_norm
 
 
 @dataclasses.dataclass
@@ -143,8 +144,8 @@ class Trainer:
     loss_fn(params, batch, generator, deterministic=False) -> (loss,
     aux_dict). Batches are dicts of host arrays with a LEADING GLOBAL
     batch dim (plus a leading grad_accum dim when ``microbatched``); on a
-    mesh the trainer splits them over ``data`` and keeps the parameters
-    per ``param_spec`` (replicated by default)."""
+    mesh every rank's loss gets the whole batch, and the trainer keeps the
+    parameters per ``param_spec`` (replicated by default)."""
 
     def __init__(
         self,
@@ -173,7 +174,11 @@ class Trainer:
         self.seeds = SeedBundle(config.seed)
         self.history: list = []
         self.mesh_ctx = ctx = mesh_ctx or meshlib.current()
-        self.batch_spec = batch_spec
+        for key, spec in (batch_spec or {}).items():
+            if any(a is not None and a not in meshlib.AXES
+                   for a in tuple(spec)):
+                raise ValueError(f"batch_spec[{key!r}] = {spec}: the entries "
+                                 f"are mesh axes {meshlib.AXES} or None")
         # own the parameters: a copy (the shard module, or a deep copy),
         # so the steps never write into the caller's modules
         params = (sharding.shard_module(params, param_spec, ctx)
@@ -182,10 +187,8 @@ class Trainer:
             params = params.to(ctx.device)
         params = params.requires_grad_(True)
         self.device = next(iter(params.parameters())).device
-        split = sharding.sharded_parameters(params)
         # the mesh axis each parameter is a block of (global norm)
-        self._axes = [split.get(n, (None, None))[1]
-                      for n, _ in params.named_parameters()]
+        self._axes = list(sharding.parameter_axes(params).values())
         self.state = TrainState(
             params, optimizer.build(params), mesh_ctx=(
                 ctx if ctx.distributed else None), seeds=self.seeds)
@@ -203,16 +206,6 @@ class Trainer:
         if not sharding.sharded_parameters(params):
             return params
         return sharding.gather_module(params, self.mesh_ctx)
-
-    def _shard_batch(self, batch):
-        """(this rank's batch on the device, its layout): the rows of each
-        leaf split over ``data`` by the JAX trainer's rule
-        (``data_parallel.split_batch``)."""
-        local, flags = dp.split_batch(self.mesh_ctx, batch, self.batch_spec)
-        dev = upload_batch(local, self.device)
-        layout = dp.BatchLayout(self.mesh_ctx)
-        layout.record(dev, flags)
-        return dev, layout
 
     # ------------------------------------------------------------------
     def _microbatches(self, batch):
@@ -277,8 +270,8 @@ class Trainer:
         loss = 0.0
         for mb in micro:
             # one microbatch's inputs on the device at a time
-            dev, layout = self._shard_batch(mb)
-            with meshlib.use(ctx), dp.use_layout(layout):
+            dev = upload_batch(mb, self.device)
+            with meshlib.use(ctx):
                 mb_loss, aux = self.loss_fn(params, dev, generator)
                 (mb_loss / accum).backward()
             loss = loss + mb_loss.detach()
@@ -287,10 +280,11 @@ class Trainer:
                      if p.grad is not None]
         grads = [p.grad for p, _ in with_grad]
         if ctx.distributed:
-            # one all-reduce over data: the mean of every rank's gradients
-            flat = meshlib.all_reduce(
-                ctx, torch._utils._flatten_dense_tensors(grads),
-                meshlib.DATA_AXIS, op="mean")
+            # one all-reduce over data, in place in one flat copy: the
+            # mean of every rank's gradients
+            flat = torch._utils._flatten_dense_tensors(grads)
+            meshlib.all_reduce(ctx, flat, meshlib.DATA_AXIS, op="mean",
+                               inplace=True)
             torch._foreach_copy_(grads, list(
                 torch._utils._unflatten_dense_tensors(flat, grads)))
             del flat
@@ -298,7 +292,10 @@ class Trainer:
                                       op="mean")
         grad_norm = global_norm(grads, [a for _, a in with_grad], ctx)
         with meshlib.use(ctx):      # the clipping norm's collectives
-            opt.step()
+            if isinstance(opt, Optimizer):
+                opt.step(grad_norm)
+            else:
+                opt.step()
         self.state.step += 1
         return loss, grad_norm, aux
 
@@ -423,8 +420,8 @@ class Trainer:
         ctx = self.mesh_ctx
         with torch.no_grad():
             for i, batch in enumerate(eval_batches):
-                dev, layout = self._shard_batch(batch)
-                with meshlib.use(ctx), dp.use_layout(layout):
+                dev = upload_batch(batch, self.device)
+                with meshlib.use(ctx):
                     loss, aux = self.loss_fn(
                         self.state.params, dev, self.seeds.split(f"eval{i}"),
                         **kw)
