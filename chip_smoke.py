@@ -106,7 +106,7 @@ raises on failure:
    CLIP RN50 (clip), FaceQueryEncoder (MTCNN at phase 17's thresholds +
    ArcFace, 64 a sub-batch), towers in f32; 1,257 questions, batch 1,280:
    batch wall (median of 3), host decode and face-loop ms, device ms by
-   leg, a 4-batch stream with its device idle share (derived and traced),
+   leg, a 2-batch stream with its device idle share (derived and traced),
    B1 once a batch; the fused top-100 against the same pipeline given the
    features that embed_images and the FaceQueryEncoder compute directly
    (tie_aware_agreement), queries without an image absent from every
@@ -232,6 +232,23 @@ raises on failure:
    so that its start-up overlaps (b) and (c). Printed: step ms,
    peak memory and collective bytes by kind for each rank, the routes,
    and B1's and B2's launches (0).
+27. pipeline parallelism (phase_pipeline, after phase 26; nothing here is
+   a multi-GPU speed: ranks that share one card time the host-staged
+   route and the bubble (S - 1) / (M + S - 1)): (a) a NCCL world of one,
+   make_mesh(data=1, pipe=1), on phase 26 (a)'s biencoder in the padded
+   form of __graft_entry__.py's pp_loss: encode_pipelined bit-equal to
+   encode at one microbatch and within the f32 reordering bound at 4, the
+   pipelined Trainer (pipeline_param_spec) 3 steps bit-equal to the plain
+   Trainer, both timed; (b) four gloo ranks at data = 2 x pipe = 2, 2
+   microbatches, full width (6 layers a stage): 2 AdamW steps held as
+   phase 26 (b), replicated parameters bit-equal over pipe and data,
+   stage checkpoints resumed bit-equal in a fresh world, full_params' HF
+   state dicts against one device's; ms a step split into compute and
+   waiting, collective bytes by kind and peak memory per rank; (c) the
+   same ranks at pipe = 4, 8 microbatches: the question tower's output,
+   input and parameter gradients against one device; beside (a), a probe
+   of gloo send / recv on raw CUDA tensors (the port stages them through
+   pinned host memory either way). B1's and B2's launches: 0.
 
 Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
 uploads staged through pinned memory and, for comparison, from pageable
@@ -332,6 +349,9 @@ N_ANSWER_QUERIES = 256
 SPAN_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # batches of the multi-batch streams (exact path, late fusion, hybrid)
 STREAM_BATCHES = 4
+# phase 18's stream: a batch of its online legs takes ~22 s of host work,
+# and every phase shares the script's time limit
+FUSION_STREAM_BATCHES = 2
 # the BM25 corpus and queries (the shapes of the reference's hybrid bench)
 N_BM25_DOCS = 1_500_000
 BM25_VOCAB = 400_000
@@ -2733,7 +2753,7 @@ def phase_image_fusion(dev, main, chain) -> dict:
     del q, s_list, i_list
 
     # ---- a stream of several full batches ------------------------------
-    stream_queries = main["stream_queries"]
+    stream_queries = main["stream_queries"][: FUSION_STREAM_BATCHES * BATCH]
     stream_images = dict.fromkeys(FUSION_WIDTHS, [
         pics[j % N_QUERIES] for j in range(len(stream_queries))])
 
@@ -2744,9 +2764,10 @@ def phase_image_fusion(dev, main, chain) -> dict:
     t0 = time.perf_counter()
     run_stream()
     t1 = time.perf_counter()
-    stream = {"queries": len(stream_queries), "batches": STREAM_BATCHES,
+    stream = {"queries": len(stream_queries),
+              "batches": FUSION_STREAM_BATCHES,
               "wall_ms": (t1 - t0) * 1e3,
-              "batch_ms": (t1 - t0) * 1e3 / STREAM_BATCHES,
+              "batch_ms": (t1 - t0) * 1e3 / FUSION_STREAM_BATCHES,
               "stages": pipe.timer.report(),
               "timeline": pipe.timer.timeline(t0, t1)}
     pipe.timer = keep
@@ -2770,7 +2791,7 @@ def phase_image_fusion(dev, main, chain) -> dict:
           "weights": FUSION_WEIGHTS, "norm": "gzmuv",
           "query_image_sides": list(QUERY_SIDES), **absent,
           "b1_launches": launches, "batch_ms": batch_ms, "qps": qps,
-          "batch_ms_is": "the 4-batch stream's wall over its batches",
+          "batch_ms_is": "the 2-batch stream's wall over its batches",
           "host_ms": host, "device_ms": device_ms,
           "device_ms_sum": device_sum, "face_sub_batches": n_sub,
           "face_per_sub_batch_ms": per_sub,
@@ -2785,7 +2806,7 @@ def phase_image_fusion(dev, main, chain) -> dict:
           "late fusion outputs")
     return {"pipe": pipe, "indexes": indexes, "encoders": encoders,
             "faces": faces, "pics": pics, "launches": launches,
-            "stream_launches": STREAM_BATCHES}
+            "stream_launches": FUSION_STREAM_BATCHES}
 
 
 def png_b64(image) -> str:
@@ -5319,7 +5340,8 @@ def mesh_rank_work(dev, spec) -> dict:
             later = mesh_steps(trainer, batch, 1, dev)
             res["step_collectives"] = collective_kinds(ctx.collective_log)
             res.update({k: first[k] + later[k] for k in first})
-        res["replicated_equal"] = mesh_replicated_equal(trainer)
+        res["replicated_equal"] = replicated_equal_over(
+            trainer, (mesh.MODEL_AXIS,))
         if label == "b":        # the resume is held by digests
             res["digest"] = state_digest(trainer)
         if not spec["resume"]:  # the parameters against one device's
@@ -5366,43 +5388,67 @@ def gloo_cuda_collectives(ctx, dev) -> dict:
     return out
 
 
-def mesh_replicated_equal(trainer) -> bool:
-    """Every replicated parameter bit-equal on the ``model`` ranks."""
-    from viquae_torch.core import mesh
-    from viquae_torch.models.sharding import sharded_parameters
-
-    split = sharded_parameters(trainer.state.params)
-    same = True
-    for name, p in trainer.state.params.named_parameters():
-        if name not in split:
-            parts = mesh.all_gather(trainer.mesh_ctx, p.detach(),
-                                    mesh.MODEL_AXIS)
-            same &= all(torch.equal(parts[0], q) for q in parts[1:])
-    return bool(same)
-
-
 def run_mesh_ranks(spec, workdir) -> list:
     """Start phase 26's ranks, wait for them within MESH_TIMEOUT_S (kill
     them all past it: the phase fails) and read what each measured."""
+    return finish_world(start_world(MESH_RANK_CODE, spec, workdir,
+                                    MESH_RANKS, MESH_SIZES),
+                        MESH_TIMEOUT_S, "phase 26")
+
+
+def start_world(code, spec, workdir, n, sizes):
+    """Write ``spec`` with the world's directory, rendezvous and the
+    module constants named in ``sizes`` (a rehearsal's shrunk ones), and
+    start its ``n`` ranks (``python -c code spec rank``): (processes,
+    logs, workdir)."""
     import pickle
 
     workdir.mkdir(parents=True, exist_ok=True)
     spec = dict(spec, dir=str(workdir),
                 init=f"file://{workdir / 'rendezvous'}",
-                sizes={k: globals()[k] for k in MESH_SIZES})
+                sizes={k: globals()[k] for k in sizes})
     spec_path = workdir / "spec.pkl"
     spec_path.write_bytes(pickle.dumps(spec))
+    procs, logs = start_ranks(code, spec_path, n, workdir, spec["device"])
+    return procs, logs, workdir
+
+
+def finish_world(started, timeout_s, label) -> list:
+    """Wait for a world's ranks within ``timeout_s`` (kill them all past
+    it: the phase fails) and read what each measured."""
+    import pickle
+
+    procs, logs, workdir = started
+    wait_ranks(procs, logs, timeout_s + 30)
+    results = []
+    for r, p in enumerate(procs):
+        out = workdir / f"rank{r}.pkl"
+        if p.returncode != 0 or not out.exists():
+            tail = (workdir / f"rank{r}.log").read_text(
+                errors="replace")[-3000:]
+            check(False, f"{label} rank {r} exited {p.returncode}:\n{tail}")
+        results.append(pickle.loads(out.read_bytes()))
+    return results
+
+
+def start_ranks(code, arg, n, workdir, device):
+    """``n`` rank processes ``python -c code arg r``, their output to
+    ``workdir/rank<r>.log``: (processes, logs)."""
     here = os.path.dirname(os.path.abspath(__file__))
     # one thread on the CPU (a rehearsal): the CPU's threaded embedding
     # backward adds in another order run to run
-    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="1" if spec[
-        "device"] == "cpu" else "2")
-    logs = [open(workdir / f"rank{r}.log", "wb") for r in range(MESH_RANKS)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", MESH_RANK_CODE, str(spec_path), str(r)],
-        cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(MESH_RANKS)]
-    deadline = time.monotonic() + MESH_TIMEOUT_S + 30
+    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="1" if
+               device == "cpu" else "2")
+    logs = [open(workdir / f"rank{r}.log", "wb") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(arg), str(r)],
+                              cwd=here, env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(n)]
+    return procs, logs
+
+
+def wait_ranks(procs, logs, timeout_s) -> None:
+    """Wait for every rank within ``timeout_s``; kill the rest."""
+    deadline = time.monotonic() + timeout_s
     try:
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 0.01))
@@ -5415,21 +5461,11 @@ def run_mesh_ranks(spec, workdir) -> list:
                 p.wait()
         for f in logs:
             f.close()
-    results = []
-    for r, p in enumerate(procs):
-        out = workdir / f"rank{r}.pkl"
-        if p.returncode != 0 or not out.exists():
-            tail = (workdir / f"rank{r}.log").read_text(
-                errors="replace")[-3000:]
-            check(False, f"phase 26 rank {r} exited {p.returncode}:\n{tail}")
-        results.append(pickle.loads(out.read_bytes()))
-    return results
 
 
 def one_device_reference(dev, batch, moe: bool, steps: int) -> dict:
-    """The one-device trainer of (b) or (c) on the card: losses, grad
-    norms, the parameters after the steps and, per parameter, the smallest
-    |gradient| over the steps (for the update bound)."""
+    """The one-device trainer of (b) or (c) on the card: see
+    :func:`reference_steps`."""
     from viquae_torch.train import optim
     from viquae_torch.train.trainer import Trainer, TrainerConfig
 
@@ -5438,6 +5474,16 @@ def one_device_reference(dev, batch, moe: bool, steps: int) -> dict:
                       optim.make_optimizer(tt.params, **MESH_OPT),
                       TrainerConfig(max_steps=steps, log_every=0))
     del tt
+    return reference_steps(trainer, batch, steps)
+
+
+def reference_steps(trainer, batch, steps) -> dict:
+    """A one-device trainer's ``steps`` steps: losses, grad norms, the
+    parameters after the steps and, per parameter, the smallest
+    |gradient| over the steps (for the update bound), the largest
+    gradient entry and the steps' summed learning rate."""
+    from viquae_torch.train import optim
+
     smallest, g_max = {}, 0.0
     res = {"losses": [], "grad_norms": []}
     for step in range(steps):
@@ -5707,6 +5753,678 @@ def phase_mesh_training(dev, tokenizer, workdir, phase21_step_ms=None
 
 
 
+# ---- phase 27: pipeline parallelism -------------------------------------------
+PIPE_MICRO = 4             # (a): the microbatches of the agreement check
+PIPE_RANKS = 4             # gloo ranks sharing the one card
+PIPE_TIMEOUT_S = 240       # the ranks' own limit, joins and collectives
+PIPE_STEPS = 2             # (b): AdamW steps of the ranks
+PIPE_B = dict(data=2, pipe=2, n_micro=2)
+PIPE_C = dict(data=1, pipe=4, n_micro=8)
+PIPE_RANK_CODE = ("import sys, chip_smoke; "
+                  "chip_smoke.pipe_rank(sys.argv[1], int(sys.argv[2]))")
+PIPE_PROBE_CODE = ("import sys, chip_smoke; "
+                   "chip_smoke.p2p_probe_rank(sys.argv[1], int(sys.argv[2]))")
+PIPE_SIZES = ("PIPE_RANKS", "PIPE_TIMEOUT_S", "PIPE_STEPS", "PIPE_B",
+              "PIPE_C", "MESH_BERT", "MESH_OPT")
+
+
+def pp_batch(collated: dict) -> dict:
+    """A padded BiEncoderCollator batch in the form __graft_entry__.py's
+    pp_loss takes (q_ids, q_mask, c_ids, c_mask, labels), each side cut
+    after its longest sequence (the padding columns are masked out of
+    every real token's attention: the cut changes no value)."""
+    out = {"labels": np.asarray(collated["labels"], np.int64)}
+    for side, key in (("q", "question_inputs"), ("c", "context_inputs")):
+        ids = np.asarray(collated[key]["input_ids"])
+        mask = np.asarray(collated[key]["attention_mask"])
+        width = int(np.nonzero(mask.any(0))[0].max()) + 1
+        out[f"{side}_ids"] = ids[:, :width].astype(np.int64)
+        out[f"{side}_mask"] = mask[:, :width].astype(np.int64)
+    return out
+
+
+def pp_towers(dev, stages=None, layers_: int = 12):
+    """Phase 26's DPR towers (BERT-base, seeds 0 and 1, dropout off) as
+    one ModuleDict of BERTs, staged into ``stages`` when given."""
+    from torch import nn
+
+    cfg = dpr.DPRConfig(bert=mesh_bert(layers_, dropout=False))
+    out = {}
+    for name, seed in (("question", 0), ("context", 1)):
+        m = dpr.DPREncoder(cfg=cfg, seed=seed, device=dev).params
+        out[name] = bert.pipeline_params(m, stages) if stages else m
+    return nn.ModuleDict(out), cfg.bert
+
+
+def pp_loss_fn(cfg, n_micro=None, ctx=None):
+    """__graft_entry__.py's pp_loss over remat layers: each tower's
+    embeddings, the encoder (pipelined over ``ctx`` with ``n_micro``
+    microbatches, or sequential without), the CLS states and the in-batch
+    biencoder loss."""
+    from viquae_torch.train import objectives
+
+    def tower(p, ids, mask):
+        x = bert.embed(p, cfg, ids)
+        if n_micro is None:
+            return bert.encode(p, cfg, x, mask, remat_layers=True)[:, 0]
+        return bert.encode_pipelined(p, cfg, x, mask, n_micro=n_micro,
+                                     mesh_ctx=ctx, remat_layers=True)[:, 0]
+
+    def loss_fn(params, batch, generator=None, deterministic=False):
+        q = tower(params["question"], batch["q_ids"], batch["q_mask"])
+        c = tower(params["context"], batch["c_ids"], batch["c_mask"])
+        loss, _ = objectives.biencoder_loss(q, c, batch["labels"])
+        return loss, {}
+
+    return loss_fn
+
+
+def pp_spec(cfg, stages: int) -> dict:
+    return {n: bert.pipeline_param_spec(cfg, stages)
+            for n in ("question", "context")}
+
+
+def encoder_bound(ref: torch.Tensor, layers_: int, depth: int) -> float:
+    """The f32 reordering bound of an encoder's output: 2 gamma_d (gamma_d
+    = d u / (1 - d u), u = 2^-24, d the deepest dot product) of the
+    output's scale once a layer."""
+    gamma = depth * 2.0 ** -24 / (1 - depth * 2.0 ** -24)
+    return 2 * gamma * layers_ * float(ref.abs().max())
+
+
+class CommTimer:
+    """Wall time spent inside core.mesh's collectives and p2p calls (the
+    device synchronised on entry and exit, so device work is counted as
+    compute), by patching the module's functions; ``seconds`` grows."""
+
+    NAMES = ("send_to", "recv_from", "broadcast", "all_reduce",
+             "all_gather", "reduce_scatter")
+
+    def __init__(self, dev):
+        from viquae_torch.core import mesh
+
+        self.seconds, self.dev = 0.0, dev
+        for name in self.NAMES:
+            setattr(mesh, name, self._timed(getattr(mesh, name)))
+
+    def _timed(self, fn):
+        def call(*args, **kwargs):
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if self.dev.type == "cuda":
+                    torch.cuda.synchronize(self.dev)
+                self.seconds += time.perf_counter() - t0
+        return call
+
+
+def pp_steps(trainer, batch, steps, dev, comm) -> dict:
+    """``steps`` optimizer steps (Trainer.fit's generator per step), each
+    read back: losses, grad norms, wall ms a step (synchronised) and the
+    ms of it spent in collectives (``comm``, a CommTimer)."""
+    out = {"losses": [], "grad_norms": [], "step_ms": [], "wait_ms": []}
+    for _ in range(steps):
+        step = trainer.state.step
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0, w0 = time.perf_counter(), comm.seconds
+        loss, norm, _ = trainer._train_step(batch,
+                                            trainer.seeds.split(f"step{step}"))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["wait_ms"].append(1e3 * (comm.seconds - w0))
+        out["losses"].append(float(loss))
+        out["grad_norms"].append(float(norm))
+    out["compute_ms"] = [a - b for a, b in zip(out["step_ms"],
+                                               out["wait_ms"])]
+    return out
+
+
+def replicated_equal_over(trainer, axes) -> bool:
+    """Every parameter bit-equal over each of ``axes`` it is not split
+    over (one all-gather each)."""
+    from viquae_torch.core import mesh
+    from viquae_torch.models.sharding import parameter_axes
+
+    same = True
+    axes_of = parameter_axes(trainer.state.params)
+    for name, p in trainer.state.params.named_parameters():
+        for axis in axes:
+            if axes_of[name] != axis:
+                parts = mesh.all_gather(trainer.mesh_ctx, p.detach(), axis)
+                same &= all(torch.equal(parts[0], q) for q in parts[1:])
+    return bool(same)
+
+
+def p2p_probe_rank(workdir: str, rank: int) -> None:
+    """Whether gloo's send / recv take a CUDA tensor as it is (core.mesh
+    stages them through pinned host memory either way): rank 0 sends
+    arange(4096) from the card, rank 1 receives it into the card. Writes
+    the outcome; a crash shows as the process's exit code."""
+    import datetime
+    import resource
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    # the probe may abort: no core file
+    resource.setrlimit(resource.RLIMIT_CORE, (0, 0))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{Path(workdir) / 'rendezvous'}",
+        rank=rank, world_size=2, timeout=datetime.timedelta(seconds=60))
+    x = torch.arange(4096, dtype=torch.float32, device=dev)
+    try:
+        if rank == 0:
+            dist.send(x, 1)
+            outcome = "sent"
+        else:
+            buf = torch.zeros_like(x)
+            dist.recv(buf, 0)
+            torch.cuda.synchronize(dev)
+            outcome = "delivered" if torch.equal(buf, x) else "wrong bytes"
+    except Exception as e:     # noqa: BLE001 - the answer is the error
+        outcome = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    finally:
+        dist.destroy_process_group()
+    Path(workdir, f"probe{rank}.json").write_text(json.dumps(outcome))
+
+
+def pipe_rank(spec_path: str, rank: int) -> None:
+    """One of phase 27's gloo ranks (a process of its own on the one
+    card): joins the world, runs :func:`pipe_rank_work` and writes what it
+    measured next to the spec."""
+    import datetime
+    import pickle
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    spec = pickle.loads(Path(spec_path).read_bytes())
+    globals().update(spec["sizes"])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)          # the CUDA context, before the go
+    # a world started early (its start-up beside the previous world's
+    # work) waits for the parent's go before it joins
+    deadline = time.monotonic() + PIPE_TIMEOUT_S
+    while spec.get("go") and not Path(spec["go"]).exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no go at {spec['go']}")
+        time.sleep(0.1)
+    dist.init_process_group(
+        "gloo", init_method=spec["init"], rank=rank, world_size=PIPE_RANKS,
+        timeout=datetime.timedelta(seconds=PIPE_TIMEOUT_S))
+    try:
+        out = pipe_rank_work(dev, spec)
+    finally:
+        dist.destroy_process_group()
+    Path(spec["dir"], f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def pipe_rank_work(dev, spec) -> dict:
+    """(b) the full-width biencoder on data = 2 x pipe = 2: step 1, this
+    rank's stage checkpoint, step 2, full_params (rank 0 writes the
+    per-layer parameters and HF state dicts); or, in the resume world,
+    step 1's checkpoint restored and step 2. (c) the question tower at
+    pipe = 4: the forward, the input gradient and this stage's parameter
+    gradients of sum(out * w). Every number is this rank's, on a card the
+    four ranks share."""
+    import gc
+
+    from viquae_torch.core import mesh
+    from viquae_torch.models import sharding
+    from viquae_torch.train import checkpoint as ckpt_lib
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    comm = CommTimer(dev)
+    b = PIPE_B
+    ctx = mesh.make_mesh(data=b["data"], pipe=b["pipe"], device=dev)
+    out = {"coords": dict(ctx.coords), "route": mesh.collective_route(ctx),
+           "p2p_route": mesh.collective_route(ctx, p2p=True),
+           "tf32": torch.backends.cuda.matmul.allow_tf32}
+    mips_fused.fused_score_segmax_qmajor.launches = 0
+    mips_fused.fused_score_segmax.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    towers, cfg = pp_towers(dev, stages=b["pipe"])
+    trainer = Trainer(pp_loss_fn(cfg, b["n_micro"], ctx), towers,
+                      optim.make_optimizer(towers, **MESH_OPT),
+                      TrainerConfig(max_steps=PIPE_STEPS, log_every=0),
+                      mesh_ctx=ctx, param_spec=pp_spec(cfg, b["pipe"]))
+    del towers
+    batch = spec["batch"]
+    res = {"held": trainer.state.params["question"].layers.held()}
+    if spec["resume"]:
+        t0 = time.perf_counter()
+        ckpt_lib.restore_state(spec["ckpt"], trainer.state,
+                               map_location=dev, rank=ctx.rank)
+        res["restore_s"] = time.perf_counter() - t0
+        res.update(pp_steps(trainer, batch, 1, dev, comm))
+    else:
+        first = pp_steps(trainer, batch, 1, dev, comm)
+        t0 = time.perf_counter()
+        ckpt_lib.save_state(spec["ckpt"], trainer.state, 1, rank=ctx.rank)
+        res["save_s"] = time.perf_counter() - t0
+        ctx.collective_log.clear()
+        later = pp_steps(trainer, batch, PIPE_STEPS - 1, dev, comm)
+        res["step_collectives"] = collective_kinds(ctx.collective_log)
+        res.update({k: first[k] + later[k] for k in first})
+    res["replicated_equal"] = replicated_equal_over(
+        trainer, (mesh.DATA_AXIS, mesh.PIPE_AXIS))
+    res["digest"] = state_digest(trainer)
+    res["peak_memory_bytes"] = peak_memory(dev)
+    if not spec["resume"]:
+        full = trainer.full_params()
+        if ctx.rank == 0:
+            torch.save({"params": {n: p.detach().cpu() for n, p in
+                                   full.named_parameters()},
+                        "hf": {n: bert.params_to_hf_state_dict(full[n], cfg)
+                               for n in ("question", "context")}},
+                       os.path.join(spec["dir"], "params_b.pt"))
+        del full
+    out["b"] = res
+    del trainer
+    gc.collect()
+    if spec["resume"]:
+        return finish_pipe_rank(out)
+
+    # ---- (c) the question tower at pipe = 4 --------------------------
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    c = PIPE_C
+    ctx4 = mesh.make_mesh(data=c["data"], pipe=c["pipe"], device=dev)
+    towers, cfg = pp_towers(dev, stages=c["pipe"])
+    shard = sharding.shard_module(
+        towers["question"], bert.pipeline_param_spec(cfg, c["pipe"]), ctx4
+    ).requires_grad_(True)
+    del towers
+    x, w = pipe_c_inputs(shard, cfg, batch, dev)
+    x.requires_grad_(True)
+    ctx4.collective_log.clear()
+    t0 = time.perf_counter()
+    y = bert.encode_pipelined(shard, cfg, x, batch_mask(batch, dev),
+                              n_micro=c["n_micro"], mesh_ctx=ctx4)
+    (y * w).sum().backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    res = {"ms": 1e3 * (time.perf_counter() - t0),
+           "collectives": collective_kinds(ctx4.collective_log),
+           "held": shard.layers.held(),
+           "peak_memory_bytes": peak_memory(dev)}
+    torch.save({"out": y.detach().cpu(), "x_grad": x.grad.cpu(),
+                "grads": {n: p.grad.detach().cpu() for n, p in
+                          shard.layers.named_parameters()}},
+               os.path.join(spec["dir"], f"c_rank{ctx4.rank}.pt"))
+    out["c"] = res
+    return finish_pipe_rank(out)
+
+
+def finish_pipe_rank(out: dict) -> dict:
+    out["b1_launches"] = mips_fused.fused_score_segmax_qmajor.launches
+    out["b2_launches"] = mips_fused.fused_score_segmax.launches
+    return out
+
+
+def batch_mask(batch, dev) -> torch.Tensor:
+    return torch.from_numpy(batch["q_mask"]).to(dev)
+
+
+def pipe_c_inputs(tower, cfg, batch, dev):
+    """(c)'s encoder input, the question tower's embeddings of the batch's
+    questions, and the output weights w (seeded on the device): the same
+    on every rank and in the one-device reference."""
+    with torch.no_grad():
+        x = bert.embed(tower, cfg, torch.from_numpy(batch["q_ids"]).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(27)
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    return x, w
+
+
+def pp_reference(dev, batch, steps) -> dict:
+    """(b)'s one-device sequential Trainer on the card
+    (:func:`reference_steps`, moved to the CPU) and the towers' HF state
+    dicts."""
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    towers, cfg = pp_towers(dev)
+    trainer = Trainer(pp_loss_fn(cfg), towers,
+                      optim.make_optimizer(towers, **MESH_OPT),
+                      TrainerConfig(max_steps=steps, log_every=0))
+    del towers
+    res = reference_steps(trainer, batch, steps)
+    for key in ("params", "smallest_grad"):
+        res[key] = {n: t.cpu() for n, t in res[key].items()}
+    res["hf"] = {n: bert.params_to_hf_state_dict(trainer.state.params[n],
+                                                 cfg)
+                 for n in ("question", "context")}
+    return res
+
+
+def pipe_c_reference(dev, batch) -> dict:
+    """(c)'s one-device sequential encoder: output, input gradient and
+    every layer's parameter gradients of sum(out * w), on the CPU."""
+    towers, cfg = pp_towers(dev)
+    tower = towers["question"].requires_grad_(True)
+    x, w = pipe_c_inputs(tower, cfg, batch, dev)
+    x.requires_grad_(True)
+    y = bert.encode(tower, cfg, x, batch_mask(batch, dev))
+    (y * w).sum().backward()
+    return {"out": y.detach().cpu(), "x_grad": x.grad.cpu(),
+            "grads": {n: p.grad.detach().cpu() for n, p in
+                      tower.layers.named_parameters()}}
+
+
+def phase_pipeline(dev, tokenizer, workdir) -> dict:
+    """Phase 27: pipeline parallelism on the card. (a) A NCCL world of
+    one, make_mesh(data=1, pipe=1), drives phase 26 (a)'s DPR biencoder
+    (BERT-base x 2, f32, remat, phase 21's batch, padded as
+    __graft_entry__.py's pp_loss takes it): encode_pipelined at one
+    microbatch bit-equal to encode, at PIPE_MICRO within the f32
+    reordering bound; the pipelined Trainer (pipeline_param_spec) for 3
+    steps bit-equal to the plain Trainer, both timed. (b) Four gloo ranks
+    sharing the card at data = 2 x pipe = 2, 2 microbatches (the dry
+    run's shape at full width: 12 layers, 6 a stage) on phase 26 (b)'s
+    batch: 2 AdamW steps against one device's sequential Trainer (losses,
+    the first grad norm, the parameters by the update bound, replicated
+    parameters bit-equal over pipe and data); each rank's stage
+    checkpoint of step 1 resumed bit-equal in a fresh world;
+    full_params' HF state dicts against one device's. (c) The same world
+    at pipe = 4, 8 microbatches (3 layers a stage): the question tower's
+    output, input and parameter gradients against one device. Beside
+    them, a probe of gloo's send / recv with raw CUDA tensors (the port
+    stages them through pinned host memory either way). No number here is
+    a multi-GPU speed: ranks that share one card time the host-staged
+    route and the pipeline bubble (S - 1) / (M + S - 1), not NVLink; NCCL
+    refuses two ranks on one GPU, so NCCL p2p is not exercised."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from viquae_torch.core import mesh
+    from viquae_torch.train import data as tdata
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    workdir.mkdir(parents=True, exist_ok=True)
+    out = {}
+    probe = None
+    if dev.type == "cuda":      # runs beside (a)
+        (workdir / "probe").mkdir()
+        probe = start_ranks(PIPE_PROBE_CODE, workdir / "probe", 2,
+                            workdir / "probe", str(dev))
+
+    # ---- (a) a NCCL world of one ---------------------------------------
+    kb, items = dpr_train_items(np.random.default_rng(21),
+                                DPR_TRAIN_QUESTIONS)
+    batch = pp_batch(tdata.BiEncoderCollator(
+        tokenizer, kb=kb, M=2, n_relevant_passages=1, search_key="BM25",
+        max_length=256, packed=False, seed=0).collate_fn(items))
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"file://{workdir / 'nccl_rendezvous'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=PIPE_TIMEOUT_S),
+        **({"device_id": dev} if dev.type == "cuda" else {}))
+    try:
+        ctx = mesh.make_mesh(data=1, pipe=1, device=dev)
+        plain, cfg = pp_towers(dev)
+        staged, _ = pp_towers(dev, stages=1)
+        ids = torch.from_numpy(batch["q_ids"]).to(dev)
+        mask = torch.from_numpy(batch["q_mask"]).to(dev)
+        with torch.no_grad():
+            x = bert.embed(plain["question"], cfg, ids)
+            ref = bert.encode(plain["question"], cfg, x, mask)
+            one = bert.encode_pipelined(staged["question"], cfg, x, mask,
+                                        n_micro=1, mesh_ctx=ctx)
+            four = bert.encode_pipelined(staged["question"], cfg, x, mask,
+                                         n_micro=PIPE_MICRO, mesh_ctx=ctx)
+        bound = encoder_bound(ref, cfg.num_hidden_layers,
+                              cfg.intermediate_size)
+        encode = {"one_microbatch_bit_equal": bool(torch.equal(one, ref)),
+                  "micro": PIPE_MICRO,
+                  "max_abs_diff": float((four - ref).abs().max()),
+                  "bound": bound}
+        del plain, staged, x, ref, one, four
+        runs = {}
+        for label in ("plain", "pipelined"):
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            towers, _ = pp_towers(dev, stages=1 if label == "pipelined"
+                                  else None)
+            kw = ({} if label == "plain" else
+                  dict(mesh_ctx=ctx, param_spec=pp_spec(cfg, 1)))
+            loss_fn = pp_loss_fn(cfg, *((1, ctx) if label == "pipelined"
+                                        else ()))
+            trainer = Trainer(loss_fn, towers,
+                              optim.make_optimizer(towers, **DPR_TRAIN_OPT),
+                              TrainerConfig(max_steps=MESH_TRAIN_STEPS,
+                                            log_every=0), **kw)
+            del towers
+            ctx.collective_log.clear()
+            res = mesh_steps(trainer, batch, MESH_TRAIN_STEPS, dev)
+            res["collectives"] = collective_kinds(ctx.collective_log)
+            res["params"] = [p.detach().clone() for p in
+                             trainer.state.params.parameters()]
+            res["peak_memory_bytes"] = peak_memory(dev)
+            del trainer
+            runs[label] = res
+        route = mesh.collective_route(ctx, p2p=True)
+    finally:
+        dist.destroy_process_group()
+    bit_equal = (runs["plain"]["losses"] == runs["pipelined"]["losses"]
+                 and runs["plain"]["grad_norms"]
+                 == runs["pipelined"]["grad_norms"]
+                 and all(torch.equal(a, b) for a, b in zip(
+                     runs["plain"]["params"], runs["pipelined"]["params"])))
+    out["a"] = {"encode": encode, "trainer_bit_equal": bit_equal,
+                "route": route, **{k: {n: v for n, v in r.items()
+                                       if n != "params"}
+                                   for k, r in runs.items()}}
+    del runs, batch
+    emit({"phase": "pipeline_world_of_one", "steps": MESH_TRAIN_STEPS,
+          "questions": DPR_TRAIN_QUESTIONS, "remat_layers": True,
+          **out["a"]})
+    check(encode["one_microbatch_bit_equal"]
+          and encode["max_abs_diff"] <= encode["bound"],
+          f"phase 27 (a) encode_pipelined against encode: {encode}")
+    check(bit_equal, f"phase 27 (a) the pipelined Trainer against the "
+          f"plain Trainer: {out['a']}")
+
+    # ---- (b), (c): the one-device references, then the ranks -----------
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    kb, items = dpr_train_items(np.random.default_rng(26), MESH_QUESTIONS)
+    pbatch = pp_batch(tdata.BiEncoderCollator(
+        tokenizer, kb=kb, M=2, n_relevant_passages=1, search_key="BM25",
+        max_length=256, packed=False, seed=0).collate_fn(items))
+    ref_b = pp_reference(dev, pbatch, PIPE_STEPS)
+    ref_c = pipe_c_reference(dev, pbatch)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    spec = {"device": str(dev), "batch": pbatch,
+            "ckpt": str(workdir / "ckpt")}
+    # the resume world starts beside the first and joins on its go
+    go = workdir / "resume_go"
+    t0 = time.perf_counter()
+    run = start_world(PIPE_RANK_CODE, dict(spec, resume=False),
+                      workdir / "run", PIPE_RANKS, PIPE_SIZES)
+    resume = start_world(PIPE_RANK_CODE, dict(spec, resume=True, go=str(go)),
+                         workdir / "resume", PIPE_RANKS, PIPE_SIZES)
+    try:
+        ranks = finish_world(run, PIPE_TIMEOUT_S, "phase 27")
+        run_s = time.perf_counter() - t0
+        go.touch()
+        t0 = time.perf_counter()
+        resumed = finish_world(resume, PIPE_TIMEOUT_S, "phase 27")
+        resume_s = time.perf_counter() - t0
+    finally:
+        for p in resume[0]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    got = torch.load(workdir / "run" / "params_b.pt", weights_only=True)
+    first = ranks[0]["b"]
+    lr_bound = 1e-6 + 2 * ref_b["lr_sum"]
+    hf_diff = max(float((got["hf"][t][k] - v).abs().max())
+                  for t, d in ref_b["hf"].items() for k, v in d.items())
+    checks_b = {
+        "losses": first["losses"], "ref_losses": ref_b["losses"],
+        "loss_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(
+            first["losses"], ref_b["losses"])),
+        "grad_norm_rel_diff": abs(first["grad_norms"][0]
+                                  - ref_b["grad_norms"][0])
+        / ref_b["grad_norms"][0],
+        "replicated_equal": all(r["b"]["replicated_equal"] for r in ranks),
+        "same_on_every_rank": all(r["b"]["losses"] == first["losses"]
+                                  for r in ranks),
+        "hf_same_names": all(sorted(got["hf"][t]) == sorted(d)
+                             for t, d in ref_b["hf"].items()),
+        "hf_max_abs_diff": hf_diff, "hf_bound": lr_bound,
+        **params_within_update_bound(got["params"], ref_b)}
+    checks_b["resume_bit_equal"] = all(
+        r["b"]["digest"] == s["b"]["digest"]
+        and r["b"]["losses"][1] == s["b"]["losses"][0]
+        for r, s in zip(ranks, resumed))
+    # (c): the stages' gradients in global layer order
+    stage_files = [torch.load(workdir / "run" / f"c_rank{r}.pt",
+                              weights_only=True) for r in range(PIPE_RANKS)]
+    per = mesh_bert(12).num_hidden_layers // PIPE_C["pipe"]
+    g_max = max(float(g.abs().max()) for g in ref_c["grads"].values())
+    g_err = 0.0
+    for r, f in enumerate(stage_files):
+        for name, g in f["grads"].items():
+            s, j, rest = name.split(".", 2)
+            want = ref_c["grads"][f"{int(s) * per + int(j)}.{rest}"]
+            g_err = max(g_err, float((g - want).abs().max()))
+    c_out = stage_files[0]
+    x_max = float(ref_c["x_grad"].abs().max())
+    checks_c = {
+        "out_max_abs_diff": max(float((f["out"] - ref_c["out"]).abs().max())
+                                for f in stage_files),
+        "out_bound": encoder_bound(ref_c["out"], 12,
+                                   mesh_bert(12).intermediate_size),
+        "x_grad_max_abs_diff": float((c_out["x_grad"]
+                                      - ref_c["x_grad"]).abs().max()),
+        "x_grad_bound": GRAD_RTOL * x_max,
+        "grad_max_abs_diff": g_err, "grad_bound": GRAD_RTOL * g_max,
+        "stages": [r["c"]["held"] for r in ranks]}
+    probe_out = None
+    if probe is not None:
+        wait_ranks(*probe, 60)
+        probe_out = {f"rank{r}": {
+            "exit": p.returncode,
+            "outcome": json.loads((workdir / "probe" / f"probe{r}.json"
+                                   ).read_text())
+            if (workdir / "probe" / f"probe{r}.json").exists() else None}
+            for r, p in enumerate(probe[0])}
+    per_rank = [{"coords": r["coords"], "route": r["route"],
+                 "p2p_route": r["p2p_route"], "tf32": r["tf32"],
+                 "b1_launches": r["b1_launches"] + s["b1_launches"],
+                 "b2_launches": r["b2_launches"] + s["b2_launches"],
+                 "b_stage": r["b"]["held"],
+                 "b_step_ms": r["b"]["step_ms"],
+                 "b_compute_ms": r["b"]["compute_ms"],
+                 "b_wait_ms": r["b"]["wait_ms"],
+                 "b_resumed_step_ms": s["b"]["step_ms"],
+                 "b_peak_memory_bytes": r["b"]["peak_memory_bytes"],
+                 "b_checkpoint_save_s": r["b"]["save_s"],
+                 "b_checkpoint_restore_s": s["b"]["restore_s"],
+                 "b_step2_collectives": r["b"]["step_collectives"],
+                 "c_ms": r["c"]["ms"],
+                 "c_peak_memory_bytes": r["c"]["peak_memory_bytes"],
+                 "c_collectives": r["c"]["collectives"]}
+                for r, s in zip(ranks, resumed)]
+    bubble = {name: (m["pipe"] - 1) / (m["n_micro"] + m["pipe"] - 1)
+              for name, m in (("b", PIPE_B), ("c", PIPE_C))}
+    out["b_c"] = {"checks_b": checks_b, "checks_c": checks_c,
+                  "ranks": per_rank, "bubble": bubble,
+                  "gloo_cuda_p2p_probe": probe_out,
+                  "world_s": run_s, "resume_world_s": resume_s}
+    emit({"phase": "pipeline_gloo_ranks", "ranks": PIPE_RANKS,
+          "b": PIPE_B, "c": PIPE_C, "questions": MESH_QUESTIONS,
+          "optimizer": MESH_OPT, "loss_rtol": MESH_LOSS_RTOL,
+          "grad_norm_rtol": MESH_NORM_RTOL,
+          "note": "four gloo ranks share one card: the host-staged route "
+                  "and the pipeline bubble, no multi-GPU speed; NCCL p2p "
+                  "is not exercised (NCCL refuses two ranks on one GPU)",
+          **out["b_c"]})
+    check(checks_b["loss_rel_diff"] <= MESH_LOSS_RTOL
+          and checks_b["grad_norm_rel_diff"] <= MESH_NORM_RTOL
+          and checks_b["excess_over_bound"] <= 0
+          and checks_b["replicated_equal"]
+          and checks_b["same_on_every_rank"] and checks_b["hf_same_names"]
+          and checks_b["hf_max_abs_diff"] <= lr_bound,
+          f"phase 27 (b) against one device: {checks_b}")
+    check(checks_b["resume_bit_equal"], "phase 27: the resumed world "
+          "against the uninterrupted run")
+    check(checks_c["out_max_abs_diff"] <= checks_c["out_bound"]
+          and checks_c["x_grad_max_abs_diff"] <= checks_c["x_grad_bound"]
+          and checks_c["grad_max_abs_diff"] <= checks_c["grad_bound"]
+          and checks_c["stages"] == [[0], [1], [2], [3]],
+          f"phase 27 (c) pipe = 4 against one device: {checks_c}")
+    check(all(r["b1_launches"] == r["b2_launches"] == 0 and not r["tf32"]
+              and r["p2p_route"] in ("gloo-cuda-pinned-host", "gloo")
+              for r in per_rank), f"phase 27 ranks: {per_rank}")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "pipeline_seconds", "seconds": out["seconds"]})
+    return out
+
+
+def pipeline_only() -> int:
+    """``python3 chip_smoke.py --pipeline-only``: phase 27 alone (no
+    kernel build, no kernel line), for a quick check of the pipeline on
+    the card; without arguments the script runs every phase."""
+    import tempfile
+    from pathlib import Path
+
+    phase_device()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=Path(__file__).parent) as tmp:
+        tokenizer = bert_vocab_tokenizer(Path(tmp) / "tok",
+                                         dpr.DPRConfig().bert.vocab_size)
+        phase_pipeline(torch.device("cuda"), tokenizer,
+                       Path(tmp) / "pipeline")
+    return 0
+
+
+def timed(dirs) -> int:
+    """``--timed DIR ...``: each checkout's chip_smoke.py in turn, every
+    line of its output prefixed with the checkout and the seconds since
+    its start (the phase times of two trees on one card, in one call);
+    then the exit codes as one JSON line."""
+    import subprocess
+
+    rcs = {}
+    for d in dirs:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "chip_smoke.py"], cwd=d,
+                                stdout=subprocess.PIPE, text=True)
+        for line in proc.stdout:
+            print(f"{d} {time.perf_counter() - t0:.1f} {line}", end="",
+                  flush=True)
+        rcs[d] = proc.wait()
+    print(json.dumps({"timed": rcs}))
+    return max(rcs.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5714,6 +6432,10 @@ def main() -> int:
     import tempfile
     from pathlib import Path
 
+    if sys.argv[1:] == ["--pipeline-only"]:
+        return pipeline_only()
+    if sys.argv[1:2] == ["--timed"]:
+        return timed(sys.argv[2:])
     phase_device()
     phase_build()
     dev = torch.device("cuda")
@@ -5824,6 +6546,19 @@ def main() -> int:
               and launches_by_path["mesh_training"]["b2"] == 0,
               f"phase 26 launched a kernel: "
               f"{launches_by_path['mesh_training']}")
+        # phase 27 reaches no kernel either: its counts are read to show it
+        torch.cuda.empty_cache()
+        mips_fused.fused_score_segmax_qmajor.launches = 0
+        mips_fused.fused_score_segmax.launches = 0
+        pipeline = phase_pipeline(dev, tokenizer, workdir / "pipeline")
+        launches_by_path["pipeline"] = {
+            "b1": mips_fused.fused_score_segmax_qmajor.launches,
+            "b2": mips_fused.fused_score_segmax.launches,
+            "ranks": [{"b1": r["b1_launches"], "b2": r["b2_launches"]}
+                      for r in pipeline["b_c"]["ranks"]]}
+        check(launches_by_path["pipeline"]["b1"] == 0
+              and launches_by_path["pipeline"]["b2"] == 0,
+              f"phase 27 launched a kernel: {launches_by_path['pipeline']}")
     kernels[0]["launches_by_path"] = launches_by_path
     emit({"phase": "device_memory",
           "max_memory_allocated_reader_phases": reader_peak,

@@ -70,7 +70,8 @@ print(json.dumps({{"modules": names, "forbidden": bad}}))
                    "data.mscelebs", "data.wikidump", "data.wit", "viz",
                    "viz.html", "viz.projection", "viz.stats", "viz.umap",
                    "viz.wtl_filter", "core.mesh", "parallel",
-                   "models.sharding", "train.data_parallel"):
+                   "models.sharding", "train.data_parallel",
+                   "ops.pipeline"):
         assert f"viquae_torch.{module}" in res["modules"]
 
 
@@ -339,3 +340,89 @@ class _Tok:
     @staticmethod
     def convert_tokens_to_ids(tokens):
         return [2, 3]
+
+
+# the pipeline's functions: what they run on a card stays on the card
+PIPELINE_FUNCTIONS = {
+    "viquae_torch/ops/pipeline.py": None,          # every function
+    "viquae_torch/models/bert.py": ("pipeline_params", "pipeline_unstack",
+                                    "pipeline_param_spec",
+                                    "encode_pipelined"),
+    "viquae_torch/core/mesh.py": ("_p2p", "send_to", "recv_from",
+                                  "ring_shift", "broadcast"),
+    "viquae_torch/models/sharding.py": ("_gather_stages",),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PIPELINE_FUNCTIONS))
+def test_pipelined_paths_move_nothing_to_the_cpu(path):
+    """No pipelined path moves a stage, or the ring's tensors, to the CPU
+    when the mesh names a card: no ``.cpu()`` / ``.numpy()`` / ``.item()``
+    / ``.tolist()``, no "cpu" device. The one host copy is the explicit
+    p2p staging under gloo (pinned buffers, ``core.mesh._p2p``), which
+    ``collective_route(ctx, p2p=True)`` names."""
+    names = PIPELINE_FUNCTIONS[path]
+    tree = ast.parse((ROOT / path).read_text())
+    funcs = [n for n in ast.walk(tree)
+             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+             and (names is None or n.name in names)]
+    assert names is None or sorted({f.name for f in funcs}) == sorted(names)
+    pinned = 0
+    for func in funcs:
+        for node in ast.walk(func):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("cpu", "numpy", "item", "tolist"), (
+                    f"{path}:{node.lineno} {func.name} calls .{node.attr}")
+            if isinstance(node, ast.Constant):
+                assert node.value != "cpu", f"{path}:{node.lineno}"
+            if isinstance(node, ast.keyword) and node.arg == "pin_memory":
+                assert func.name == "_p2p", f"{path}:{node.lineno}"
+                pinned += 1
+    assert pinned == (2 if path.endswith("mesh.py") else 0)
+
+
+def test_p2p_route_names_the_pinned_host_staging(tmp_path):
+    """A gloo world whose device is a card: the collectives' route is
+    gloo's own staging, the p2p calls' the pinned host copies of
+    ``core.mesh``; under NCCL both are "nccl" (a world of one gloo rank
+    here, the device named without touching a card)."""
+    code = f"""
+import dataclasses, json, sys, torch, torch.distributed as dist
+sys.path.insert(0, {str(ROOT)!r})
+from viquae_torch.core import mesh
+dist.init_process_group("gloo", init_method="file://{tmp_path}/rdv",
+                        rank=0, world_size=1)
+ctx = mesh.make_mesh(device="cpu")
+card = dataclasses.replace(ctx, device=torch.device("cuda", 0))
+print(json.dumps([mesh.collective_route(ctx, p2p=True),
+                  mesh.collective_route(card),
+                  mesh.collective_route(card, p2p=True)]))
+dist.destroy_process_group()
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [
+        "gloo", "gloo-cuda-staged", "gloo-cuda-pinned-host"]
+
+
+def test_staged_modules_stay_on_their_device():
+    """pipeline_params and the pipe shard copy modules where they lie (a
+    card's stay on the card; meta tensors here): nothing is staged
+    through the CPU."""
+    from viquae_torch.core import mesh
+    from viquae_torch.models import bert, sharding
+
+    cfg = bert.BertConfig(vocab_size=20, hidden_size=8, num_hidden_layers=4,
+                          num_attention_heads=2, intermediate_size=16,
+                          max_position_embeddings=16)
+    with torch.device("meta"):
+        model = bert.Bert(cfg)
+    staged = bert.pipeline_params(model, 2)
+    ctx = mesh.MeshContext({**{a: 1 for a in mesh.AXES}, "pipe": 2},
+                           {**{a: 0 for a in mesh.AXES}, "pipe": 1})
+    shard = sharding.shard_module(staged, bert.pipeline_param_spec(cfg, 2),
+                                  ctx)
+    for module in (staged, shard):
+        assert {p.device.type for p in module.parameters()} == {"meta"}
+    assert shard.layers.held() == [1]

@@ -137,7 +137,9 @@ def test_sharded_fused_pipeline(inputs, world, single):
     """tests/test_serving.py:199: a kb-sharded fused index in the pipeline,
     its encoder split over data: the single-device pipeline's ids, and the
     JAX pipeline's (kb = 8 mesh) to its own criterion; each batch issues a
-    data gather of the CLS vectors and one kb gather of candidates."""
+    data gather of the CLS vectors (each rank's (64, 32) block holds those
+    whose canvas rows it encodes, zeros elsewhere) and one kb gather of
+    candidates."""
     s, i = _same_on_every_rank(world, "fused")
     pipe = FusedRetrievalPipeline(
         single["emb"], mips.DenseIndex(inputs["kb"], mode="fused",
@@ -147,7 +149,7 @@ def test_sharded_fused_pipeline(inputs, world, single):
     _close(s, ref_s, BF16_REL)
     n_batches = -(-len(inputs["queries"]) // 64)
     assert world[0]["fused_log"] == [
-        ("all_gather", "data", 64 * 32 * 4),
+        ("all_gather", "data", 2 * 64 * 32 * 4),
         ("all_gather", "kb", 2 * 3 * 64 * 10 * 4)] * n_batches
 
     from viquae_tpu.core import mesh as jmesh
@@ -258,7 +260,8 @@ def test_qa_program_on_the_mesh(inputs, world, single):
     fuse_topk over each leg's exact top-k; the reader step with its canvas
     rows split over data gives the single-device reader's spans and
     logits; the kb gathers are candidate-sized, the data gathers
-    output-sized (the CLS vectors, the canvas logits), none KB-sized."""
+    output-sized (every rank's block of the CLS vectors, the canvas
+    logits), none KB-sized."""
     qa = inputs["qa"]
     fused_i, spans, start, end = _same_on_every_rank(world, "qa")
     n_q, k = len(qa["questions"]), qa["k"]
@@ -283,7 +286,7 @@ def test_qa_program_on_the_mesh(inputs, world, single):
     kb_bytes = [b for _, axis, b in log if axis == "kb"]
     assert kb_bytes == [2 * 2 * n_q * k * 4] * 2
     data = [b for _, axis, b in log if axis == "data"]
-    assert len(data) == 2 and data[0] == 64 * 32 * 4
+    assert len(data) == 2 and data[0] == 2 * 64 * 32 * 4
     assert max(data) < qa["kb"].nbytes
 
 

@@ -212,12 +212,15 @@ def moe_case(seed=25):
     return p, tree, x, mask
 
 
-def moe_on_ranks(p, x, mask, **kw):
+def moe_on_ranks(p, x, mask, grad=True, **kw):
     """moe_apply on each half of the rows, as the two ranks of a data = 2
-    mesh compute them while training, side by side."""
+    mesh compute them (the call marked as each rank's block of the batch's
+    4 rows, ``core.mesh.row_block``), side by side; with or without
+    gradients."""
     out = []
     for r in (0, 1):
-        with mesh.use(fake_mesh(data=(r, 2))), torch.enable_grad():
+        with mesh.use(mesh.row_block(fake_mesh(data=(r, 2)), len(x))), \
+                torch.set_grad_enabled(grad):
             y, _ = tmoe.moe_apply(p, torch.from_numpy(x[2 * r: 2 * r + 2]),
                                   token_mask=torch.from_numpy(
                                       mask[2 * r: 2 * r + 2]), **kw)
@@ -261,11 +264,13 @@ def test_moe_refuses_straddling_groups_that_can_drop():
     """A group of the global batch that straddles two ranks' tokens (16
     tokens a rank, groups of 11), at a capacity that can drop a choice:
     each rank would drop other choices than one device, so the call
-    raises; outside training (no gradients) each rank groups its own."""
+    raises, with gradients and without (evaluation and serving split rows
+    too); a call that no row split marks groups the tokens it is given."""
     p, _, x, mask = moe_case()
     kw = dict(top_k=2, capacity_factor=1.25, group_size=12)
-    with pytest.raises(ValueError, match="not whole groups"):
-        moe_on_ranks(p, x, mask, **kw)
+    for grad in (True, False):
+        with pytest.raises(ValueError, match="not whole groups"):
+            moe_on_ranks(p, x, mask, grad=grad, **kw)
     with mesh.use(fake_mesh(data=(0, 2))), torch.no_grad():
         y, _ = tmoe.moe_apply(p, torch.from_numpy(x[:2]), **kw)
     assert y.shape == (2, 8, 8)

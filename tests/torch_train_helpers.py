@@ -172,9 +172,9 @@ class PackedRegression:
                 deterministic: bool = False):
         import torch
 
-        from viquae_torch.train.trainee import _packed_read
+        from viquae_torch.train.data_parallel import packed_read
 
-        out, _ = _packed_read(
+        out, _ = packed_read(
             self.encoder.packed_apply_fn, params,
             (batch["canvas_input_ids"], batch["canvas_segment_ids"],
              batch["canvas_position_ids"]),
@@ -247,22 +247,22 @@ def train(tt, batches, steps, mesh_ctx=None, spec=None, opt=None,
     return trainer, trainer.fit(batches)
 
 
-def replicated_equal(trainer) -> bool:
-    """Whether every replicated parameter is bit-equal on every rank of
-    the ``model`` axis (one all-gather each)."""
+def replicated_equal(trainer, axes=None) -> bool:
+    """Whether every parameter is bit-equal on every rank of each of
+    ``axes`` (default: ``model``) that it is not split over (one
+    all-gather each)."""
     import torch
 
     from viquae_torch.core import mesh
-    from viquae_torch.models.sharding import sharded_parameters
+    from viquae_torch.models.sharding import parameter_axes
 
-    ctx = trainer.mesh_ctx
-    split = sharded_parameters(trainer.state.params)
     same = True
+    split = parameter_axes(trainer.state.params)
     for name, p in trainer.state.params.named_parameters():
-        if name in split:
-            continue
-        parts = mesh.all_gather(ctx, p.detach(), mesh.MODEL_AXIS)
-        same &= all(torch.equal(parts[0], q) for q in parts[1:])
+        for axis in axes or (mesh.MODEL_AXIS,):
+            if split[name] != axis:
+                parts = mesh.all_gather(trainer.mesh_ctx, p.detach(), axis)
+                same &= all(torch.equal(parts[0], q) for q in parts[1:])
     return bool(same)
 
 
@@ -449,3 +449,303 @@ def moe_program(rank, tmp, tree, x, mask, configs):
 
 PROGRAMS = {"cases": cases_program, "encoder": encoder_program,
             "moe": moe_program}
+
+
+# ---- pipeline parallelism (tests/test_torch_pipeline.py) ---------------------
+# tests/test_pipeline.py's tiny config: 4 layers, hidden 16, 2 heads
+PIPE_BERT = dict(vocab_size=97, hidden_size=16, num_hidden_layers=4,
+                 num_attention_heads=2, intermediate_size=32,
+                 max_position_embeddings=32, add_pooler=False)
+PIPE_LAYOUTS = ((1, 4, 8), (1, 4, 4), (2, 2, 2))   # (data, pipe, n_micro)
+
+
+def pipe_config(**kw):
+    from viquae_torch.models import bert
+
+    return bert.BertConfig(**{**PIPE_BERT, **kw})
+
+
+def staged_shard(tree, ctx, pipe):
+    """A JAX staged BERT tree (``bert.pipeline_params`` of ``pipe``
+    stages) as the port's staged module, this rank's stage kept
+    (``pipeline_param_spec``), requiring grad."""
+    from viquae_torch.models import bert, sharding
+    from viquae_torch.models.convert import staged_from_jax
+
+    cfg = pipe_config()
+    return sharding.shard_module(
+        staged_from_jax(tree, cfg, pipe, device="cpu"),
+        bert.pipeline_param_spec(cfg, pipe), ctx).requires_grad_(True)
+
+
+def _pipe_grads(ctx, shard, hidden, mask, tgt, n_micro, remat):
+    """(loss, input gradient, per-layer parameter gradients) of
+    mean((out - tgt)^2) through the pipelined encoder: each rank's
+    gradients averaged over ``data`` (the trainer's mean), the stages'
+    gathered over ``pipe`` into the per-layer names."""
+    import copy
+
+    import torch
+
+    from viquae_torch.core import mesh
+    from viquae_torch.models import bert, sharding
+
+    for p in shard.parameters():
+        p.grad = None
+    h = torch.from_numpy(hidden).requires_grad_(True)
+    out = bert.encode_pipelined(shard, pipe_config(), h,
+                                torch.from_numpy(mask), n_micro=n_micro,
+                                mesh_ctx=ctx, remat_layers=remat)
+    loss = torch.mean((out - torch.from_numpy(tgt)) ** 2)
+    loss.backward()
+    gh = mesh.all_reduce(ctx, h.grad, mesh.DATA_AXIS, op="mean")
+    # the gradients as a shard module, gathered like parameters
+    grads = copy.deepcopy(shard)
+    with torch.no_grad():
+        for p, q in zip(grads.parameters(), shard.parameters()):
+            p.copy_(torch.zeros_like(p) if q.grad is None else
+                    mesh.all_reduce(ctx, q.grad, mesh.DATA_AXIS, op="mean"))
+    named = dict(sharding.gather_module(grads, ctx).named_parameters())
+    return float(loss), _np(gh), {n: _np(named[n]) for n in named
+                                  if n.startswith("layers.")}
+
+
+def pipeline_program(rank, tmp, trees, hidden, mask, seg, tgt, layouts):
+    """tests/test_pipeline.py's encoder cases on every layout (data, pipe,
+    n_micro) of this world, from ``trees[pipe]`` (the JAX staged tree of
+    that many stages): the forward (padded mask and packed
+    segments), the loss, the input and layer gradients with and without
+    remat, dropout with seeds 0, 1, 0; the ring shift and the point-to-
+    point calls over pipe; the collectives of one forward."""
+    import torch
+
+    from viquae_torch.core import mesh
+    from viquae_torch.models import bert, sharding
+
+    cfg = pipe_config()
+    out = {}
+    for data, pipe, n_micro in layouts:
+        ctx = mesh.make_mesh(data=data, pipe=pipe, device="cpu")
+        shard = staged_shard(trees[pipe], ctx, pipe)
+        res = {"coords": dict(ctx.coords),
+               "held": shard.layers.held(),
+               "axes": sorted(set(sharding.parameter_axes(shard).values()),
+                              key=str)}
+        h, m = torch.from_numpy(hidden), torch.from_numpy(mask)
+        ctx.collective_log.clear()
+        with torch.no_grad():
+            res["forward"] = _np(bert.encode_pipelined(
+                shard, cfg, h, m, n_micro=n_micro, mesh_ctx=ctx))
+            res["forward_log"] = log_by_kind(ctx.collective_log)
+            res["packed"] = _np(bert.encode_pipelined(
+                shard, cfg, h, n_micro=n_micro, mesh_ctx=ctx,
+                segment_ids=torch.from_numpy(seg)))
+            res["dropout"] = [_np(bert.encode_pipelined(
+                shard, cfg, h, m, n_micro=n_micro, mesh_ctx=ctx,
+                deterministic=False,
+                generator=torch.Generator().manual_seed(s)))
+                for s in (0, 1, 0)]
+        for remat in (False, True):
+            res[f"grads_remat{int(remat)}"] = _pipe_grads(
+                ctx, shard, hidden, mask, tgt, n_micro, remat)
+        x = torch.full((3,), float(ctx.coordinate(mesh.PIPE_AXIS)))
+        res["ring"] = _np(mesh.ring_shift(ctx, x, mesh.PIPE_AXIS))
+        res["ring_back"] = _np(mesh.ring_shift(ctx, x, mesh.PIPE_AXIS, -1))
+        c = ctx.coordinate(mesh.PIPE_AXIS)
+        if c == 0:
+            mesh.send_to(ctx, x + 10, mesh.PIPE_AXIS, pipe - 1)
+        if c == pipe - 1:
+            res["recv"] = _np(mesh.recv_from(ctx, x, mesh.PIPE_AXIS, 0))
+        res["route"] = mesh.collective_route(ctx, p2p=True)
+        out[(data, pipe, n_micro)] = res
+    return out
+
+
+def pp_loss_fn(cfg, n_micro=None, ctx=None, frozen_embeddings=False):
+    """__graft_entry__.py's pp_loss: each tower's embeddings, the encoder
+    (pipelined over ``ctx`` with ``n_micro`` microbatches, or sequential
+    without), the CLS states and the in-batch biencoder loss.
+    ``frozen_embeddings`` takes the embeddings without gradients (the
+    encoder's input requires none)."""
+    from viquae_torch.models import bert
+    from viquae_torch.train import objectives
+
+    def tower(p, ids, mask):
+        x = bert.embed(p, cfg, ids)
+        if frozen_embeddings:
+            x = x.detach()
+        if n_micro is None:
+            return bert.encode(p, cfg, x, mask)[:, 0]
+        return bert.encode_pipelined(p, cfg, x, mask, n_micro=n_micro,
+                                     mesh_ctx=ctx)[:, 0]
+
+    def loss_fn(params, batch, generator=None, deterministic=False):
+        q = tower(params["question"], batch["q_ids"], batch["q_mask"])
+        c = tower(params["context"], batch["c_ids"], batch["c_mask"])
+        loss, _ = objectives.biencoder_loss(q, c, batch["labels"])
+        return loss, {}
+
+    return loss_fn
+
+
+def towers_from_trees(trees, stages=None):
+    """The question and context BERTs of two JAX trees (staged into
+    ``stages`` when given) as one ``ModuleDict``."""
+    from torch import nn
+
+    from viquae_torch.models import bert
+    from viquae_torch.models.convert import params_from_jax
+
+    cfg = pipe_config()
+    out = {}
+    for name, tree in zip(("question", "context"), trees):
+        m = params_from_jax(tree, cfg, device="cpu")
+        out[name] = bert.pipeline_params(m, stages) if stages else m
+    return nn.ModuleDict(out)
+
+
+def pipeline_trainer_program(rank, tmp, trees, batches, steps, n_micro):
+    """The pipelined biencoder on data = 2 x pipe = 2: ``steps`` AdamW
+    steps (losses, grad norms, the per-layer parameters after them,
+    replicated parameters bit-equal over pipe and data), the evaluation
+    loss of the first batch after them, a checkpoint
+    written at step 1 and a fresh trainer resuming from it (bit-equal
+    state), the export of full_params, and the frozen-embedding variant
+    (its stages move, its embeddings do not)."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from viquae_torch.core import mesh
+    from viquae_torch.models import bert
+    from viquae_torch.models.convert import tree_from_module
+    from viquae_torch.train import checkpoint as ckpt_lib
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = pipe_config()
+    ctx = mesh.make_mesh(data=2, pipe=2, device="cpu")
+    spec = {n: bert.pipeline_param_spec(cfg, 2)
+            for n in ("question", "context")}
+
+    def trainer(frozen=False, **kw):
+        params = towers_from_trees(trees, 2)
+        return Trainer(pp_loss_fn(cfg, n_micro, ctx, frozen), params,
+                       optim.make_optimizer(params, **OPT),
+                       TrainerConfig(max_steps=steps, log_every=1, **kw),
+                       mesh_ctx=ctx, param_spec=spec)
+
+    ckpt = str(Path(tmp) / "pipe_ckpt")
+    t = trainer(ckpt_dir=ckpt, ckpt_every=1)
+    ctx.collective_log.clear()
+    fit = t.fit(batches)
+    res = _summary(t, fit)
+    res["replicated_equal"] = replicated_equal(
+        t, (mesh.DATA_AXIS, mesh.PIPE_AXIS))
+    res["log"] = log_by_kind(ctx.collective_log)
+    res["held"] = t.state.params["question"].layers.held()
+    # evaluation: the forward schedule without a graph, the same
+    # collectives on every rank
+    res["eval_loss"] = t.evaluate(batches[:1])["loss"]
+    res["ckpt_files"] = sorted(p.name for p in (Path(ckpt) / "step_1"
+                                                ).iterdir())
+    # a fresh trainer resumes from this rank's checkpoint of step 1
+    resume_dir = Path(tmp) / "pipe_resume" / "step_1"
+    resume_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copy(Path(ckpt) / "step_1" / f"rank{ctx.rank}.pt", resume_dir)
+    r = trainer(ckpt_dir=str(resume_dir.parent))
+    r_fit = r.fit(batches, resume=True)
+    res["resume_bit_equal"] = r.state.step == steps and all(
+        torch.equal(p, q) for p, q in zip(
+            t.state.params.parameters(), r.state.params.parameters()))
+    res["resume_losses"] = [h["loss"] for h in r_fit["history"]
+                            if "loss" in h]
+    if ctx.rank == 0:
+        full = t.full_params()
+        for name in ("question", "context"):
+            ckpt_lib.export_params(Path(tmp) / f"export_{name}",
+                                   tree_from_module(full[name]))
+    else:
+        t.full_params()
+    frozen = trainer(frozen=True)
+    before = {n: p.detach().clone() for n, p in
+              frozen.state.params.named_parameters()}
+    frozen.fit(batches)
+    res["frozen_moved"] = {
+        n: not torch.equal(before[n], p) for n, p in
+        frozen.state.params.named_parameters()}
+    return res
+
+
+PROGRAMS.update({"pipeline": pipeline_program,
+                 "pipeline_trainer": pipeline_trainer_program})
+
+
+# ---- MoE groups on split rows without gradients (test_torch_moe_mesh.py) ------
+def moe_rows_program(rank, tmp, vocab, moe, batch, texts, short_texts,
+                     max_length, row_len, straddle):
+    """ops/moe.py on a data = 2 mesh of the world's two ranks, at a
+    capacity where choices drop: ``Trainer.evaluate`` of an MoE DPR
+    biencoder, the data-split ``TextEmbedder`` (last hidden states) and
+    ``PackedTextEmbedder`` on the question tower (``texts``: each text one
+    canvas row, the canvas pinned at one row a text; ``short_texts``:
+    several texts a row, the canvas pinned at half the texts' count), each
+    with ``moe`` (groups that are whole on each rank) and ``straddle`` (a
+    global group spans the ranks: the error each call raised, with
+    gradients and without)."""
+    import torch
+    from transformers import BertTokenizerFast
+
+    from viquae_torch.core import mesh
+    from viquae_torch.core.device import upload_batch
+    from viquae_torch.ir.embedding import PackedTextEmbedder, TextEmbedder
+    from viquae_torch.models import bert, dpr
+    from viquae_torch.train import optim
+    from viquae_torch.train.trainer import Trainer, TrainerConfig
+
+    ctx = mesh.make_mesh(data=2, device="cpu")
+    tok = BertTokenizerFast(vocab_file=vocab)
+    out = {}
+    for name, kw in (("whole", moe), ("straddle", straddle)):
+        tt = make_trainee("dpr", **kw)
+        trainer = Trainer(tt.loss_fn, tt.params,
+                          optim.make_optimizer(tt.params, **OPT),
+                          TrainerConfig(max_steps=0), mesh_ctx=ctx)
+        q = trainer.state.params["question"]
+        cfg = tt.question_model.cfg
+        text = TextEmbedder(lambda p, **a: bert.apply(p, cfg.bert, **a), q,
+                            tok, output_key="last_hidden_state",
+                            max_length=max_length, batch_size=len(texts),
+                            device="cpu", mesh_ctx=ctx)
+
+        def packed(rows, texts):
+            return _np(PackedTextEmbedder(
+                dpr.make_packed_apply(cfg), q, tok, row_len=row_len,
+                batch_size=len(texts), compute_dtype=torch.float32,
+                fixed_rows=rows, device="cpu", mesh_ctx=ctx,
+            ).embed_texts(texts))
+
+        calls = {"eval": lambda: trainer.evaluate([batch])["loss"],
+                 "text": lambda: text.embed_texts(texts),
+                 "packed": lambda: packed(len(texts), texts),
+                 "packed_short": lambda: packed(len(short_texts) // 2,
+                                                short_texts)}
+        for call, fn in calls.items():
+            try:
+                out[(name, call)] = fn()
+            except ValueError as e:
+                out[(name, call)] = f"ValueError: {e}"
+        if name == "straddle":      # with gradients, as in training
+            dev = upload_batch(batch, torch.device("cpu"))
+            try:
+                with mesh.use(ctx):
+                    tt.loss_fn(trainer.state.params, dev, None,
+                               deterministic=True)
+                out[(name, "grad")] = "ran"
+            except ValueError as e:
+                out[(name, "grad")] = f"ValueError: {e}"
+    return out
+
+
+PROGRAMS["moe_rows"] = moe_rows_program

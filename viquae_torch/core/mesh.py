@@ -13,7 +13,10 @@ axes, in the reference's grid order (data, pipe, model, kb):
 - ``kb``    — the retrieval scale axis: a KB matrix (or a BM25 corpus) is
   row-split over it; each rank searches its shard and the candidates are
   merged after one all-gather (ops/mips.topk_sharded).
-- ``pipe``  — pipeline parallelism (training; not used by serving yet).
+- ``pipe``  — pipeline parallelism: the layers of an encoder in equal
+  stages, one a rank, and microbatches streamed through the stage ring
+  (ops/pipeline.py, ``models.bert.encode_pipelined``; training, and any
+  forward of a staged encoder). Serving does not stage its encoders.
 
 A :class:`MeshContext` wraps a ``torch.distributed.device_mesh.DeviceMesh``
 over the world of processes started with ``torch.distributed`` (NCCL for
@@ -43,12 +46,28 @@ pair and its sequence-parallel companions:
 - :func:`reduce_scatter_to`: reduce-scatter forward, all-gather backward
   (the sequence-parallel row-parallel output).
 
+The pipeline adds point-to-point calls over an axis: :func:`send_to` /
+:func:`recv_from` a neighbour, :func:`ring_shift` (the counterpart of
+``lax.ppermute`` over a ring) and :func:`broadcast` from one coordinate,
+all logged.
+
+A view of a context can mark that the computation under it runs on this
+rank's block of a global batch's rows (:func:`row_block`): whoever splits
+the rows marks the call, and ``ops.moe`` then groups the global batch's
+tokens, as the reference's single program does, with or without
+gradients.
+
 gloo and CUDA tensors: gloo takes CUDA tensors in every collective used
 here (all-gather, all-reduce, broadcast, reduce-scatter; checked on the
 card, torch 2.11, ``chip_smoke.gloo_cuda_collectives``) and stages them
 through host memory itself; :func:`collective_route` names the route a
 context's collectives take (``"nccl"``, ``"gloo"`` or
-``"gloo-cuda-staged"``) so that a caller can print it.
+``"gloo-cuda-staged"``) so that a caller can print it. gloo's
+point-to-point path hands the transport the tensor's raw pointer, so the
+p2p calls here stage a CUDA tensor through pinned host memory themselves
+under gloo (``collective_route(ctx, p2p=True)``:
+``"gloo-cuda-pinned-host"``). NCCL takes it as it is; NCCL p2p needs
+two GPUs, and is not exercised on a machine with one.
 """
 from __future__ import annotations
 
@@ -88,6 +107,10 @@ class MeshContext:
             maxlen=COLLECTIVE_LOG_LEN), compare=False))
     # the axes this view holds whole (:func:`whole`)
     whole: Tuple[str, ...] = ()
+    # (axis, global rows): the computation under this view runs on this
+    # rank's block of a batch of that many rows split over the axis
+    # (:func:`row_block`)
+    row_blocks: Tuple[Tuple[str, int], ...] = ()
 
     @property
     def data_size(self) -> int:
@@ -121,6 +144,14 @@ class MeshContext:
 
     def size(self, axis: str) -> int:
         return 1 if axis in self.whole else self.sizes[axis]
+
+    def global_rows(self, axis: str = DATA_AXIS) -> Optional[int]:
+        """The row count of the global batch whose block (``row_share``)
+        this rank computes, where a view marks rows split over ``axis``
+        (:func:`row_block`) and the axis has several ranks; else None."""
+        if self.size(axis) == 1:
+            return None
+        return dict(self.row_blocks).get(axis)
 
     def group(self, axis: str):
         """The process group of ``axis`` (None without a process group,
@@ -197,6 +228,26 @@ def whole(ctx: MeshContext, axis: str) -> MeshContext:
     return dataclasses.replace(ctx, whole=ctx.whole + (axis,))
 
 
+def row_block(ctx: MeshContext, n: int, axis: str = DATA_AXIS
+              ) -> MeshContext:
+    """A view of ``ctx`` marking that the computation under it runs on
+    this rank's block (:func:`row_share`) of a global batch of ``n`` rows
+    split over ``axis``, every rank's block of the same height (the last
+    ones padded). Whoever splits the rows marks the call
+    (``train.data_parallel.Rows``, the embedders, the packed reader);
+    ``ops.moe`` reads the mark (``MeshContext.global_rows``)."""
+    blocks = tuple((a, m) for a, m in ctx.row_blocks if a != axis)
+    return dataclasses.replace(ctx, row_blocks=blocks + ((axis, int(n)),))
+
+
+def rows_scope(ctx: MeshContext, n: int, axis: str = DATA_AXIS):
+    """``use(row_block(ctx, n, axis))`` where ``axis`` has several ranks;
+    else nothing (the caller's mesh stays current)."""
+    if ctx.size(axis) == 1:
+        return contextlib.nullcontext(ctx)
+    return use(row_block(ctx, n, axis))
+
+
 def current() -> MeshContext:
     """The innermost mesh of :func:`use`, else a world of one (each
     process alone, no collective) on the caller's device."""
@@ -232,16 +283,19 @@ def init_from_env(device: Optional[str] = None) -> torch.device:
     return dev
 
 
-def collective_route(ctx: MeshContext) -> str:
-    """How ``ctx``'s collectives move tensors on its device: ``"local"``
-    without a process group, ``"nccl"``, ``"gloo"``, or
-    ``"gloo-cuda-staged"`` (gloo copies CUDA tensors through host memory
-    inside the collective)."""
+def collective_route(ctx: MeshContext, p2p: bool = False) -> str:
+    """How ``ctx``'s collectives (with ``p2p``, its point-to-point calls)
+    move tensors on its device: ``"local"`` without a process group,
+    ``"nccl"``, ``"gloo"``, or for CUDA tensors under gloo
+    ``"gloo-cuda-staged"`` (gloo copies them through host memory inside
+    the collective) and, for p2p, ``"gloo-cuda-pinned-host"`` (this
+    module copies them through pinned host memory: gloo's send and recv
+    take the raw pointer)."""
     if not ctx.distributed:
         return "local"
     backend = dist.get_backend(ctx.group(KB_AXIS))
     if backend == "gloo" and ctx.device.type == "cuda":
-        return "gloo-cuda-staged"
+        return "gloo-cuda-pinned-host" if p2p else "gloo-cuda-staged"
     return backend
 
 
@@ -302,6 +356,95 @@ def gather_rows(ctx: MeshContext, local: torch.Tensor, n: int,
 # ---- training collectives ---------------------------------------------------
 def _log(ctx: MeshContext, op: str, axis: str, x: torch.Tensor) -> None:
     ctx.collective_log.append((op, axis, x.numel() * x.element_size()))
+
+
+def _peer(ctx: MeshContext, axis: str, coord: int) -> int:
+    """The global rank of the rank at ``coord`` on ``axis`` (this rank's
+    coordinates on the other axes)."""
+    return dist.get_global_rank(ctx.group(axis), coord % ctx.size(axis))
+
+
+def _staged(ctx: MeshContext, axis: str, x: torch.Tensor) -> bool:
+    return (x.device.type == "cuda"
+            and dist.get_backend(ctx.group(axis)) == "gloo")
+
+
+def _p2p(ctx: MeshContext, axis: str, sends, recvs) -> None:
+    """Post every send ``(tensor, coord)`` and receive ``(buffer, coord)``
+    over ``axis`` in one ``batch_isend_irecv`` and wait for them. Under
+    gloo a CUDA tensor goes through pinned host memory (gloo hands the
+    transport the raw pointer)."""
+    ops, copies = [], []
+    for x, coord in sends:
+        x = x.detach().contiguous()
+        if _staged(ctx, axis, x):
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x)
+            x = host
+        ops.append(dist.P2POp(dist.isend, x, _peer(ctx, axis, coord),
+                              group=ctx.group(axis)))
+        _log(ctx, "send", axis, x)
+    for buf, coord in recvs:
+        target = buf
+        if _staged(ctx, axis, buf):
+            target = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            copies.append((buf, target))
+        ops.append(dist.P2POp(dist.irecv, target, _peer(ctx, axis, coord),
+                              group=ctx.group(axis)))
+        _log(ctx, "recv", axis, buf)
+    if not ops:
+        return
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for buf, host in copies:
+        buf.copy_(host, non_blocking=True)
+
+
+def send_to(ctx: MeshContext, x: torch.Tensor, axis: str, coord: int
+            ) -> None:
+    """Send ``x`` to the rank at ``coord`` on ``axis`` (waits until it is
+    taken). Without a process group on the axis, nothing."""
+    if ctx.group(axis) is not None:
+        _p2p(ctx, axis, [(x, coord)], [])
+
+
+def recv_from(ctx: MeshContext, like: torch.Tensor, axis: str, coord: int
+              ) -> torch.Tensor:
+    """A tensor of ``like``'s shape, dtype and device received from the
+    rank at ``coord`` on ``axis``."""
+    buf = torch.empty_like(like, memory_format=torch.contiguous_format)
+    if ctx.group(axis) is not None:
+        _p2p(ctx, axis, [], [(buf, coord)])
+    return buf
+
+
+def ring_shift(ctx: MeshContext, x: torch.Tensor, axis: str = PIPE_AXIS,
+               shift: int = 1) -> torch.Tensor:
+    """Every rank's ``x`` moved ``shift`` places along the ring of
+    ``axis``: this rank sends its ``x`` to coordinate ``c + shift`` and
+    returns what ``c - shift`` sent (``lax.ppermute`` with the pairs
+    ``(i, i + shift mod S)``). Without a process group, ``x``."""
+    if ctx.group(axis) is None or ctx.size(axis) == 1:
+        return x
+    c = ctx.coordinate(axis)
+    buf = torch.empty_like(x, memory_format=torch.contiguous_format)
+    _p2p(ctx, axis, [(x, c + shift)], [(buf, c - shift)])
+    return buf
+
+
+def broadcast(ctx: MeshContext, x: torch.Tensor, axis: str, coord: int
+              ) -> torch.Tensor:
+    """The ``x`` of the rank at ``coord`` on ``axis``, on every rank of
+    the axis, in place: ``x`` itself where it is contiguous (else a
+    contiguous copy), overwritten on the other ranks (their ``x`` gives
+    the shape and dtype only). Without a process group, ``x``."""
+    group = ctx.group(axis)
+    if group is None:
+        return x
+    y = x.detach().contiguous()
+    dist.broadcast(y, src=_peer(ctx, axis, coord), group=group)
+    _log(ctx, "broadcast", axis, y)
+    return y
 
 
 def all_reduce(ctx: MeshContext, x: torch.Tensor, axis: str,

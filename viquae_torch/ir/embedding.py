@@ -21,7 +21,16 @@ batch's rows over it (a batch that does not divide evenly is padded), each
 rank encodes its rows, and the outputs are gathered back in order on every
 rank — what the reference computes by sharding the batch over ``data``
 with replicated outputs. Every rank of the axis must then embed the same
-batches, in the same order.
+batches, in the same order. ``TextEmbedder`` and the padded
+``MMEmbedder`` split the batch's items; each forward runs marked as this
+rank's block of the batch (``core.mesh.row_block``), so that MoE layers
+group the global batch's tokens. The packed embedders pack the whole batch
+into one canvas, as one device does (every rank tokenizes every text), and
+split the canvas's rows over ``data`` (``train.data_parallel.packed_read``:
+each rank reads the CLS vectors that lie in its rows, summed over
+``data``), so that the global canvas, and so the MoE groups, are one
+device's; a canvas whose rows do not divide by the axis runs whole on
+every rank.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import torch
 from viquae_torch.core import mesh as meshlib
 from viquae_torch.core.device import resolve_device, upload
 from viquae_torch.ops import packing
+from viquae_torch.train import data_parallel
 
 
 def _mesh_device(mesh_ctx, device):
@@ -41,6 +51,16 @@ def _mesh_device(mesh_ctx, device):
     device unless the caller names one."""
     ctx = mesh_ctx or meshlib.current()
     return ctx, resolve_device(device if device is not None else ctx.device)
+
+
+def _packed_forward(ctx, apply_fn, params, canvas, pointers, *visual, **kw):
+    """A packed forward on one canvas: as it is on a world of one, over
+    this rank's canvas rows on a ``data`` axis of several ranks (module
+    docstring)."""
+    if ctx.size(meshlib.DATA_AXIS) == 1:
+        return apply_fn(params, *canvas, *pointers, *visual, **kw)
+    return data_parallel.packed_read(apply_fn, params, canvas, pointers,
+                                     *visual, ctx=ctx, **kw)[0]
 
 
 def pad_batch(arrays: Dict[str, np.ndarray], batch_size: int
@@ -157,11 +177,12 @@ class TextEmbedder:
         for start in range(0, len(texts), self.batch_size):
             sub = texts[start: start + self.batch_size]
             enc, n_real = pad_batch(self.tokenize(sub), self.batch_size)
-            out = self._forward(*(
-                upload(meshlib.split_rows(self.mesh_ctx, enc[name]),
-                       self.device)
-                for name in ("input_ids", "attention_mask",
-                             "token_type_ids")))
+            with meshlib.rows_scope(self.mesh_ctx, self.batch_size):
+                out = self._forward(*(
+                    upload(meshlib.split_rows(self.mesh_ctx, enc[name]),
+                           self.device)
+                    for name in ("input_ids", "attention_mask",
+                                 "token_type_ids")))
             rows = [meshlib.gather_rows(self.mesh_ctx, o, n_real).float(
                 ).cpu().numpy() for o in (out if self.layers else (out,))]
             chunks.append(rows if self.layers else rows[0])
@@ -198,9 +219,8 @@ class PackedTextEmbedder:
         the stream's p99 token budget); the ROWS_GRANULARITY ladder is the
         adaptive default. A batch that overflows the pinned canvas is
         packed on the ladder instead. On a ``data`` axis of more than one
-        rank each rank packs its block of the batch's CLS slots (its own
-        canvas; ``fixed_rows`` is then a rank's canvas height) and
-        :meth:`forward` gathers every rank's vectors in slot order."""
+        rank the canvas is still the whole batch's, as on one device, and
+        :meth:`forward` splits its rows (module docstring)."""
         self.packed_apply_fn = packed_apply_fn
         self.params = params
         self.tokenizer = tokenizer
@@ -211,16 +231,14 @@ class PackedTextEmbedder:
         self.mesh_ctx, self.device = _mesh_device(mesh_ctx, device)
 
     def pack(self, texts) -> packing.PackedBatch:
-        """Host side only: tokenize without padding + pack into a canvas
-        rounded to ROWS_GRANULARITY rows (or the pinned ``fixed_rows``);
-        on a ``data`` axis, this rank's block of the texts only."""
+        """Host side only: tokenize without padding + pack the whole batch
+        into a canvas rounded to ROWS_GRANULARITY rows (or the pinned
+        ``fixed_rows``)."""
         if len(texts) > self.batch_size:
             raise ValueError(f"{len(texts)} texts > batch_size "
                              f"{self.batch_size}")
-        start, n_cls = meshlib.row_share(self.mesh_ctx, self.batch_size)
-        texts = list(texts)[start: start + n_cls]
-        # a rank whose block of a short batch is empty packs no text (a
-        # tokenizer may refuse an empty list)
+        texts = list(texts)
+        # a tokenizer may refuse an empty list
         enc = self.tokenizer(
             texts, truncation=True, max_length=self.row_len,
         )["input_ids"] if texts else []
@@ -229,13 +247,13 @@ class PackedTextEmbedder:
             try:
                 return packing.pack_token_sequences(
                     seqs, self.row_len, n_rows=self.fixed_rows,
-                    n_cls=n_cls,
+                    n_cls=self.batch_size,
                 )
             except ValueError:  # batch overflows the pinned canvas
                 pass
         return packing.pack_token_sequences(
             seqs, self.row_len, n_rows=None,
-            pad_rows_to=self.ROWS_GRANULARITY, n_cls=n_cls,
+            pad_rows_to=self.ROWS_GRANULARITY, n_cls=self.batch_size,
         )
 
     def upload(self, p: packing.PackedBatch):
@@ -251,9 +269,9 @@ class PackedTextEmbedder:
         """The packed forward on uploaded canvas tensors -> (n_cls, D) f32.
         Grad mode is off here, not around the caller: it is per thread, and
         the serving loop calls this from its prefetch thread."""
-        out = self.packed_apply_fn(self.params, ids, seg, pos, cr, cc,
-                                   compute_dtype=self.compute_dtype)
-        return meshlib.gather_rows(self.mesh_ctx, out, self.batch_size)
+        return _packed_forward(self.mesh_ctx, self.packed_apply_fn,
+                               self.params, (ids, seg, pos), (cr, cc),
+                               compute_dtype=self.compute_dtype)
 
     def embed_texts(self, texts) -> torch.Tensor:
         """(batch_size, D) on the device; rows past len(texts) are garbage
@@ -355,14 +373,18 @@ class MMEmbedder:
         return pinned
 
     def prepare(self, chunk) -> dict:
-        """Host side of one chunk of item dicts: pad to ``batch_size``
-        (on a ``data`` axis: this rank's block of it), tokenize, format the
-        features, pack (packed mode). numpy only."""
+        """Host side of one chunk of item dicts: pad to ``batch_size``,
+        tokenize, format the features, pack (packed mode). numpy only. On
+        a ``data`` axis the padded mode prepares this rank's block of the
+        items; the packed mode packs every item into one canvas, whose
+        rows :meth:`forward` splits (module docstring)."""
         from viquae_torch.train.data import (mm_visual_mask,
                                              pack_mm_text_inputs)
 
-        start, size = meshlib.row_share(self.mesh_ctx, self.batch_size)
-        chunk = list(chunk)[start: start + size]
+        chunk, size = list(chunk), self.batch_size
+        if self.packed_bundle is None:
+            start, size = meshlib.row_share(self.mesh_ctx, self.batch_size)
+            chunk = chunk[start: start + size]
         chunk += [{self.key: ""}] * (size - len(chunk))
         enc = self.tokenizer(
             [item.get(self.key, "") for item in chunk],
@@ -394,11 +416,7 @@ class MMEmbedder:
     @torch.no_grad()
     def forward(self, host: dict) -> torch.Tensor:
         """Device side: (batch_size, D) f32 on the embedder's device
-        (every rank's block, gathered over ``data``)."""
-        return meshlib.gather_rows(self.mesh_ctx, self._encode(host),
-                                   self.batch_size)
-
-    def _encode(self, host: dict) -> torch.Tensor:
+        (every rank's rows, gathered over ``data``)."""
         def put(tree):
             if isinstance(tree, dict):
                 return {k: put(v) for k, v in tree.items()}
@@ -406,14 +424,18 @@ class MMEmbedder:
 
         face, image = put(host["face_inputs"]), put(host["image_inputs"])
         if "canvas" in host:
-            return self.packed_bundle.packed_apply_fn(
-                self.params, *(upload(a, self.device)
-                               for a in host["canvas"]),
-                face, image, compute_dtype=self.compute_dtype)
-        out = self.apply_fn(self.params, text_inputs=put(host["text_inputs"]),
-                            face_inputs=face, image_inputs=image,
-                            compute_dtype=self.compute_dtype)
-        return out.pooler_output if hasattr(out, "pooler_output") else out
+            canvas = [upload(a, self.device) for a in host["canvas"]]
+            return _packed_forward(
+                self.mesh_ctx, self.packed_bundle.packed_apply_fn,
+                self.params, canvas[:3], canvas[3:], face, image,
+                compute_dtype=self.compute_dtype)
+        with meshlib.rows_scope(self.mesh_ctx, self.batch_size):
+            out = self.apply_fn(self.params,
+                                text_inputs=put(host["text_inputs"]),
+                                face_inputs=face, image_inputs=image,
+                                compute_dtype=self.compute_dtype)
+        out = out.pooler_output if hasattr(out, "pooler_output") else out
+        return meshlib.gather_rows(self.mesh_ctx, out, self.batch_size)
 
     def embed_items(self, items) -> np.ndarray:
         """(len(items), D) float32 numpy."""

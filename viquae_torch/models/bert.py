@@ -29,6 +29,7 @@ weights as an HF ``BertModel``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, Optional, Sequence
 
@@ -37,7 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from viquae_torch.core import mesh as meshlib
-from viquae_torch.core.mesh import DATA_AXIS, MODEL_AXIS
+from viquae_torch.core.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS
 from viquae_torch.models import layers as L
 from viquae_torch.ops import moe as moe_lib
 
@@ -324,6 +325,144 @@ def encode(
     if return_moe_aux:
         out = out + (moe_aux,)
     return out if len(out) > 1 else out[0]
+
+
+# ---- pipeline parallelism (ops/pipeline.py over the ``pipe`` axis) --------
+def pipeline_params(params: Bert, n_stages: int) -> Bert:
+    """A copy of ``params`` whose ``layers`` is a ``pipeline.Stages`` of
+    ``n_stages`` equal stages (``layers[s][j]`` is layer ``s * per + j``):
+    the staged layout :func:`encode_pipelined` runs and
+    :func:`pipeline_param_spec` splits over ``pipe``. Embeddings and pooler
+    stay as they are (replicated: they run outside the pipelined region).
+    Raises on an uneven split."""
+    from viquae_torch.ops import pipeline as pl
+
+    out = copy.deepcopy(params)
+    out.layers = pl.stack_stages(list(out.layers), n_stages)
+    return out
+
+
+def pipeline_unstack(params: Bert) -> Bert:
+    """Inverse of :func:`pipeline_params`: a copy with the per-layer
+    ``ModuleList`` (the checkpoint and HF layout). A shard that holds one
+    stage is gathered first (``models.sharding.gather_module``)."""
+    from viquae_torch.ops import pipeline as pl
+
+    out = copy.deepcopy(params)
+    out.layers = pl.unstack_stages(out.layers)
+    return out
+
+
+def pipeline_param_spec(cfg: BertConfig, n_stages: int) -> dict:
+    """The spec of staged params (``models.sharding``): the stages split
+    over ``pipe`` (a shard keeps this rank's stage), everything else
+    replicated — the reference's ``pipeline_param_spec``. ``n_stages``
+    must split the layers evenly (the mesh's ``pipe`` size)."""
+    from viquae_torch.ops import pipeline as pl
+
+    pl._split_count(cfg.num_hidden_layers, n_stages)
+    spec = param_spec(cfg)
+    spec["layers"] = pl.stage_spec()
+    return spec
+
+
+def encode_pipelined(
+    params: Bert,
+    cfg: BertConfig,
+    hidden: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    *,
+    n_micro: int,
+    mesh_ctx=None,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
+    compute_dtype=torch.float32,
+    segment_ids: Optional[torch.Tensor] = None,
+    remat_layers: bool = False,
+) -> torch.Tensor:
+    """:func:`encode` over the ``pipe`` mesh axis (GPipe schedule,
+    ops/pipeline.py) -> (B, L, D) f32 on every rank.
+
+    ``params.layers`` is in the staged layout (:func:`pipeline_params`:
+    all stages, or a shard holding this rank's). ``hidden``: the global
+    batch (every rank holds it, as in training). On a ``data`` axis of
+    several ranks each rank takes its block of the rows
+    (``train.data_parallel.Rows``), microbatches it into ``n_micro`` and
+    returns the global output through ``gather_from`` over ``data`` (its
+    backward sums the ranks' cotangents; the trainer's mean over ``data``
+    then gives one device's gradient). Every output row depends on its own
+    row only, so how rows group into microbatches changes no value; a
+    batch whose rows do not divide by ``data`` x ``n_micro`` raises, as
+    the reference's ``microbatch``. Padded-mask and packed
+    ``segment_ids`` modes: the attention bias is built once and
+    microbatched with the hidden states.
+
+    Dropout seeds are drawn for every (microbatch, global layer, site)
+    from ``generator`` before the schedule, on every rank, so a stage's
+    masks do not depend on the rank that holds it; they are other masks
+    than :func:`encode`'s. ``remat_layers`` checkpoints each layer inside
+    a stage (recomputed under the forward's mesh). Deterministic, the
+    output and gradients equal :func:`encode`'s up to the f32 order of
+    the microbatched products (bit for bit at one microbatch)."""
+    from viquae_torch.ops import pipeline as pl
+    from viquae_torch.train import data_parallel as dp
+
+    if cfg.moe_experts > 0:
+        # pp x ep composition is a non-goal, as in the reference: the stage
+        # contract is shape-preserving per microbatch and has no channel
+        # for the per-stage MoE aux loss
+        raise NotImplementedError(
+            "encode_pipelined does not support MoE layers "
+            "(moe_experts > 0) — use the sequential encoder with ep")
+    ctx = mesh_ctx if mesh_ctx is not None else meshlib.current()
+    stages = params.layers
+    if not isinstance(stages, pl.Stages):
+        raise ValueError("encode_pipelined needs staged params "
+                         "(bert.pipeline_params)")
+    if stages.n_stages != ctx.pipe_size:
+        raise ValueError(
+            f"params carry {stages.n_stages} stages but the mesh's pipe "
+            f"axis is {ctx.pipe_size} — restage with pipeline_params")
+    b, l = hidden.shape[:2]
+    if segment_ids is not None:
+        bias = L.attention_bias_from_segments(segment_ids)
+    else:
+        if attention_mask is None:
+            attention_mask = torch.ones((b, l), device=hidden.device)
+        bias = L.attention_bias_from_mask(attention_mask)
+    # microbatch the query dim even for broadcast (B, 1, 1, L) biases
+    bias = bias.expand((b,) + tuple(bias.shape[1:]))
+    rows = dp.Rows(b, ctx)
+    if ctx.size(DATA_AXIS) > 1 and not rows.split:
+        raise ValueError(f"batch {b} not divisible by the data axis' "
+                         f"{ctx.size(DATA_AXIS)} x n_micro={n_micro}")
+    n_layers = stages.n_stages * stages.per
+    seeds = L.dropout_seeds(generator, 3 * n_layers * n_micro,
+                            deterministic)
+    consts = {"bias": pl.microbatch(rows.take(bias), n_micro),
+              "seeds": [seeds[3 * n_layers * m: 3 * n_layers * (m + 1)]
+                        for m in range(n_micro)]}
+
+    def stage_fn(layers, x, c, offset):
+        for j, layer in enumerate(layers):
+            i = offset + j
+            layer_seeds = tuple(c["seeds"][3 * i: 3 * i + 3])
+            if remat_layers and torch.is_grad_enabled():
+                x, _ = checkpoint(_layer_under, meshlib.current(), layer, x,
+                                  c["bias"], cfg, compute_dtype, layer_seeds,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, _ = _layer_forward(layer, x, c["bias"], cfg,
+                                      compute_dtype, layer_seeds)
+        return x
+
+    with rows.scope():
+        out = pl.pipeline_apply(
+            stage_fn, stages[ctx.coordinate(PIPE_AXIS)],
+            pl.microbatch(rows.take(hidden), n_micro), consts=consts,
+            mesh_ctx=ctx)
+    return rows.gather(pl.unmicrobatch(out))
 
 
 def apply(

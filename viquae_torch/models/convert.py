@@ -20,6 +20,8 @@ bias, a PReLU node (alpha) weight; bare arrays keep their names.
 module holds by the BERT layout above (the multimodal encoders, the
 re-rankers, the ECA reader, BEM, NER), so one call carries any of the
 JAX package's trees across; :func:`tree_from_module` is its inverse.
+:func:`staged_from_jax` / :func:`staged_tree_from_module` carry the
+pipeline's staged BERT (``bert.pipeline_params``) across both ways.
 """
 from __future__ import annotations
 
@@ -349,7 +351,15 @@ def jax_paths(module: nn.Module, buffers: bool = False) -> Dict[str, str]:
     table is its module's own path. The JAX package's freeze and decay
     regexes are written for these paths (``layers/6/attention/q/kernel``,
     ``ln/scale``), so the port matches them here and not on its own
-    names (``layers.6.attention.q.weight``, ``ln.weight``)."""
+    names (``layers.6.attention.q.weight``, ``ln.weight``). A staged
+    layer (``ops.pipeline.Stages``: ``layers.1.2...`` with 3 layers a
+    stage) takes its per-layer path (``layers/5/...``), so that a staged
+    module, or a shard holding one stage, decays and freezes the tensors
+    its per-layer module does."""
+    from viquae_torch.ops.pipeline import Stages
+
+    staged = {path: mod.per for path, mod in module.named_modules()
+              if isinstance(mod, Stages) and path}
     out = {}
     for mod_name, mod in module.named_modules():
         tensors = list(mod.named_parameters(recurse=False))
@@ -357,6 +367,14 @@ def jax_paths(module: nn.Module, buffers: bool = False) -> Dict[str, str]:
             tensors += list(mod.named_buffers(recurse=False))
         for name, _ in tensors:
             parts = mod_name.split(".") if mod_name else []
+            for k in range(1, len(parts) - 1):
+                per = staged.get(".".join(parts[:k]))
+                if per is not None:
+                    # a staged layer (stage s, j-th) is global layer
+                    # s * per + j: the per-layer list's path
+                    parts[k: k + 2] = [str(int(parts[k]) * per
+                                           + int(parts[k + 1]))]
+                    break
             leaf = _leaf_name(mod, name)
             if leaf:
                 parts.append(leaf)
@@ -381,3 +399,42 @@ def tree_from_module(module: nn.Module) -> Dict[str, Any]:
             a = a.transpose(KERNEL_AXES[a.ndim])
         flat[path] = np.ascontiguousarray(a)
     return _unflatten(flat)
+
+
+# --------------------------------------------------------------------------
+# the staged layout (ops/pipeline.py) both ways
+# --------------------------------------------------------------------------
+def _map_arrays(fn, *trees):
+    """``fn`` on the matching arrays of same-shaped nested dicts."""
+    if isinstance(trees[0], dict):
+        return {k: _map_arrays(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*(np.asarray(t) for t in trees))
+
+
+def staged_from_jax(tree: Dict[str, Any], cfg, n_stages: int, device=None,
+                    dtype: torch.dtype = torch.float32) -> Bert:
+    """A JAX staged BERT tree (``bert.pipeline_params(params, n_stages)``:
+    the ``layers`` leaves lead with ``(n_stages, per)``) -> the port's
+    staged :class:`Bert` (``bert.pipeline_params`` of the same weights)."""
+    from viquae_torch.models.bert import pipeline_params
+
+    flat = _map_arrays(lambda a: a.reshape((-1,) + a.shape[2:]),
+                       tree["layers"])
+    layers = [_map_arrays(lambda a, i=i: a[i], flat)
+              for i in range(_bert_cfg(cfg).num_hidden_layers)]
+    return pipeline_params(
+        params_from_jax(dict(tree, layers=layers), cfg, device, dtype),
+        n_stages)
+
+
+def staged_tree_from_module(params: Bert) -> Dict[str, Any]:
+    """Inverse of :func:`staged_from_jax`: a staged :class:`Bert` holding
+    every stage as the JAX staged tree (f32 numpy leaves)."""
+    from viquae_torch.models.bert import pipeline_unstack
+
+    tree = tree_from_module(pipeline_unstack(params))
+    n_stages = params.layers.n_stages
+    tree["layers"] = _map_arrays(
+        lambda *xs: np.stack(xs).reshape((n_stages, -1) + xs[0].shape),
+        *tree["layers"])
+    return tree

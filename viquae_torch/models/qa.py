@@ -21,6 +21,7 @@ spec is listed in ROADMAP.md (A17b-2).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -240,23 +241,29 @@ def reader_apply_packed(
     With a ``mesh_ctx`` whose ``data`` axis has several ranks, the canvas
     rows are split over it (a pair never spans two rows): each rank
     encodes its rows and the canvas logits are gathered back in order
-    (core/mesh.py), as the reference shards the canvas over ``data``.
+    (core/mesh.py), as the reference shards the canvas over ``data``; the
+    encoder runs marked as this rank's block of the canvas
+    (``core.mesh.row_block``), so that MoE layers group the whole
+    canvas's tokens.
     """
     n_rows = input_ids.shape[0]
+    scope = contextlib.nullcontext()
     if mesh_ctx is not None:
         from viquae_torch.core import mesh as meshlib
 
         input_ids, segment_ids, position_ids, token_type_ids = (
             meshlib.split_rows(mesh_ctx, t) for t in (
                 input_ids, segment_ids, position_ids, token_type_ids))
-    bert_out = bert.apply(
-        params.bert, cfg.bert, input_ids,
-        token_type_ids=token_type_ids,
-        position_ids=position_ids,
-        segment_ids=segment_ids,
-        compute_dtype=compute_dtype,
-        deterministic=deterministic, generator=generator,
-    )
+        scope = meshlib.rows_scope(mesh_ctx, n_rows)
+    with scope:
+        bert_out = bert.apply(
+            params.bert, cfg.bert, input_ids,
+            token_type_ids=token_type_ids,
+            position_ids=position_ids,
+            segment_ids=segment_ids,
+            compute_dtype=compute_dtype,
+            deterministic=deterministic, generator=generator,
+        )
     sequence = bert_out["last_hidden_state"]     # (R, Lc, D)
     logits = L.dense(params.qa_outputs, sequence)  # (R, Lc, 2)
     if mesh_ctx is not None:

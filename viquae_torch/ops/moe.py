@@ -39,16 +39,19 @@ another order only when they are more than two. The gates reach the
 router through ``copy_to`` (each rank's cotangent covers its own experts)
 and the aux is computed once, on the router's probabilities before it.
 
-**Split rows.** While gradients are on and the current mesh has a
-``data`` axis, the tokens are this rank's block of the global batch's
-(``train.data_parallel.Rows``; rows that every rank computes run under a
-view that holds ``data`` whole). The groups, their length and the capacity
-are then the global batch's, as the reference's single program makes
-them, and this rank takes its own groups: that needs its tokens to be
-whole groups, and where they are not and a choice could drop, the call
-raises (without drops the groups change nothing). The aux's statistics
-are summed over ``data`` (``gather_from``): the aux of the global batch.
-Without gradients (evaluation, serving) each rank groups its own tokens.
+**Split rows.** Where the current mesh marks this call as one rank's
+block of a global batch split over ``data`` (``core.mesh.row_block``:
+``train.data_parallel.Rows``, the embedders' row split and the packed
+reader's set it, with or without gradients), the tokens are that block's
+(x's leading dim is the block's rows; rows past the global batch, the
+padding of the last blocks, are no tokens). The groups, their length and
+the capacity are then the global batch's, as the reference's single
+program makes them, and this rank takes its own groups: that needs its
+tokens to be whole groups, and where they are not and a choice could
+drop, the call raises (without drops the groups change nothing). The
+aux's statistics are summed over ``data``: the aux of the global batch.
+Without the mark (one device, rows every rank computes alike) the call
+groups the tokens it is given.
 """
 from __future__ import annotations
 
@@ -155,24 +158,37 @@ def moe_apply(
     axis = L.shard_axis(params["in"])
     n_experts = params["router"].weight.shape[0]
     top_k = min(top_k, n_experts)
-    # while training on split rows, the groups are the global batch's
-    split = (torch.is_grad_enabled()
-             and meshlib.current().size(DATA_AXIS) > 1)
-    ranks = meshlib.current().size(DATA_AXIS) if split else 1
-    n_groups = max(1, math.ceil(t * ranks / max(1, group_size)))
-    tg = math.ceil(t * ranks / n_groups)
+    # on a marked row split, the groups are the global batch's
+    ctx = meshlib.current()
+    n_rows = ctx.global_rows(DATA_AXIS)
+    total, offset, real = t, 0, t
+    if n_rows is not None:
+        start, per = meshlib.row_share(ctx, n_rows)
+        if x.dim() < 2 or orig_shape[0] != per:
+            raise ValueError(
+                f"moe_apply on a row split: x's leading dim "
+                f"{orig_shape[0] if x.dim() > 1 else None} is not this "
+                f"rank's block of {per} of the global {n_rows} rows")
+        per_row = t // per if per else 0
+        total = n_rows * per_row
+        offset = start * per_row
+        real = max(0, min(per, n_rows - start)) * per_row
+    n_groups = max(1, math.ceil(total / max(1, group_size)))
+    tg = math.ceil(total / n_groups)
     capacity = max(1, math.ceil(capacity_factor * top_k * tg / n_experts))
-    if ranks > 1 and tg and t % tg and capacity < tg:
+    if (n_rows is not None and tg and real and capacity < tg
+            and (offset % tg or (real % tg and offset + real != total))):
         raise ValueError(
-            f"moe_apply: this rank's {t} tokens are not whole groups of "
-            f"{tg} (the global batch's {t * ranks} tokens in groups of at "
-            f"most {group_size}), and a capacity of {capacity} can drop "
-            "tokens: the drops would differ from one device's. Make each "
-            "rank's tokens a multiple of the group length, or raise "
-            "moe_capacity_factor to E / top_k or more")
+            f"moe_apply: this rank's {real} tokens from token {offset} "
+            f"are not whole groups of {tg} (the global batch's {total} "
+            f"tokens in groups of at most {group_size}), and a capacity of "
+            f"{capacity} can drop tokens: the drops would differ from one "
+            "device's. Make each rank's tokens a multiple of the group "
+            "length, or raise moe_capacity_factor to E / top_k or more")
     n_groups = math.ceil(t / tg) if tg else 1
     pad = n_groups * tg - t
-    valid = torch.arange(n_groups * tg, device=device) < t
+    # rows past the global batch (a row split's padding) are no tokens
+    valid = torch.arange(n_groups * tg, device=device) < real
     if token_mask is not None:
         tm = token_mask.reshape(-1).bool()
         if pad:
@@ -188,7 +204,7 @@ def moe_apply(
     if local_experts != n_experts:
         # this rank's experts own one block of the (E, G, C) slots
         n_local = local_experts * n_groups * capacity
-        lo = meshlib.current().coordinate(axis) * n_local
+        lo = ctx.coordinate(axis) * n_local
         slots = slots - lo
         slots = torch.where((slots >= 0) & (slots < n_local), slots, n_local)
         n_slots = n_local
@@ -219,9 +235,12 @@ def moe_apply(
     vf = valid.float()[:, None]
     sums = torch.cat([(top1 * vf).sum(dim=0), (probs * vf).sum(dim=0),
                       vf.sum()[None]])
-    if split:
-        # the global batch's statistics (module docstring)
-        sums = meshlib.gather_from(sums[None], DATA_AXIS).sum(dim=0)
+    if n_rows is not None:
+        # the global batch's statistics (module docstring); without
+        # gradients a plain all-gather serves
+        sums = (meshlib.gather_from(sums[None], DATA_AXIS, ctx=ctx)
+                if torch.is_grad_enabled() and sums.requires_grad
+                else meshlib.all_gather(ctx, sums, DATA_AXIS)).sum(dim=0)
     denom = torch.clamp(sums[-1], min=1.0)
     f = sums[:n_experts] / denom
     p = sums[n_experts: 2 * n_experts] / denom

@@ -20,11 +20,13 @@ the mesh contract (axes ``data`` / ``pipe`` / ``model`` / ``kb``, over
   over ``model`` between the layers; ``gather_from`` / ``reduce_scatter_to``
   around each block);
 - expert parallelism: ``moe_spec``; ``moe_apply`` runs the experts that
-  ``shard_module`` split on this rank alone (ops/moe.py).
-
-Only the pipeline (``pipeline_apply`` / ``stack_stages`` /
-``unstack_stages`` over ``pipe``, ops/pipeline.py in the reference) is not
-ported yet (ROADMAP.md A17b-2b).
+  ``shard_module`` split on this rank alone (ops/moe.py);
+- pipeline parallelism over ``pipe``: ``stack_stages`` /
+  ``unstack_stages`` (the staged layout), ``pipeline_apply`` (the GPipe
+  schedule of microbatches through the stage ring, ``ring_shift`` /
+  point-to-point calls in core/mesh.py), ``bert.pipeline_params`` /
+  ``pipeline_param_spec`` / ``encode_pipelined`` (ops/pipeline.py,
+  models/bert.py), composed with ``data`` in the Trainer.
 """
 from viquae_torch.core.mesh import (  # noqa: F401
     DATA_AXIS,
@@ -42,10 +44,17 @@ from viquae_torch.core.mesh import (  # noqa: F401
     reduce_from,
     reduce_scatter,
     reduce_scatter_to,
+    ring_shift,
     scatter_to,
     use,
 )
-from viquae_torch.models.bert import param_spec  # noqa: F401
+from viquae_torch.models.bert import (  # noqa: F401
+    encode_pipelined,
+    param_spec,
+    pipeline_param_spec,
+    pipeline_params,
+    pipeline_unstack,
+)
 from viquae_torch.models.layers import (  # noqa: F401
     dense_spec,
     layer_norm_spec,
@@ -58,3 +67,10 @@ from viquae_torch.models.sharding import (  # noqa: F401
 )
 from viquae_torch.ops.mips import topk_sharded  # noqa: F401
 from viquae_torch.ops.moe import moe_spec  # noqa: F401
+from viquae_torch.ops.pipeline import (  # noqa: F401
+    microbatch,
+    pipeline_apply,
+    stack_stages,
+    unmicrobatch,
+    unstack_stages,
+)

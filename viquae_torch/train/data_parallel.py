@@ -24,7 +24,9 @@ A packed canvas's rows split like any encoder input, while its pointers
 :meth:`Rows.rebase` / :meth:`Rows.rebase_flat` turn them into this rank's
 rows and a mask, and :meth:`Rows.combine` sums the masked per-sequence
 outputs over ``data`` (each sequence lives on one rank's rows). The whole
-canvas is never gathered.
+canvas is never gathered. :func:`packed_read` does all of it around one
+packed apply, for the trainees and for the packed embedders
+(``ir/embedding.py``), with or without gradients.
 """
 from __future__ import annotations
 
@@ -63,9 +65,10 @@ class Rows:
             else 0
 
     @classmethod
-    def of(cls, tree) -> "Rows":
+    def of(cls, tree, ctx: Optional[meshlib.MeshContext] = None
+           ) -> "Rows":
         """The rows of a batch tree (its first tensor's leading dim)."""
-        return cls(_first_tensor(tree).shape[0])
+        return cls(_first_tensor(tree).shape[0], ctx)
 
     def take(self, tree):
         """This rank's rows of every tensor of ``tree`` (dicts walked,
@@ -80,11 +83,13 @@ class Rows:
         return tree[self.start: self.start + self.per]
 
     def scope(self):
-        """The mesh to compute these rows under: the mesh itself for a
-        block of rows, else a view that holds ``data`` whole (every rank
-        computes the same rows alike: the same dropout masks, groups and
-        statistics, no ``data`` collective)."""
-        return meshlib.use(self.ctx if self.split
+        """The mesh to compute these rows under: for a block of rows the
+        mesh marked as computing this rank's block of ``n``
+        (``core.mesh.row_block``: MoE layers group the global batch's
+        tokens, in training and in evaluation), else a view that holds
+        ``data`` whole (every rank computes the same rows alike: the same
+        dropout masks, groups and statistics, no ``data`` collective)."""
+        return meshlib.use(meshlib.row_block(self.ctx, self.n) if self.split
                            else meshlib.whole(self.ctx, DATA_AXIS))
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -130,3 +135,24 @@ class Rows:
         size = self.ctx.size(DATA_AXIS)
         return meshlib.gather_from(masked, DATA_AXIS, 0, self.ctx).reshape(
             (size,) + x.shape).sum(dim=0)
+
+
+def packed_read(packed_apply, params, canvas, pointers, *visual,
+                ctx: Optional[meshlib.MeshContext] = None, **kw):
+    """A packed apply over this rank's canvas rows: ``canvas`` = (ids,
+    segments, positions[, token types]) and ``pointers`` = (cls rows, cls
+    cols[, vis rows, vis cols]) of the global canvas, ``visual`` the
+    per-sequence inputs; (the global per-sequence outputs, moe_aux or
+    None) — moe_aux when ``kw`` asks ``return_aux``."""
+    rows_of = Rows.of(canvas[0], ctx)
+    rows, keep = rows_of.rebase(pointers[0])
+    if keep is not None:
+        rows = torch.where(keep, rows, 0)
+    cols, *vis = pointers[1:]
+    if vis:
+        vis[0] = rows_of.rebase(vis[0])[0]
+    with rows_of.scope():
+        res = packed_apply(params, *(rows_of.take(c) for c in canvas), rows,
+                           cols, *vis, *visual, **kw)
+    out, aux = res if kw.get("return_aux") else (res, None)
+    return rows_of.combine(out, keep), aux

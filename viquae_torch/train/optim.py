@@ -13,8 +13,9 @@
   group of the trainable parameters, a ``LambdaLR`` holding the schedule,
   and global-norm clipping over the trainable gradients only; on a
   mesh the norm is the full parameter set's: the squares of gradients
-  split over an axis (``models.sharding``) are summed over it, the
-  replicated ones counted once;
+  split over an axis (``models.sharding``: a tensor block, or a pipeline
+  stage) are summed over it, the replicated ones counted once, every
+  rank joining the same all-reduces in the same order;
 - :func:`remat`: per-call gradient checkpointing;
 - :func:`multi_passage_rc_loss`: (N*M, L) start/end logits get ONE softmax
   shared across the M passages of a question (reshape to (N, M*L)),
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,8 +107,11 @@ class Optimizer:
         self.trainable: List[torch.Tensor] = [
             p for n, p in named.items() if trainable[n]]
         self.all_trainable = len(self.trainable) == len(named)
-        # the mesh axis each trainable parameter is split over, or None
+        # the mesh axis each trainable parameter is split over, or None,
+        # and every axis any parameter is split over (the norm's
+        # all-reduces, the same on every rank)
         self.axes = [axes[n] for n in named if trainable[n]]
+        self.over = sorted({a for a in axes.values() if a is not None})
         groups = [
             {"params": [p for n, p in named.items()
                         if trainable[n] and decays[n]],
@@ -136,7 +140,8 @@ class Optimizer:
         if self.spec.grad_clip:
             clip_by_global_norm_(
                 self.trainable, self.spec.grad_clip, self.axes,
-                norm=grad_norm if self.all_trainable else None)
+                norm=grad_norm if self.all_trainable else None,
+                over=self.over)
         self.adamw.step()
         self.scheduler.step()
 
@@ -150,45 +155,59 @@ class Optimizer:
 
 
 def global_norm(tensors, axes: Optional[List[Optional[str]]] = None,
-                mesh_ctx=None) -> torch.Tensor:
+                mesh_ctx=None, over: Optional[Sequence[str]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every entry (optax.global_norm).
     ``axes`` (one per tensor): the mesh axis a tensor is one rank's block
-    of, whose squares are summed over that axis of ``mesh_ctx`` (default:
-    the current mesh); None counts a replicated tensor once."""
+    (or pipeline stage) of, whose squares are summed over that axis of
+    ``mesh_ctx`` (default: the current mesh); None counts a replicated
+    tensor once. ``over``: the axes to sum over, on every rank alike
+    (default: those ``axes`` names) — a rank whose own tensors lie on no
+    rank's block of an axis still joins its all-reduce (a pipeline stage
+    whose parameters are all frozen), so that no rank waits alone."""
     tensors = list(tensors)
-    norms = torch._foreach_norm(tensors)
-    if not axes or not any(axes):
-        return torch.linalg.vector_norm(torch.stack(norms))
+    axes = list(axes) if axes else [None] * len(tensors)
     from viquae_torch.core import mesh
 
+    over = [a for a in mesh.AXES if a in set(over if over is not None
+                                               else axes)]
+    norms = torch._foreach_norm(tensors) if tensors else []
+    if not over:
+        return torch.linalg.vector_norm(torch.stack(norms))
     ctx = mesh_ctx if mesh_ctx is not None else mesh.current()
-    total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
-    for axis in dict.fromkeys(axes):
-        sq = torch.stack([n.float() for n, a in zip(norms, axes)
-                          if a == axis]).square().sum()
-        total = total + (sq if axis is None
-                         else mesh.all_reduce(ctx, sq, axis))
+    device = tensors[0].device if tensors else ctx.device
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+
+    def squares(axis):
+        picked = [n.float() for n, a in zip(norms, axes) if a == axis]
+        return torch.stack(picked).square().sum() if picked else zero
+
+    total = squares(None)
+    for axis in over:
+        total = total + mesh.all_reduce(ctx, squares(axis), axis)
     return torch.sqrt(total)
 
 
 def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float,
                          axes: Optional[List[Optional[str]]] = None,
-                         mesh_ctx=None, norm: Optional[torch.Tensor] = None):
+                         mesh_ctx=None, norm: Optional[torch.Tensor] = None,
+                         over: Optional[Sequence[str]] = None):
     """optax.clip_by_global_norm on the ``.grad`` of ``params``, in place:
     unchanged while the global norm is below ``max_norm``, else scaled by
-    max_norm / norm (without torch's 1e-6 in the denominator). ``axes``:
-    as :func:`global_norm`, one per parameter; ``norm``: their global norm,
-    where the caller has computed it."""
+    max_norm / norm (without torch's 1e-6 in the denominator). ``axes``,
+    ``over``: as :func:`global_norm`, one axis per parameter; ``norm``:
+    their global norm, where the caller has computed it."""
     pairs = [(p.grad, a) for p, a in zip(params, axes or [None] * len(
         params)) if p.grad is not None]
-    if not pairs:
+    if not pairs and not over:
         return
     grads = [g for g, _ in pairs]
     if norm is None:
-        norm = global_norm(grads, [a for _, a in pairs], mesh_ctx)
+        norm = global_norm(grads, [a for _, a in pairs], mesh_ctx, over)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    if grads:
+        torch._foreach_mul_(grads, scale)
 
 
 @dataclasses.dataclass(frozen=True)

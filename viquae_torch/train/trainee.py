@@ -106,26 +106,6 @@ def _on_rows(fn, *inputs):
         return fn(*(rows.take(t) for t in inputs)), rows
 
 
-def _packed_read(packed_apply, params, canvas, pointers, *visual, **kw):
-    """A packed apply over this rank's canvas rows: ``canvas`` = (ids,
-    segments, positions[, token types]) and ``pointers`` = (cls rows, cls
-    cols[, vis rows, vis cols]) of the global canvas, ``visual`` the
-    per-sequence inputs; (the global per-sequence outputs, moe_aux or
-    None) — moe_aux when ``kw`` asks ``return_aux``."""
-    rows_of = dp.Rows.of(canvas[0])
-    rows, keep = rows_of.rebase(pointers[0])
-    if keep is not None:
-        rows = torch.where(keep, rows, 0)
-    cols, *vis = pointers[1:]
-    if vis:
-        vis[0] = rows_of.rebase(vis[0])[0]
-    with rows_of.scope():
-        res = packed_apply(params, *(rows_of.take(c) for c in canvas), rows,
-                           cols, *vis, *visual, **kw)
-    out, aux = res if kw.get("return_aux") else (res, None)
-    return rows_of.combine(out, keep), aux
-
-
 def _export(path, module: nn.Module):
     ckpt_lib.export_params(path, tree_from_module(module))
 
@@ -215,7 +195,7 @@ class BiEncoderTrainee:
                 if "canvas_vis_rows" in text:
                     pointers += (text["canvas_vis_rows"],
                                  text["canvas_vis_cols"])
-                return _packed_read(
+                return dp.packed_read(
                     packed_apply, params, canvas, pointers,
                     inputs["face_inputs"], inputs.get("image_inputs"),
                     **packed_kw)
@@ -225,7 +205,7 @@ class BiEncoderTrainee:
                 inputs.get("image_inputs"))
             return rows.gather(out.pooler_output), out.moe_aux
         if "canvas_input_ids" in inputs and packed_apply is not None:
-            return _packed_read(
+            return dp.packed_read(
                 packed_apply, params,
                 (inputs["canvas_input_ids"], inputs["canvas_segment_ids"],
                  inputs["canvas_position_ids"]),

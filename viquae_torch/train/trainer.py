@@ -21,8 +21,14 @@ the trainees split their encoder inputs' rows over ``data`` and gather the
 per-sequence outputs before the objective (``train.data_parallel``), and a
 loss that does not computes the whole batch on every rank. After backward
 every gradient is averaged over ``data`` in one all-reduce (never over
-``model``). The global norm counts the shards' squares over ``model`` and
-the replicated gradients once; the optimizer's clipping reuses it.
+``model`` or ``pipe``). The global norm counts the shards' squares over
+``model`` (a pipeline stage's over ``pipe``) and the replicated gradients
+once; the optimizer's clipping reuses it. With
+``param_spec=bert.pipeline_param_spec(cfg, S)`` each rank of a data x
+pipe mesh holds one stage (``bert.encode_pipelined`` runs the schedule;
+the replicated embeddings get the same gradient on every pipe rank), its
+checkpoint holds that stage, and :meth:`Trainer.full_params` returns the
+per-layer modules.
 ``batch_spec``, the JAX trainer's layout of named batch keys, is checked
 and changes nothing: every rank holds the whole batch, which any layout's
 ranks can read, and in JAX too the layout changes no result. Checkpoints
@@ -187,7 +193,7 @@ class Trainer:
             params = params.to(ctx.device)
         params = params.requires_grad_(True)
         self.device = next(iter(params.parameters())).device
-        # the mesh axis each parameter is a block of (global norm)
+        # the mesh axis each parameter is a block (or stage) of
         self._axes = list(sharding.parameter_axes(params).values())
         self.state = TrainState(
             params, optimizer.build(params), mesh_ctx=(
@@ -201,9 +207,10 @@ class Trainer:
 
     def full_params(self) -> nn.Module:
         """The trained parameters whole: the shards gathered over their
-        axes (every rank calls this together), else the parameters."""
+        axes and staged layers back in the per-layer list (every rank
+        calls this together), else the parameters."""
         params = self.state.params
-        if not sharding.sharded_parameters(params):
+        if not sharding.is_split(params):
             return params
         return sharding.gather_module(params, self.mesh_ctx)
 
@@ -290,7 +297,10 @@ class Trainer:
             del flat
             loss = meshlib.all_reduce(ctx, loss, meshlib.DATA_AXIS,
                                       op="mean")
-        grad_norm = global_norm(grads, [a for _, a in with_grad], ctx)
+        # the optimizer's split axes: the same all-reduces on every rank
+        grad_norm = global_norm(
+            grads, [a for _, a in with_grad], ctx,
+            over=opt.over if isinstance(opt, Optimizer) else None)
         with meshlib.use(ctx):      # the clipping norm's collectives
             if isinstance(opt, Optimizer):
                 opt.step(grad_norm)
