@@ -614,10 +614,10 @@ class TimelineTimer(StageTimer):
         self.spans = []
 
     @contextlib.contextmanager
-    def stage(self, stage_name, sync_output=None):
+    def stage(self, stage_name):
         start = time.perf_counter()
-        with super().stage(stage_name, sync_output) as holder:
-            yield holder
+        with super().stage(stage_name):
+            yield
         self.spans.append((stage_name, start, time.perf_counter()))
 
     def timeline(self, run_start, run_end) -> dict:

@@ -1,6 +1,7 @@
 """The port's host-only modules are copies it owns. Those that can be are
 textual copies of the JAX package's files with only the package name
-changed; those that must differ differ only in the lines listed here."""
+changed, once the port's tracing (core/profiling.py) is taken out; those
+that must differ differ only in the lines listed here."""
 import difflib
 from pathlib import Path
 
@@ -42,17 +43,79 @@ def _pair(name):
     return ours, ref.replace("viquae_tpu", "viquae_torch")
 
 
+# ir/server.py after its tracing is taken out, against the reference (the
+# module docstring and the transient-error block aside): the ordered
+# difference, sign and line. The queue wait of GET /health and the
+# request ids; the blank line is the one the profiling import stood on.
+SERVER_PORT_DIFF = [
+    "+ import itertools",
+    "+ ",
+    "+         # seconds the dispatched items waited from submit to dispatch",
+    "+         self.wait_s = 0.0",
+    "+         self._ids = itertools.count()",
+    "-         future: Future = Future()",
+    "+         future: Future = _Request(next(self._ids))",
+    "+ ",
+    "+     def mean_wait_ms(self) -> float:",
+    '+         """Mean wait of the dispatched items from submit to dispatch."""',
+    "+         with self._stats_lock:",
+    "+             return 1e3 * self.wait_s / self.n_items if self.n_items "
+    "else 0.0",
+    "+         started = time.time_ns()",
+    "+                 self.wait_s += sum(",
+    "+                     started - f.submitted_ns for f in futures) / 1e9",
+    '+                         "mean_wait_ms": service.batcher.mean_wait_ms(),',
+]
+# module -> the lines (stripped, in order) that _without_tracing takes out
+TRACING_LINES = {
+    "train/data": ["from viquae_torch.core import profiling",
+                   'profiling.count_canvas("collate", p.segment_ids)'],
+    "ir/server": ["from viquae_torch.core import profiling",
+                  'with profiling.span("batcher.dispatch") as dispatch:',
+                  "_record_waits(dispatch, futures, started)",
+                  'with profiling.span("batcher.collect"):',
+                  'with profiling.span("batcher.slot_wait"):'],
+}
+
+
+def _without_tracing(text):
+    """The source with its tracing taken out, and the lines taken out
+    (stripped): the import of core.profiling, each ``with profiling...:``
+    line (its block moves back out by one level), and each statement that
+    only records (``profiling.`` or ``_record_waits(`` calls)."""
+    out, removed, dedent = [], [], []
+    for line in text.splitlines():
+        indent = len(line) - len(line.lstrip())
+        while dedent and line.strip() and indent <= dedent[-1]:
+            dedent.pop()
+        stripped = line.strip()
+        if stripped.startswith("with profiling.") and stripped.endswith(":"):
+            dedent.append(indent)
+            removed.append(stripped)
+            continue
+        if stripped.startswith(("profiling.", "_record_waits(")) \
+                or stripped == "from viquae_torch.core import profiling":
+            removed.append(stripped)
+            continue
+        out.append(line[4 * len(dedent):] if line.strip() else line)
+    return "\n".join(out) + "\n", removed
+
+
 @pytest.mark.parametrize("name", TEXTUAL)
 def test_copy_equals_reference_but_for_the_package_name(name):
     ours, ref = _pair(name)
+    ours, removed = _without_tracing(ours)
+    assert removed == TRACING_LINES.get(name, [])
     assert ours == ref
 
 
 def test_server_equals_reference_but_for_docstring_and_transient_block():
-    """ir/server.py: the module docstring is the port's own, and the block
-    that says which device errors are transient is restated for CUDA
-    (between the shutdown sentinel and DynamicBatcher); every other line is
-    the reference's."""
+    """ir/server.py: the module docstring is the port's own; the block
+    between the shutdown sentinel and DynamicBatcher restates for CUDA
+    which device errors are transient, and adds the port's request type
+    (its id and arrival time) and the recording of its wait spans. With
+    its tracing taken out, every other line is the reference's but the
+    queue wait's, SERVER_PORT_DIFF, each in its place."""
     def rest(text):
         body = text[text.index('"""\nfrom __future__'):]
         head, tail = body.split("_SHUTDOWN = object()\n", 1)
@@ -61,7 +124,12 @@ def test_server_equals_reference_but_for_docstring_and_transient_block():
 
     ours, ref = _pair("ir/server")
     (ours_rest, ours_block), (ref_rest, ref_block) = rest(ours), rest(ref)
-    assert ours_rest == ref_rest
+    ours_rest, removed = _without_tracing(ours_rest)
+    assert removed == TRACING_LINES["ir/server"]
+    changed = [line for line in difflib.ndiff(ref_rest.splitlines(),
+                                              ours_rest.splitlines())
+               if line[:1] in "+-"]
+    assert changed == SERVER_PORT_DIFF
     assert ours_block != ref_block
     assert "def is_transient_device_error(e: BaseException) -> bool:" \
         in ours_block
@@ -96,7 +164,12 @@ def _top_level_sources(text):
 
 
 def test_train_data_copies_equal_the_reference_but_for_the_package_name():
-    ours, ref = (_top_level_sources(t) for t in _pair("train/data"))
+    """Line for line, once the port's tracing (the canvas counters of
+    ``pack_text_inputs``) is taken out."""
+    ours, ref = _pair("train/data")
+    ours, removed = _without_tracing(ours)
+    assert removed == TRACING_LINES["train/data"]
+    ours, ref = _top_level_sources(ours), _top_level_sources(ref)
     assert sorted(ours) == sorted(ref) == sorted(DATA_COPIES)
     for name in DATA_COPIES:
         assert ours[name] == ref[name], name

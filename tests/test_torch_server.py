@@ -471,6 +471,7 @@ def test_http_server_end_to_end(parts):
         assert health["search"]["items"] == len(queries)
         assert health["search"]["dispatches"] < len(queries)
         assert health["search"]["transient_retries"] == 0
+        assert health["search"]["mean_wait_ms"] > 0
 
         # client-side batch endpoint coalesces into the same dispatches
         status, body = _post(f"{base}/search", {"queries": queries[:3]})

@@ -8,6 +8,9 @@ WITHOUT padding, packs the batch into one (rows, row_len) canvas
 FLOPs than padding questions to max length; ``PackedColumnEmbedder`` is its
 ``dataset.map`` adapter for corpus columns. Canvas row counts round up to
 ROWS_GRANULARITY so a stable query-length distribution gives few shapes.
+While a profile runs, ``PackedTextEmbedder.pack`` records its WordPiece call
+and its packing as the spans ``embed.tokenize`` and ``embed.pack``
+(core/profiling.py).
 
 Multimodal seams kept from the reference: ``map_passage_to_kb`` joins
 precomputed image features from the article KB through ``batch['index']``
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from viquae_torch.core import mesh as meshlib
+from viquae_torch.core import profiling
 from viquae_torch.core.device import resolve_device, upload
 from viquae_torch.ops import packing
 from viquae_torch.train import data_parallel
@@ -238,23 +242,25 @@ class PackedTextEmbedder:
             raise ValueError(f"{len(texts)} texts > batch_size "
                              f"{self.batch_size}")
         texts = list(texts)
-        # a tokenizer may refuse an empty list
-        enc = self.tokenizer(
-            texts, truncation=True, max_length=self.row_len,
-        )["input_ids"] if texts else []
-        seqs = [np.asarray(s, np.int32) for s in enc]
-        if self.fixed_rows is not None:
-            try:
-                return packing.pack_token_sequences(
-                    seqs, self.row_len, n_rows=self.fixed_rows,
-                    n_cls=self.batch_size,
-                )
-            except ValueError:  # batch overflows the pinned canvas
-                pass
-        return packing.pack_token_sequences(
-            seqs, self.row_len, n_rows=None,
-            pad_rows_to=self.ROWS_GRANULARITY, n_cls=self.batch_size,
-        )
+        with profiling.span("embed.tokenize", texts=len(texts)):
+            # a tokenizer may refuse an empty list
+            enc = self.tokenizer(
+                texts, truncation=True, max_length=self.row_len,
+            )["input_ids"] if texts else []
+        with profiling.span("embed.pack"):
+            seqs = [np.asarray(s, np.int32) for s in enc]
+            if self.fixed_rows is not None:
+                try:
+                    return packing.pack_token_sequences(
+                        seqs, self.row_len, n_rows=self.fixed_rows,
+                        n_cls=self.batch_size,
+                    )
+                except ValueError:  # batch overflows the pinned canvas
+                    pass
+            return packing.pack_token_sequences(
+                seqs, self.row_len, n_rows=None,
+                pad_rows_to=self.ROWS_GRANULARITY, n_cls=self.batch_size,
+            )
 
     def upload(self, p: packing.PackedBatch):
         """The canvas arrays as tensors on the embedder's device (pinned

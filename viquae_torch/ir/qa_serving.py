@@ -13,6 +13,12 @@ deployment loop over the same stages:
   softmax over all M passages per question and span selection on the
   device; only three (n,) index vectors come back to the host, through
   pinned buffers read one batch late.
+
+While a profile runs (core/profiling.py) the loop records a
+``reader.questions`` span for the questions' WordPiece, a ``reader.pairs``
+span per reader batch assembled, a ``reader.step`` device span around each
+reader upload and forward, and the packed canvases' real tokens and slots
+in the counters ``reader.canvas_tokens`` and ``reader.canvas_slots``.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from viquae_torch.core import profiling
 from viquae_torch.core.device import HostCopy as _HostCopy
 from viquae_torch.core.device import resolve_device, upload
 from viquae_torch.core.profiling import StageTimer
@@ -197,34 +204,37 @@ class AnswerPipeline:
         """Host producer: fetch top-M passages (pre-tokenized KB column,
         or tokenize at serve time) + assemble fixed-shape pair batches."""
         tok = self.tokenizer
-        q_ids_all = self._encode_questions(queries)
+        with profiling.span("reader.questions", questions=len(queries)):
+            q_ids_all = self._encode_questions(queries)
         pretok = self.passage_tokens_key is not None
         for start in range(0, len(queries), self.n_q):
             chunk = range(start, min(start + self.n_q, len(queries)))
             n_real = len(chunk)
-            if pretok:
-                doc_tokens = [
-                    [self.kb[int(d)][self.passage_tokens_key]
-                     if 0 <= int(d) < len(self.kb) else []
-                     for d in indices[qi][: self.M]]
-                    for qi in chunk
-                ]
-            else:
-                texts = [
-                    str(self.kb[int(d)][self.passage_key])
-                    if 0 <= int(d) < len(self.kb) else ""
-                    for qi in chunk for d in indices[qi][: self.M]
-                ]
-                flat = tok(texts, add_special_tokens=False, truncation=True,
-                           max_length=self.reader_seq)["input_ids"] \
-                    if texts else []
-                doc_tokens, p_i = [], 0
-                for qi in chunk:
-                    n_docs = len(indices[qi][: self.M])
-                    doc_tokens.append(flat[p_i: p_i + n_docs])
-                    p_i += n_docs
-            ids, mask, tt = self._fill_pair_canvas(chunk, q_ids_all,
-                                                   doc_tokens)
+            with profiling.span("reader.pairs", questions=n_real):
+                if pretok:
+                    doc_tokens = [
+                        [self.kb[int(d)][self.passage_tokens_key]
+                         if 0 <= int(d) < len(self.kb) else []
+                         for d in indices[qi][: self.M]]
+                        for qi in chunk
+                    ]
+                else:
+                    texts = [
+                        str(self.kb[int(d)][self.passage_key])
+                        if 0 <= int(d) < len(self.kb) else ""
+                        for qi in chunk for d in indices[qi][: self.M]
+                    ]
+                    flat = tok(texts, add_special_tokens=False,
+                               truncation=True,
+                               max_length=self.reader_seq)["input_ids"] \
+                        if texts else []
+                    doc_tokens, p_i = [], 0
+                    for qi in chunk:
+                        n_docs = len(indices[qi][: self.M])
+                        doc_tokens.append(flat[p_i: p_i + n_docs])
+                        p_i += n_docs
+                ids, mask, tt = self._fill_pair_canvas(chunk, q_ids_all,
+                                                       doc_tokens)
             yield start, n_real, ids, mask, tt
 
     def pack_pairs(self, ids, mask, tt):
@@ -241,6 +251,7 @@ class AnswerPipeline:
             # batch overflows the pinned canvas
             p = packing.pack_token_sequences(
                 seqs, row_len=self.reader_seq, pad_rows_to=16)
+        profiling.count_canvas("reader", p.segment_ids)
         tts = [tt[r, : lens[r]] for r in range(len(ids))]
         tt_canvas = packing.pack_parallel(p, tts)
         g_idx, g_mask = packing.gather_indices(p, self.reader_seq)
@@ -266,12 +277,12 @@ class AnswerPipeline:
                     p_scores, = self.upload(sl.reshape(-1))
                 with self.timer.stage("reader_dispatch"):
                     if self.packed_reader:
-                        spans = self.read_packed(
-                            *self.upload(*self.pack_pairs(ids, mask, tt),
-                                          mask), p_scores)
+                        read = self.read_packed
+                        arrays = (*self.pack_pairs(ids, mask, tt), mask)
                     else:
-                        spans = self.read(*self.upload(ids, mask, tt),
-                                           p_scores)
+                        read, arrays = self.read, (ids, mask, tt)
+                    with profiling.device_span("reader.step", self.device):
+                        spans = read(*self.upload(*arrays), p_scores)
                     copy = _HostCopy(*spans)
                 yield start, n_real, ids, copy
 

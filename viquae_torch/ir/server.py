@@ -1,6 +1,8 @@
 """Online serving runtime: dynamic micro-batching + a JSON-over-HTTP front
 (counterpart of viquae_tpu/ir/server.py: the same code but for this
-docstring and the transient-error block, tests/test_torch_host_copies.py).
+docstring, the transient-error block, the request's arrival time and id
+(:class:`_Request`), the queue wait that ``GET /health`` reports, and the
+tracing spans; tests/test_torch_host_copies.py).
 
 Per-query dispatch wastes the card: its serving sweet spot is a large
 packed batch. The production-shaped answer is DYNAMIC BATCHING: concurrent
@@ -23,9 +25,17 @@ Components:
 - :func:`make_http_server` — stdlib ThreadingHTTPServer exposing
   POST /search, POST /answer, GET /health. No web-framework dependency;
   `PIL` is imported only where an image payload is decoded.
+
+While a profile runs (``core.profiling.tracing``) the batcher records, on the
+profiler's clock, a ``batcher.collect`` span per batch formed, a
+``batcher.slot_wait`` span per wait for a free dispatch slot, a
+``batcher.dispatch`` span with its request ids, and for each request a
+``batcher.wait`` span from its submit to the start of its dispatch, naming
+the request and the dispatch.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import queue
 import threading
@@ -35,6 +45,8 @@ from concurrent.futures import TimeoutError as FuturesTimeoutError
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+from viquae_torch.core import profiling
 
 _SHUTDOWN = object()
 
@@ -73,6 +85,28 @@ def is_transient_device_error(e: BaseException) -> bool:
     return any(m in r for m in TRANSIENT_ERROR_MARKERS)
 
 
+class _Request(Future):
+    """A submitted item's future, with the request's id and its arrival
+    time on ``time.time_ns()`` (the tracing clock), for the queue wait."""
+
+    def __init__(self, request_id: int):
+        super().__init__()
+        self.id = request_id
+        self.submitted_ns = time.time_ns()
+
+
+def _record_waits(dispatch, requests, started_ns: int) -> None:
+    """The dispatch's request ids, and each request's ``batcher.wait`` span
+    from its submit to ``started_ns``, the start of the dispatch (tracing
+    only)."""
+    if dispatch is None:
+        return
+    dispatch.attrs["requests"] = tuple(r.id for r in requests)
+    for r in requests:
+        profiling.interval("batcher.wait", r.submitted_ns, started_ns,
+                           request=r.id, dispatch=dispatch.id)
+
+
 class DynamicBatcher:
     """Queue requests; dispatch them through `process` in micro-batches.
 
@@ -105,6 +139,9 @@ class DynamicBatcher:
         self.n_dispatches = 0
         self.n_items = 0
         self.n_retries = 0
+        # seconds the dispatched items waited from submit to dispatch
+        self.wait_s = 0.0
+        self._ids = itertools.count()
         self._queue: queue.Queue = queue.Queue()
         # >1 overlaps micro-batches: while batch n's device work drains,
         # batch n+1 tokenizes/packs/dispatches — the cross-batch pipelining
@@ -120,7 +157,7 @@ class DynamicBatcher:
         self._thread.start()
 
     def submit(self, item) -> Future:
-        future: Future = Future()
+        future: Future = _Request(next(self._ids))
         # the lock closes the check-then-enqueue race with close(): without
         # it an item could land BEHIND the shutdown sentinel and its future
         # would never resolve
@@ -133,6 +170,11 @@ class DynamicBatcher:
     def __call__(self, item, timeout: Optional[float] = None):
         """Blocking convenience: submit + wait."""
         return self.submit(item).result(timeout=timeout)
+
+    def mean_wait_ms(self) -> float:
+        """Mean wait of the dispatched items from submit to dispatch."""
+        with self._stats_lock:
+            return 1e3 * self.wait_s / self.n_items if self.n_items else 0.0
 
     def close(self):
         """Drain pending work, then stop the dispatcher thread."""
@@ -185,9 +227,12 @@ class DynamicBatcher:
     def _run_batch(self, batch):
         items = [item for item, _ in batch]
         futures = [future for _, future in batch]
+        started = time.time_ns()
         try:
             try:
-                results = self._process_with_retry(items)
+                with profiling.span("batcher.dispatch") as dispatch:
+                    _record_waits(dispatch, futures, started)
+                    results = self._process_with_retry(items)
                 if len(results) != len(items):
                     raise RuntimeError(
                         f"process returned {len(results)} results for "
@@ -200,6 +245,8 @@ class DynamicBatcher:
             with self._stats_lock:
                 self.n_dispatches += 1
                 self.n_items += len(items)
+                self.wait_s += sum(
+                    started - f.submitted_ns for f in futures) / 1e9
             for future, result in zip(futures, results):
                 future.set_result(result)
         finally:
@@ -207,10 +254,12 @@ class DynamicBatcher:
 
     def _loop(self):
         while True:
-            batch = self._collect()
+            with profiling.span("batcher.collect"):
+                batch = self._collect()
             if batch is None:
                 return
-            self._inflight.acquire()
+            with profiling.span("batcher.slot_wait"):
+                self._inflight.acquire()
             worker = threading.Thread(
                 target=self._run_batch, args=(batch,), daemon=True,
                 name=f"{self._thread.name}-run")
@@ -413,6 +462,7 @@ def make_http_server(host: str = "127.0.0.1", port: int = 0,
                         "dispatches": service.batcher.n_dispatches,
                         "items": service.batcher.n_items,
                         "transient_retries": service.batcher.n_retries,
+                        "mean_wait_ms": service.batcher.mean_wait_ms(),
                     }
             return self._reply(200, {"ok": True, **stats})
 

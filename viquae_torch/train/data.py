@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from viquae_torch.core import profiling
 from viquae_torch.train.objectives import IGNORE_INDEX
 
 
@@ -352,6 +353,7 @@ def pack_text_inputs(inputs: Dict[str, np.ndarray], row_len: int,
     p = packing.pack_token_sequences(seqs, row_len=row_len, pad_rows_to=8)
     if row_budget is not None:
         p = packing.pad_packed_rows(p, row_budget(p.rows))
+    profiling.count_canvas("collate", p.segment_ids)
     return {
         "canvas_input_ids": p.input_ids,
         "canvas_segment_ids": p.segment_ids,

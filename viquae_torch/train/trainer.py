@@ -10,7 +10,9 @@ remat is the trainee's ``remat_layers`` (``torch.utils.checkpoint``);
 reference's ModelCheckpoint / EarlyStopping; metrics stream to a JSONL
 log. The step makes no host read: loss and grad norm stay device tensors
 and are read on ``log_every`` steps only (and on every step under
-``debug_nans``).
+``debug_nans``). While a profile runs, each optimizer step of
+:meth:`Trainer.fit` is a ``train.step`` device span (core/profiling.py):
+its host wall, and its time on the device from two CUDA events.
 
 On a mesh (``mesh_ctx``, default ``core.mesh.current()``; the JAX
 trainer's contract): ``param_spec`` shards the parameters over ``model``
@@ -50,6 +52,7 @@ import torch
 from torch import nn
 
 from viquae_torch.core import mesh as meshlib
+from viquae_torch.core import profiling
 from viquae_torch.core.device import upload_batch
 from viquae_torch.core.prng import DEFAULT_SEED, SeedBundle
 from viquae_torch.models import sharding
@@ -356,8 +359,10 @@ class Trainer:
         with torch.autograd.set_detect_anomaly(cfg.debug_nans):
             while step < cfg.max_steps:
                 batch = next_batch(step)
-                loss, grad_norm, _ = self._train_step(
-                    batch, self.seeds.split(f"step{step}"))
+                with profiling.device_span("train.step", self.device,
+                                           step=step):
+                    loss, grad_norm, _ = self._train_step(
+                        batch, self.seeds.split(f"step{step}"))
                 step += 1
                 if cfg.debug_nans and not (torch.isfinite(loss)
                                            and torch.isfinite(grad_norm)):
