@@ -249,6 +249,25 @@ raises on failure:
    input and parameter gradients against one device; beside (a), a probe
    of gloo send / recv on raw CUDA tensors (the port stages them through
    pinned host memory either way). B1's and B2's launches: 0.
+28. the fused attention of a packed canvas (ops/segment_attention.py,
+   phase_segment_attention, after phase 13's reader; alone with
+   ``--segment-attention-only``): at the reader's canvas (16 x 24 pairs
+   of a lognormal question + 3 + normal(125, 8) passage tokens on rows of
+   256) and the retriever's (1,280 lognormal questions on rows of 64), 12
+   heads, f32 q, k, v: the kernel against the plain version and the
+   plain path (``layers.plain_attention``) within the order of the f32
+   sums but for one entry in 10^3 (one bf16 rounding step at most), its
+   f32 probabilities past that bound (the rounding point is kept),
+   padding queries the mean of v; its time against its bound (q, k, v
+   and the context once over the memory rate, FFMA over each segment's
+   own keys over the f32 rate), the plain path's time (bias add, softmax, casts,
+   transposes; the bias built once an encoder call, timed apart) and
+   F.scaled_dot_product_attention in f32 with the bias (the library
+   yardstick, never on the port's path); ptxas's registers, shared memory
+   and spills; a 2-layer packed encoder with gradients launches it 0
+   times and without them once a layer. Its launches over phase 13's
+   answer-path runs (read before phase 28 launches it) and over phase
+   21's training steps (0) are printed with it.
 
 Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
 uploads staged through pinned memory and, for comparison, from pageable
@@ -302,6 +321,7 @@ from viquae_torch.models import (arcface, bem, bert, clip, convert, dpr,
 from viquae_torch.native.build import load_packer
 from viquae_torch.ops import bm25 as bm25_lib
 from viquae_torch.ops import bm25_device, ivf, mips, mips_fused, packing
+from viquae_torch.ops import segment_attention as segattn
 from viquae_torch.ops import moe as moe_lib
 from viquae_torch.ops.bm25_device import DeviceBM25
 from viquae_torch.ops.fusion import fuse_topk
@@ -772,6 +792,7 @@ def phase_build():
     emit({"phase": "build", "seconds": round(seconds, 3),
           "kernels": sorted(logs), "ptxas": ptxas, "faults": faults})
     check(not any(faults.values()), f"ptxas reported {faults}")
+    return logs
 
 
 def phase_kernel_vs_plain(dev):
@@ -999,6 +1020,220 @@ def phase_main_path(dev, cfg=dpr.DPRConfig()):
             "stream_queries": stream_queries,
             "stream_launches": stream_launches,
             "search_ms": breakdown["search_ms"], "q_all": q}
+
+
+def segment_bound(seg: torch.Tensor, width: int) -> dict:
+    """The fused attention's least time: q, k, v read and the context
+    written once (f32) over the memory rate, or the FFMA of both products
+    over each segment's own keys (2 n^2 x 64 each, for every head) over
+    the f32 rate, whichever is larger."""
+    rows, length = seg.shape
+    seg = seg.long().cpu()
+    sizes = torch.stack([torch.bincount(r[r > 0], minlength=length + 1)
+                         for r in seg])
+    n_heads = width // segattn.HEAD_DIM
+    flops = 2 * 2 * segattn.HEAD_DIM * n_heads * float((sizes.double() ** 2)
+                                                     .sum())
+    moved = 4 * rows * length * width * 4
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = moved / PEAK_HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": moved}
+
+
+def split_heads(t: torch.Tensor) -> torch.Tensor:
+    """(R, L, heads x 64) -> (R, heads, L, 64), a view."""
+    return t.reshape(*t.shape[:2], -1, segattn.HEAD_DIM).transpose(1, 2)
+
+
+def library_segment_attention(q, k, v, bias):
+    """The same attention by one library call, f32
+    F.scaled_dot_product_attention with the bias as its mask (f32
+    probabilities: it has no rounding point): the yardstick alone."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        split_heads(q), split_heads(k), split_heads(v),
+        attn_mask=bias).transpose(1, 2).reshape(q.shape)
+
+
+def segment_canvases(rng) -> dict:
+    """Segment ids of the reader's canvas (a step's 16 x 24 pairs: a
+    lognormal question, 3 special tokens, a normal(125, 8) passage; rows
+    of 256) and of the retriever's (a batch of 1,280 lognormal questions
+    on rows of 64), packed by ops/packing."""
+    def packed(lengths, row_len):
+        seqs = [np.ones(int(n), np.int32) for n in lengths]
+        return torch.from_numpy(packing.pack_token_sequences(
+            seqs, row_len, pad_rows_to=8).segment_ids)
+
+    n_pairs = READER_QUESTIONS * READER_M
+    questions = np.clip(np.round(rng.lognormal(np.log(18), 0.35, n_pairs)),
+                        8, 64)
+    passages = np.round(rng.normal(125, 8, n_pairs))
+    pairs = np.minimum(questions + 3 + passages, READER_SEQ)
+    asked = np.clip(np.round(rng.lognormal(np.log(18), 0.35, BATCH)), 8,
+                    ROW_LEN)
+    return {"reader": packed(pairs, READER_SEQ),
+            "retriever": packed(asked, ROW_LEN)}
+
+
+def segment_attention_case(dev, seg, width, reps=20) -> dict:
+    """The kernel at one canvas: against the plain version and the plain
+    path, and timed beside them and the library call."""
+    rows, length = seg.shape
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    q, k, v = (torch.randn((rows, length, width), generator=gen,
+                           device=dev) * s for s in (2.0, 2.0, 1.0))
+    seg = seg.to(dev)
+    before = segattn.segment_attention.launches
+    got = segattn.segment_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    check(segattn.segment_attention.launches == before + 1,
+          "the fused attention did not launch")
+    bias = layers.attention_bias_from_segments(seg)
+    plain = layers.plain_attention(q, k, v, bias, segattn.HEAD_DIM,
+                                   torch.bfloat16)
+    twin = segattn.segment_attention_plain(q, k, v, seg)
+    # what the order of the f32 sums can move an entry by where both sides
+    # round each probability alike: L ulps of P . |v| a side; a
+    # probability whose two f32 values straddle a bf16 midpoint rounds
+    # either way, one rounding step (2^-7 of it) at most, in at most one
+    # entry in 10^3 (tests/test_torch_segment_attention.py _bounds)
+    spread = layers.plain_attention(q, k, v.abs(), bias, segattn.HEAD_DIM,
+                                    torch.bfloat16)
+    reorder = 2 * length * 2.0 ** -24 * spread
+    step = reorder + 2.0 ** -7 * spread
+    real = (seg > 0)[..., None].expand_as(got)
+    f32_probs = segattn.segment_attention(q, k, v, seg, torch.float32)
+    err = {"max_abs_vs_plain": float((got - plain).abs().max()),
+           "max_abs_vs_twin": float((got - twin).abs().max()),
+           "share_past_reordering_vs_plain": float(
+               ((got - plain).abs() > reorder).float().mean()),
+           "share_past_reordering_vs_twin": float(
+               ((got - twin).abs() > reorder).float().mean()),
+           "within_rounding_step": bool(
+               ((got - plain).abs() <= step).all()
+               and ((got - twin).abs() <= step).all()),
+           "bitwise_share_vs_twin": float((got == twin).float().mean()),
+           # the planted check: f32 probabilities leave the bound
+           "f32_probs_share_past_reordering": float(
+               ((got - f32_probs).abs() > reorder)[real].float().mean())}
+    pad = seg <= 0
+    if pad.any():
+        mean = torch.tensor(1.0 / length).to(torch.bfloat16).float().to(
+            dev) * v.sum(dim=1)                       # (R, width)
+        err["padding_max_abs"] = float((got - mean[:, None, :]).abs()[
+            pad].max())
+    check(err["share_past_reordering_vs_plain"] <= 1e-3
+          and err["share_past_reordering_vs_twin"] <= 1e-3
+          and err["within_rounding_step"]
+          and err["f32_probs_share_past_reordering"] > 0.5
+          and err.get("padding_max_abs", 0.0) <= 1e-5 * (
+              1.0 + float(v.abs().sum(dim=1).max()) / length),
+          f"the fused attention is off its plain versions: {err}")
+    del plain, twin, spread, reorder, step, real, f32_probs, got
+    torch.cuda.empty_cache()
+    out = {"rows": rows, "length": length, "width": width,
+           "real_token_share": float((seg > 0).float().mean()), **err}
+    bound = segment_bound(seg, width)
+    kernel_ms = time_ms(lambda: segattn.segment_attention(q, k, v, seg),
+                        reps, warmup=3)
+    out.update(
+        kernel_ms=kernel_ms, bound=bound, **achieved(bound, kernel_ms),
+        plain_ms=time_ms(lambda: layers.plain_attention(
+            q, k, v, bias, segattn.HEAD_DIM, torch.bfloat16), reps,
+            warmup=2),
+        bias_build_ms=time_ms(
+            lambda: layers.attention_bias_from_segments(seg), reps),
+        library_ms=time_ms(lambda: library_segment_attention(q, k, v, bias),
+                           reps, warmup=2))
+    return out
+
+
+def segment_attention_selection(dev) -> dict:
+    """A 2-layer packed encoder at heads of 64 on the card, f32 as
+    training runs it: with gradients it launches the fused attention 0
+    times, without them once a layer."""
+    cfg = bert.BertConfig(vocab_size=3000, hidden_size=DIM,
+                          num_hidden_layers=2, num_attention_heads=12,
+                          intermediate_size=4 * DIM,
+                          max_position_embeddings=ROW_LEN, add_pooler=False)
+    model = layers.seeded(bert.Bert, cfg, seed=0, device=dev)
+    seg = segment_canvases(np.random.default_rng(1))["retriever"][:64].to(dev)
+    ids = torch.randint(5, 3000, seg.shape, device=dev)
+    launches = {}
+    for name, grad in (("with_gradients", True), ("inference", False)):
+        model.requires_grad_(grad)
+        before = segattn.segment_attention.launches
+        with torch.set_grad_enabled(grad):
+            out = bert.apply(model, cfg, ids, segment_ids=seg,
+                             compute_dtype=torch.float32)
+            if grad:
+                out["last_hidden_state"].sum().backward()
+        torch.cuda.synchronize()
+        launches[name] = segattn.segment_attention.launches - before
+    check(launches == {"with_gradients": 0, "inference": 2},
+          f"the fused attention's selection on the card: {launches}")
+    return launches
+
+
+def values_of(tree, key: str) -> list:
+    """Every value stored under ``key`` in a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return [v for k, sub in tree.items()
+                for v in ([sub] if k == key else values_of(sub, key))]
+    if isinstance(tree, list):
+        return [v for sub in tree for v in values_of(sub, key)]
+    return []
+
+
+def segment_attention_ptxas(log: str) -> dict:
+    return {"lines": [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "smem" in ln],
+            "faults": ptxas_faults(log)}
+
+
+def phase_segment_attention(dev, ptxas=None) -> dict:
+    """Phase 28: the fused attention at the main path's shapes; returns
+    its kernel-table entry."""
+    t0 = time.perf_counter()
+    canvases = segment_canvases(np.random.default_rng(18))
+    entry = {"kernel": "segment_attention",
+             "file": "viquae_torch/csrc/segment_attention.cu",
+             "design": ("a block a (row, head, 64 queries), 256 threads, "
+                        "the tile's key range from its segments, logits "
+                        "and probabilities in shared memory, FFMA 4 x 4 a "
+                        "thread, exact softmax, bf16-rounded "
+                        "probabilities"),
+             "ptxas": ptxas}
+    for name, seg in canvases.items():
+        entry[name] = segment_attention_case(dev, seg, DIM)
+        emit({"phase": f"segment_attention_{name}", **entry[name]})
+    entry["selection"] = segment_attention_selection(dev)
+    emit({"phase": "segment_attention", "seconds":
+          time.perf_counter() - t0, "selection": entry["selection"],
+          "ptxas": ptxas})
+    return entry
+
+
+def segment_attention_only() -> int:
+    """``python3 chip_smoke.py --segment-attention-only``: phase 28 alone,
+    after building its library (ptxas -v, no spill allowed)."""
+    phase_device()
+    logs = kbuild.build_all(["segment_attention"], force=True, verbose=True)
+    ptxas = segment_attention_ptxas(logs["segment_attention"])
+    emit({"phase": "build", "ptxas": ptxas})
+    check(not ptxas["faults"], f"ptxas reported {ptxas['faults']}")
+    entry = phase_segment_attention(torch.device("cuda"), ptxas)
+    emit({"kernels": [entry]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 def phase_kernel_table(index, q, launches):
@@ -3384,6 +3619,7 @@ def timed_training(trainee, batch, opt_kw, questions, label,
                       optim.make_optimizer(trainee.params, **opt_kw),
                       TrainerConfig(max_steps=1, log_every=0))
     loss_before = trainer.evaluate([batch])["loss"]
+    launches = segattn.segment_attention.launches
     t0 = time.perf_counter()
     trainer.fit(lambda step: batch)
     torch.cuda.synchronize()
@@ -3397,8 +3633,14 @@ def timed_training(trainee, batch, opt_kw, questions, label,
     end.synchronize()
     wall_s = time.perf_counter() - t0
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    # the steps take gradients: the fused attention is never theirs (the
+    # no-grad evaluations around them may take it)
+    step_launches = segattn.segment_attention.launches - launches
+    check(step_launches == 0, f"{label}: the training steps launched the "
+          f"fused attention {step_launches} times")
     loss_after = trainer.evaluate([batch])["loss"]
     result = {"step_ms": step_ms, "first_step_s": first_step_s,
+              "segment_attention_step_launches": step_launches,
               "host_wall_per_step_ms": wall_s * 1e3 / TRAIN_STEPS,
               "items_per_s": questions / (step_ms / 1e3),
               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -6436,8 +6678,10 @@ def main() -> int:
         return pipeline_only()
     if sys.argv[1:2] == ["--timed"]:
         return timed(sys.argv[2:])
+    if sys.argv[1:] == ["--segment-attention-only"]:
+        return segment_attention_only()
     phase_device()
-    phase_build()
+    build_logs = phase_build()
     dev = torch.device("cuda")
     phase_kernel_vs_plain(dev)
     err_f32 = phase_kbmajor_vs_plain(dev)
@@ -6467,11 +6711,17 @@ def main() -> int:
     before_reader = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     shared = phase_reader_step(dev, main_path)
+    segattn.segment_attention.launches = 0
     launches_by_path.update({
         "exact_retrieval": main_path["launches"],
         "exact_retrieval_stream": main_path["stream_launches"],
         **phase_answer_path(dev, main_path, shared)})
+    answer_path_launches = segattn.segment_attention.launches
     reader_peak = torch.cuda.max_memory_allocated()
+    segment_entry = phase_segment_attention(
+        dev, segment_attention_ptxas(build_logs["segment_attention"]))
+    segment_entry["launches_by_path"] = {"answer_path": answer_path_launches}
+    kernels.append(segment_entry)
     # one scratch directory for the rest: phase 25's BM25 arrays and ranks,
     # the tokenizer, the CLI and training files
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
@@ -6514,6 +6764,8 @@ def main() -> int:
         launches_by_path["training"] = {
             "b1": mips_fused.fused_score_segmax_qmajor.launches,
             "b2": mips_fused.fused_score_segmax.launches}
+        segment_entry["launches_by_path"]["training_steps"] = sum(
+            values_of(training, "segment_attention_step_launches"))
         emit({"phase": "training_seconds",
               "seconds": time.perf_counter() - t0})
         # phase 22 reaches no kernel either: its counts are read to show it

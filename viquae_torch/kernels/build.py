@@ -10,7 +10,7 @@ first use, for Hopper only:
 The ``.cu`` files share headers (``csrc/*.cuh``): a library is rebuilt
 when its source or any header is newer. :func:`build_all` starts one nvcc
 per source, all at once, and waits for them together. Nothing here runs
-at import time; the CPU paths of the port never reach this module.
+at import time, and the CPU paths of the port never call into it.
 """
 from __future__ import annotations
 
@@ -50,6 +50,13 @@ _SIGNATURES = {
             ctypes.c_int),
         "score_segmax_kbmajor_error_string": ([ctypes.c_int],
                                               ctypes.c_char_p),
+    },
+    "segment_attention": {
+        "segment_attention_launch": (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 9
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+        "segment_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
 
@@ -128,3 +135,21 @@ def load(name: str) -> ctypes.CDLL:
         _LIBS[name] = lib
     return lib
 
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call the C entry ``fn`` of library ``name`` on the current stream of
+    the first tensor's device; raise on a non-zero cudaGetLastError()."""
+    import torch
+
+    lib = load(name)
+    dev = args[0].device
+    ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else a for a in args]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn)(*ptrs, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{getattr(lib, name + '_error_string')(err).decode()} "
+            f"(code {err})")

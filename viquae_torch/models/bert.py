@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -200,19 +201,21 @@ def embed(
 
 def _layer_forward(layer: nn.ModuleDict, x, bias, cfg: BertConfig,
                    compute_dtype, seeds: Sequence[Optional[int]] = (
-                       None, None, None), token_mask=None, seq_axis=None):
+                       None, None, None), token_mask=None, seq_axis=None,
+                   segment_ids=None):
     """One post-LN transformer block; ``seeds`` = the dropout seeds of the
     attention probabilities, the attention output and the FFN output.
     Returns (y, moe_aux): moe_aux is None for a dense FFN. ``token_mask``
     (B, L) keeps padding tokens out of MoE routing. With ``seq_axis``,
-    ``x`` and the output are this rank's slice of L."""
+    ``x`` and the output are this rank's slice of L. ``segment_ids``: a
+    packed canvas's, for the attention (``layers.mha``)."""
     seed_a, seed_h, seed_b = seeds
     folds = (DATA_AXIS,) if seq_axis is None else (DATA_AXIS, seq_axis)
     eps = cfg.layer_norm_eps
     attn = L.mha(layer["attention"], x, bias=bias,
                  n_heads=cfg.num_attention_heads, compute_dtype=compute_dtype,
                  dropout_rate=cfg.attention_probs_dropout_prob, seed=seed_a,
-                 seq_axis=seq_axis)
+                 seq_axis=seq_axis, segment_ids=segment_ids)
     attn = L.dropout(attn, cfg.hidden_dropout_prob, seed_h, folds)
     x = L.layer_norm(layer["attention_ln"], x + attn, eps, seq_axis)
     aux = None
@@ -229,6 +232,15 @@ def _layer_forward(layer: nn.ModuleDict, x, bias, cfg: BertConfig,
         ff = L.mlp(layer["mlp"], x, cfg.hidden_act, compute_dtype, seq_axis)
     ff = L.dropout(ff, cfg.hidden_dropout_prob, seed_b, folds)
     return L.layer_norm(layer["output_ln"], x + ff, eps, seq_axis), aux
+
+
+def _bias_when_needed(segment_ids):
+    """A packed canvas's (B, 1, L, L) block-diagonal bias as a function of
+    no arguments: built at its first call and kept. ``layers.mha`` calls it
+    only on the plain path, so an encoder whose every layer runs the fused
+    kernel builds none; training builds it once."""
+    return functools.cache(functools.partial(L.attention_bias_from_segments,
+                                             segment_ids))
 
 
 def _layer_under(ctx, *args):
@@ -254,7 +266,9 @@ def encode(
 ):
     """Encoder stack over (B, L, D) hidden states. ``segment_ids`` (B, L),
     0 = padding: packed-canvas mode — attention is block-diagonal per
-    segment, overriding ``attention_mask``. With ``output_hidden_states``
+    segment, overriding ``attention_mask``; the layers get the ids, and
+    the (B, 1, L, L) bias is built where a layer first takes the plain
+    path of ``layers.mha``. With ``output_hidden_states``
     returns (final, [embedding_out, layer1_out, ...]). ``remat_layers``
     recomputes each layer in the backward pass (per-layer gradient
     checkpointing), so one layer's activations are live at a time.
@@ -275,7 +289,7 @@ def encode(
             "True — add the load-balance aux to the loss (ops/moe.py)")
     b, l = hidden.shape[:2]
     if segment_ids is not None:
-        bias = L.attention_bias_from_segments(segment_ids)
+        bias = _bias_when_needed(segment_ids)
         token_mask = segment_ids > 0  # canvas padding rows (segment 0)
     else:
         if attention_mask is None:
@@ -309,11 +323,13 @@ def encode(
         if remat_layers and torch.is_grad_enabled():
             x, aux = checkpoint(_layer_under, meshlib.current(), layer, x,
                                 bias, cfg, compute_dtype, layer_seeds,
-                                token_mask, seq_axis, use_reentrant=False,
+                                token_mask, seq_axis, segment_ids,
+                                use_reentrant=False,
                                 preserve_rng_state=False)
         else:
             x, aux = _layer_forward(layer, x, bias, cfg, compute_dtype,
-                                    layer_seeds, token_mask, seq_axis)
+                                    layer_seeds, token_mask, seq_axis,
+                                    segment_ids)
         if aux is not None:
             moe_aux = moe_aux + aux
         if output_hidden_states:
@@ -394,8 +410,10 @@ def encode_pipelined(
     row only, so how rows group into microbatches changes no value; a
     batch whose rows do not divide by ``data`` x ``n_micro`` raises, as
     the reference's ``microbatch``. Padded-mask and packed
-    ``segment_ids`` modes: the attention bias is built once and
-    microbatched with the hidden states.
+    ``segment_ids`` modes: the mask's bias is built once and microbatched
+    with the hidden states; a packed canvas's segment ids are microbatched
+    instead, and a stage builds a microbatch's bias where a layer first
+    takes the plain path (as in :func:`encode`).
 
     Dropout seeds are drawn for every (microbatch, global layer, site)
     from ``generator`` before the schedule, on every rank, so a stage's
@@ -425,13 +443,14 @@ def encode_pipelined(
             f"axis is {ctx.pipe_size} — restage with pipeline_params")
     b, l = hidden.shape[:2]
     if segment_ids is not None:
-        bias = L.attention_bias_from_segments(segment_ids)
+        # each microbatch's bias is built where a layer first needs it
+        per_row = {"segment_ids": segment_ids}
     else:
         if attention_mask is None:
             attention_mask = torch.ones((b, l), device=hidden.device)
         bias = L.attention_bias_from_mask(attention_mask)
-    # microbatch the query dim even for broadcast (B, 1, 1, L) biases
-    bias = bias.expand((b,) + tuple(bias.shape[1:]))
+        # microbatch the query dim even for broadcast (B, 1, 1, L) biases
+        per_row = {"bias": bias.expand((b,) + tuple(bias.shape[1:]))}
     rows = dp.Rows(b, ctx)
     if ctx.size(DATA_AXIS) > 1 and not rows.split:
         raise ValueError(f"batch {b} not divisible by the data axis' "
@@ -439,22 +458,25 @@ def encode_pipelined(
     n_layers = stages.n_stages * stages.per
     seeds = L.dropout_seeds(generator, 3 * n_layers * n_micro,
                             deterministic)
-    consts = {"bias": pl.microbatch(rows.take(bias), n_micro),
-              "seeds": [seeds[3 * n_layers * m: 3 * n_layers * (m + 1)]
-                        for m in range(n_micro)]}
+    consts = {name: pl.microbatch(rows.take(t), n_micro)
+              for name, t in per_row.items()}
+    consts["seeds"] = [seeds[3 * n_layers * m: 3 * n_layers * (m + 1)]
+                       for m in range(n_micro)]
 
     def stage_fn(layers, x, c, offset):
+        segs = c.get("segment_ids")
+        bias = c["bias"] if segs is None else _bias_when_needed(segs)
         for j, layer in enumerate(layers):
             i = offset + j
             layer_seeds = tuple(c["seeds"][3 * i: 3 * i + 3])
             if remat_layers and torch.is_grad_enabled():
                 x, _ = checkpoint(_layer_under, meshlib.current(), layer, x,
-                                  c["bias"], cfg, compute_dtype, layer_seeds,
-                                  use_reentrant=False,
+                                  bias, cfg, compute_dtype, layer_seeds,
+                                  None, None, segs, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, _ = _layer_forward(layer, x, c["bias"], cfg,
-                                      compute_dtype, layer_seeds)
+                x, _ = _layer_forward(layer, x, bias, cfg, compute_dtype,
+                                      layer_seeds, segment_ids=segs)
         return x
 
     with rows.scope():

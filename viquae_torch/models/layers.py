@@ -57,7 +57,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from viquae_torch.core import mesh as meshlib
+from viquae_torch.core import profiling
 from viquae_torch.core.mesh import DATA_AXIS, MODEL_AXIS
+from viquae_torch.ops import segment_attention as segattn
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -282,49 +284,108 @@ def mha_spec(n_heads: Optional[int] = None) -> dict:
             "o": dense_spec(shard_in=True, units=n_heads)}
 
 
+def takes_fused_attention(x: torch.Tensor, kv: Optional[torch.Tensor],
+                          segment_ids: Optional[torch.Tensor], n_heads: int,
+                          compute_dtype: Optional[torch.dtype],
+                          dropout_rate: float, seed: Optional[int],
+                          seq_axis: Optional[str], weights) -> bool:
+    """Whether :func:`mha` of ``x`` (B, L, D) runs the fused kernel of
+    ops/segment_attention.py: self-attention (``kv`` None) of CUDA
+    tensors, given packed ``segment_ids``, without dropout (no seed, or a
+    rate of 0), with nothing to differentiate (grad mode off, or neither
+    ``x`` nor any of ``weights`` requires grad), without ``seq_axis``,
+    with heads of 64, L at most 512 and probabilities kept in f32 or
+    rounded to bf16. Every other call takes the plain path."""
+    if kv is not None or segment_ids is None or seq_axis is not None or (
+            seed is not None and dropout_rate != 0.0):
+        return False
+    if x.shape[-1] // n_heads != segattn.HEAD_DIM \
+            or x.shape[1] > segattn.MAX_LEN \
+            or compute_dtype not in (None, torch.float32, torch.bfloat16) \
+            or not x.is_cuda:
+        return False
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in weights)))
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor], head_dim: int,
+                    compute_dtype: Optional[torch.dtype],
+                    dropout_rate: float = 0.0, seed: Optional[int] = None,
+                    folds: Sequence[str] = (DATA_AXIS,)) -> torch.Tensor:
+    """The plain path of :func:`mha` from the projections' f32 outputs,
+    q (B, Lq, width) and k, v (B, Lk, width), heads concatenated, to the
+    context (B, Lq, width): f32 logits, the additive ``bias``, an f32
+    softmax, dropout (folded over ``folds``), the probabilities rounded
+    to ``compute_dtype`` and an f32 product with v."""
+    b, length, width = q.shape
+
+    def heads(t):  # (B, L, width) -> (B, heads, L, hd)
+        return t.reshape(b, -1, width // head_dim, head_dim).transpose(1, 2)
+
+    scores = torch.matmul(heads(q), heads(k).transpose(-1, -2)) \
+        / math.sqrt(head_dim)
+    if bias is not None:
+        scores = scores + bias
+    probs = dropout(torch.softmax(scores.float(), dim=-1), dropout_rate, seed,
+                    folds)
+    probs = probs.to(compute_dtype or probs.dtype).float()
+    return torch.matmul(probs, heads(v)).transpose(1, 2).reshape(b, length,
+                                                                 width)
+
+
 def mha(
     attn: nn.ModuleDict,
     x: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
+    bias=None,
     n_heads: int = 12,
     compute_dtype: Optional[torch.dtype] = torch.float32,
     kv: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
     seq_axis: Optional[str] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention of the queries of ``x`` over the keys
     and values of ``kv`` (default ``x``: self-attention).
 
     x: (B, Lq, D); kv: (B, Lk, Dkv); bias: additive f32 bias broadcastable
-    to (B, H, Lq, Lk). With a ``seed``, dropout at ``dropout_rate`` on the
-    f32 attention probabilities. ``n_heads`` counts every head; when the
-    weights hold a shard of them (tensor parallelism) this rank runs its
-    own heads. With ``seq_axis``, ``x`` is this rank's slice of L
+    to (B, H, Lq, Lk), or a function of no arguments that gives it (read
+    only on the plain path). With a ``seed``, dropout at ``dropout_rate``
+    on the f32 attention probabilities. ``n_heads`` counts every head;
+    when the weights hold a shard of them (tensor parallelism) this rank
+    runs its own heads. With ``seq_axis``, ``x`` is this rank's slice of L
     (self-attention only) and so is the output.
+
+    ``segment_ids`` (B, L): a packed canvas's segments (0 = padding),
+    handed in beside their block-diagonal ``bias``. Where
+    :func:`takes_fused_attention` holds, the fused kernel computes the
+    attention from them and ``bias`` is not read; every other call runs
+    :func:`plain_attention`. Every call adds one to the
+    ``attention.fused_calls`` or ``attention.plain_calls`` counter
+    (core/profiling.py) by the path it takes.
     """
     axis = shard_axis(attn["o"])
-    self_attention = kv is None
+    fused = takes_fused_attention(x, kv, segment_ids, n_heads, compute_dtype,
+                                  dropout_rate, seed, seq_axis,
+                                  attn.parameters())
+    profiling.count("attention.fused_calls" if fused
+                    else "attention.plain_calls")
     x = _enter(x, axis, seq_axis)
-    kv = x if self_attention else _enter(kv, axis, None)
-    b, length, dim = x.shape
-    head_dim = dim // n_heads
-    width = attn["q"].weight.shape[0]       # this rank's heads x head_dim
-
-    def heads(t):  # (B, L, width) -> (B, heads, L, hd)
-        return t.reshape(b, -1, width // head_dim, head_dim).transpose(1, 2)
-
-    q = heads(dense(attn["q"], x, compute_dtype))
-    k = heads(dense(attn["k"], kv, compute_dtype))
-    v = heads(dense(attn["v"], kv, compute_dtype))
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim)
-    if bias is not None:
-        scores = scores + bias
-    folds = (DATA_AXIS,) if axis is None else (DATA_AXIS, axis)
-    probs = dropout(torch.softmax(scores.float(), dim=-1), dropout_rate, seed,
-                    folds)
-    probs = probs.to(compute_dtype or probs.dtype).float()
-    ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, length, width)
+    if fused:
+        ctx = segattn.segment_attention(
+            dense(attn["q"], x, compute_dtype),
+            dense(attn["k"], x, compute_dtype),
+            dense(attn["v"], x, compute_dtype), segment_ids, compute_dtype)
+    else:
+        kv = x if kv is None else _enter(kv, axis, None)
+        folds = (DATA_AXIS,) if axis is None else (DATA_AXIS, axis)
+        ctx = plain_attention(
+            dense(attn["q"], x, compute_dtype),
+            dense(attn["k"], kv, compute_dtype),
+            dense(attn["v"], kv, compute_dtype),
+            bias() if callable(bias) else bias, x.shape[-1] // n_heads,
+            compute_dtype, dropout_rate, seed, folds)
     return _leave(_matmul(attn["o"], ctx, compute_dtype), attn["o"], axis,
                   seq_axis)
 

@@ -20,11 +20,11 @@ CPU tensors. A CUDA tensor goes to the kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
+from viquae_torch.kernels.build import launch as _launch
 from viquae_torch.ops import mips
 
 SEG = 128
@@ -64,25 +64,6 @@ def _check_operands(q, kb, dtypes, name):
     if q.data_ptr() % 16 or kb.data_ptr() % 16:
         # the kernels read both operands as 16-byte vectors
         raise ValueError("q and kb must start on a 16-byte boundary")
-
-
-def _launch(name, fn, *args):
-    """Call the C entry ``fn`` of library ``name`` on the current stream of
-    the first tensor's device; raise on a non-zero cudaGetLastError()."""
-    from viquae_torch.kernels.build import load
-
-    lib = load(name)
-    dev = args[0].device
-    ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-            else a for a in args]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = getattr(lib, fn)(*ptrs, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: "
-            f"{getattr(lib, name + '_error_string')(err).decode()} "
-            f"(code {err})")
 
 
 # ---- kernel B1: q-major, masked, rounded maxima ---------------------------
