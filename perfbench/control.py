@@ -28,7 +28,8 @@ def control(cell, seed: int, device) -> dict:
     """The numbers of the control for one seed."""
     from perfbench import entries
 
-    out = entries.ENTRIES[cell.traffic["entry"]](cell, seed, device).control()
+    out = entries.entry_class(cell.traffic["entry"], cell.root)(
+        cell, seed, device).control()
     return {k: (float(v) if not isinstance(v, int) else v)
             for k, v in out.items()}
 

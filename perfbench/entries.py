@@ -1,4 +1,6 @@
-"""The drivers that a traffic file names by its ``entry``: one class each.
+"""The drivers that a traffic file names by its ``entry``: one class each,
+a key of ``ENTRIES`` here or the ``ENTRY`` of ``perfbench/drivers/<entry>.py``
+(:func:`entry_class`).
 
 ``__init__`` draws the traffic from the seed and builds nothing, so the
 control and the tests can use the same questions; ``build`` sets up the
@@ -16,10 +18,12 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib.util
 import math
 import sys
 import threading
 import time
+from pathlib import Path
 from typing import Any, Dict, List
 
 import numpy as np
@@ -831,3 +835,40 @@ class TrainDPR(Entry):
 
 ENTRIES = {"retrieve_batch": RetrieveBatch, "answer_batch": AnswerBatch,
            "search_online": SearchOnline, "train_dpr": TrainDPR}
+
+
+# a checkout's driver files, loaded once each: a class patched in a test
+# stays the class that later runs get
+_DRIVERS: Dict[Path, type] = {}
+
+
+def entry_class(name: str, root=None) -> type:
+    """The driver a traffic file's ``entry`` names: ``ENTRIES[name]``, else
+    the ``ENTRY`` of ``perfbench/drivers/<name>.py`` under ``root`` (by
+    default this checkout)."""
+    if name in ENTRIES:
+        return ENTRIES[name]
+    root = Path(__file__).resolve().parents[1] if root is None else root
+    path = (Path(root) / "perfbench" / "drivers" / f"{name}.py").resolve()
+    if path not in _DRIVERS:
+        if not path.is_file():
+            raise LookupError(
+                f"no driver {name!r}: it is neither a key of ENTRIES in "
+                f"perfbench/entries.py ({', '.join(sorted(ENTRIES))}) nor "
+                f"a file perfbench/drivers/{name}.py")
+        spec = importlib.util.spec_from_file_location(
+            "perfbench_driver_" + name.replace("-", "_"), path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _DRIVERS[path] = module.ENTRY
+    return _DRIVERS[path]
+
+
+def driver_classes(root=None) -> List[type]:
+    """Every driver class: those of ``ENTRIES`` and of each file in
+    ``perfbench/drivers/`` under ``root``."""
+    root = Path(__file__).resolve().parents[1] if root is None else root
+    files = sorted((Path(root) / "perfbench" / "drivers").glob("*.py"))
+    return list(dict.fromkeys(list(ENTRIES.values()) + [
+        entry_class(f.stem, root) for f in files
+        if not f.stem.startswith("_")]))

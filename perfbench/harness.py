@@ -5,10 +5,14 @@ result line.
 Everything that belongs to one configuration, mix, cell or metric is a
 file of its own, found by the names in ``BENCHMARK.json``:
 ``perfbench/configs/<config>.json`` (the ``file`` of the entry),
-``perfbench/traffic/<traffic>.json`` (its ``entry`` names the driver in
-``perfbench/entries.py``), ``perfbench/limits/<workload>.json`` and
-``perfbench/metrics/<kind>.py``, the kind being a per-layer metric's
+``perfbench/traffic/<traffic>.json`` (its ``entry`` names the driver: a
+key of ``ENTRIES`` in ``perfbench/entries.py`` or a file
+``perfbench/drivers/<entry>.py``), ``perfbench/limits/<workload>.json``
+and ``perfbench/metrics/<kind>.py``, the kind being a per-layer metric's
 name up to its first dot (a ``read(run)`` that returns a number or None).
+
+A cell on several chips runs the same steps on every rank
+(``perfbench/ranks.py``); rank 0 alone judges and returns the result.
 """
 from __future__ import annotations
 
@@ -169,42 +173,58 @@ def judge(compared: Dict[str, float], limits: Dict[str, float]
 
 
 def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
-             device, started: float) -> dict:
-    """Run the cell and return the result object (the last line)."""
-    from perfbench import entries
+             device, started: float) -> Optional[dict]:
+    """Run the cell and return the result object (the last line); on a
+    rank other than 0, None. Every rank traces its own window; ``busy_s``
+    is their mean, the rest of the trace rank 0's."""
+    from perfbench import entries, ranks
     from perfbench.trace import Tracer
 
     cell = load_cell(root, name)
     cell.mark("harness loaded")
     tracer = Tracer(trace)
-    entry = entries.ENTRIES[cell.traffic["entry"]](cell, seed, device)
+    entry = entries.entry_class(cell.traffic["entry"], root)(cell, seed,
+                                                              device)
     entry.build()
     start = time.time()
     with CollectorWatch() as watch, tracer.window():
         out = entry.window(seconds)
-    peak = peak_memory(device)
+    rank, count = ranks.rank(), ranks.size()
+    peaks = ranks.gather(peak_memory(device))
+    summary = tracer.summary
+    busy = ranks.gather(summary and summary["busy_s"])
     entry.release()
     entries.free(device)
+    ranks.leave()
+    if rank != 0:
+        return None
     checks = judge(entry.judge(), cell.limits["limits"])
     setup_s = start - started
     correct = (out.attempted > 0 and out.failed == 0 and all(
         math.isfinite(c["value"]) and c["value"] <= c["limit"]
         for c in checks.values()))
-    dev = device_info(device, 1, peak)
+    dev = device_info(device, count, max(peaks))
     metrics: Dict[str, dict] = {}
     result = {"correct": correct, "attempted": out.attempted,
               "failed": out.failed}
+    notes = {}
+    if count > 1:
+        notes["memory_peak_bytes_by_rank"] = peaks
     if trace:
-        summary = tracer.summary
         run = Run(cell, out.facts, summary)
         for m in cell.per_layer:
             value = metric_reader(root, m["name"])(run)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         if summary is not None:
-            dev["busy_s"] = summary["busy_s"]
+            traced = [b for b in busy if b is not None]
+            dev["busy_s"] = sum(traced) / len(traced)
             dev["window_s"] = summary["window_s"]
             result["breakdown"] = summary["breakdown"]
+            notes["busy_s_with_annotations"] = summary[
+                "busy_s_with_annotations"]
+            if count > 1:
+                notes["busy_s_by_rank"] = busy
     else:
         values = dict(out.values, setup_s=setup_s)
         for m in cell.end_to_end:
@@ -218,7 +238,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
         at = t
     stages["warm-up"] = start - at
     result["notes"] = dict(out.notes, setup_s=setup_s, setup_stages=stages,
-                           gc=watch.notes())
+                           gc=watch.notes(), **notes)
     result["limits"] = checks
     return result
 

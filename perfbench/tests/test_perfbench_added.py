@@ -58,3 +58,45 @@ def test_a_cell_added_by_files_alone(tmp_path):
     # a metric of a kind whose reader is there needs no file of its own
     assert traced["metrics"]["mfu.long"]["value"] > 0
     assert traced["attempted"] % 32 == 0
+
+
+def test_a_cell_with_a_driver_of_its_own(tmp_path):
+    """A traffic file whose ``entry`` is a new file of ``perfbench/drivers/``:
+    the harness finds the driver by that name."""
+    torch.set_num_threads(2)
+    root = tiny.make_root(tmp_path)
+    pb = root / "perfbench"
+    (pb / "drivers" / "retrieve_counted.py").write_text(
+        "from perfbench import entries\n\n\n"
+        "class RetrieveCounted(entries.RetrieveBatch):\n"
+        "    def window(self, seconds):\n"
+        "        out = super().window(seconds)\n"
+        "        out.facts['windows'] = 1\n"
+        "        return out\n\n\n"
+        "ENTRY = RetrieveCounted\n")
+    mix = json.loads((pb / "traffic" / "questions-batch.json").read_text())
+    mix["entry"] = "retrieve_counted"
+    (pb / "traffic" / "questions-counted.json").write_text(json.dumps(mix))
+    (pb / "limits" / "retrieve-counted.json").write_text(
+        (pb / "limits" / "retrieve-batch.json").read_text())
+    (pb / "metrics" / "windows.py").write_text(
+        "def read(run):\n    return run.facts.get('windows')\n")
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": "retrieve-counted",
+                               "config": "dpr-bert-base",
+                               "traffic": "questions-counted", "chips": 1,
+                               "why": "a test cell"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "queries_per_s":
+            m["workloads"].append("retrieve-counted")
+    bench["per_layer"].append({
+        "name": "windows.counted", "unit": "windows", "better": "higher",
+        "source": "host_clock", "layer": "model step",
+        "moves": "queries_per_s", "workloads": ["retrieve-counted"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    plain = tiny.run(root, "retrieve-counted")
+    assert plain["correct"] is True, plain["limits"]
+    assert set(plain["metrics"]) == {"queries_per_s", "setup_s"}
+    traced = tiny.run(root, "retrieve-counted", trace=True)
+    assert traced["metrics"]["windows.counted"]["value"] == 1

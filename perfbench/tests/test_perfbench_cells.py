@@ -10,7 +10,8 @@ import torch
 
 from perfbench.tests import tiny
 
-BENCH = json.loads((tiny.REPO / "BENCHMARK.json").read_text())
+# with the cell whose entries are held back from BENCHMARK.json
+BENCH = tiny.bench()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 import json
 import re
 
+from perfbench import entries
 from perfbench.tests import tiny
 
 REPO = tiny.REPO
@@ -79,3 +80,49 @@ def test_every_name_has_its_file_and_every_cell_its_metrics():
             assert m["unit"] == "%"
     used = {w["config"] for w in BENCH["workloads"]}
     assert used == {c["name"] for c in BENCH["configs"]}
+
+
+def test_every_traffic_entry_resolves_to_a_driver():
+    for path in sorted((REPO / "perfbench" / "traffic").glob("*.json")):
+        name = json.loads(path.read_text())["entry"]
+        cls = entries.entry_class(name, REPO)
+        for step in ("build", "window", "release", "judge", "control"):
+            assert callable(getattr(cls, step)), (path.name, step)
+
+
+def test_train_items_per_s_is_bound_at_7_percent():
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    assert e2e["train_items_per_s"]["workloads"] == ["train-dpr"]
+    assert e2e["train_items_per_s"]["bound"] == 0.07
+
+
+def test_the_held_back_cell_appends_within_the_contract():
+    held = tiny.HELD_BACK["workload"]["name"]
+    assert held not in {w["name"] for w in BENCH["workloads"]}
+    full = tiny.bench()
+    cells = {w["name"]: w for w in full["workloads"]}
+    four = [n for n, w in cells.items() if w["chips"] == 4]
+    assert four == [held] and len(four) <= max(1, len(cells) // 4)
+    w = cells[held]
+    assert set(w) == {"name", "config", "traffic", "chips", "why"}
+    assert one_line(w["why"]) and len(w["why"]) <= 200
+    assert w["config"] in {c["name"] for c in full["configs"]}
+    pb = REPO / "perfbench"
+    traffic = json.loads((pb / "traffic" / f"{w['traffic']}.json").read_text())
+    assert entries.entry_class(traffic["entry"], REPO)
+    assert json.loads((pb / "limits" / f"{held}.json").read_text())["limits"]
+    e2e = {m["name"]: m for m in full["end_to_end"]}
+    assert e2e["train_items_per_s"]["workloads"] == ["train-dpr", held]
+    assert e2e["train_items_per_s"]["bound"] == 0.07
+    mine = [m for m in full["per_layer"] if m["workloads"] == [held]]
+    assert {m["name"] for m in mine} == {
+        "mfu.train4", "device_idle.train4", "collate_ms.train4",
+        "nccl_ms.train4", "nccl_exposed.train4"}
+    layers = {m["layer"] for m in BENCH["per_layer"]}
+    for m in mine:
+        assert set(m) == {"name", "unit", "better", "source", "layer",
+                          "moves", "workloads"}
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["source"] in SOURCES and m["moves"] == "train_items_per_s"
+        assert (pb / "metrics" / f"{m['name'].split('.')[0]}.py").is_file()
+        assert m["layer"] in layers | {"collectives (NCCL)"}

@@ -48,12 +48,13 @@ def run(site, name: str, seed: int) -> dict:
     return out
 
 
-def broken_in_window(monkeypatch, state):
-    """Sets ``state["on"]`` while any entry's window runs, so that set-up
-    and warm-up run the sound program."""
+def broken_in_window(monkeypatch, state, root=None):
+    """Sets ``state["on"]`` while any driver's window runs (those of
+    ``ENTRIES`` and of ``perfbench/drivers/`` under ``root``), so that
+    set-up and warm-up run the sound program."""
     from perfbench import entries
 
-    for cls in set(entries.ENTRIES.values()):
+    for cls in entries.driver_classes(root):
         def window(self, *args, _orig=cls.window, **kwargs):
             state["on"] = True
             try:
@@ -96,7 +97,7 @@ def test_broken_search_is_not_correct(site, monkeypatch, name, fault):
         return fault(scores, ids, sum(1 for q in queries if q))
 
     monkeypatch.setattr(serving.FusedRetrievalPipeline, "run_arrays", broken)
-    broken_in_window(monkeypatch, state)
+    broken_in_window(monkeypatch, state, site[0])
     out = run(site, name, 2**32 + 31337)
     assert out["correct"] is False, out["limits"]
 

@@ -46,7 +46,7 @@ torch.set_num_threads(2)
 from pathlib import Path
 from perfbench import harness, run
 for name in ("retrieve-batch", "answer-batch", "search-online",
-             "train-dpr"):
+             "train-dpr", "train-dpr-ddp4"):
     out = harness.run_cell(Path({str(root)!r}), name, 99, 0.5, True,
                            torch.device("cpu"), time.time())
     assert out["correct"], out["limits"]
