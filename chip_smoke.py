@@ -267,7 +267,18 @@ raises on failure:
    and spills; a 2-layer packed encoder with gradients launches it 0
    times and without them once a layer. Its launches over phase 13's
    answer-path runs (read before phase 28 launches it) and over phase
-   21's training steps (0) are printed with it.
+   21's training steps (0) are printed with it, and beside them those of
+   the encoder block's glue kernels (ops/encoder_glue.py: two of
+   ``bias_residual_layernorm`` and one of ``bias_gelu`` a layer of a bf16
+   encoder at inference; 0 over the training steps).
+
+``python3 chip_smoke.py --encoder-glue-only`` (not a phase of the whole
+run): the glue kernels built with ptxas -v, each against its plain twin at
+the reader's and the retriever's canvases (BERT-base widths, bf16
+parameters), and timed beside their bound (the bytes read and written
+once over the memory rate), the twin (the plain path's operations) and
+the library's ``F.layer_norm`` / ``F.gelu`` over the same rows (the
+yardstick alone: the LayerNorm or the GELU without the adds and casts).
 
 Phases 5 and 10 also time a stream of 4 batches (5,120 questions) with the
 uploads staged through pinned memory and, for comparison, from pageable
@@ -321,6 +332,7 @@ from viquae_torch.models import (arcface, bem, bert, clip, convert, dpr,
 from viquae_torch.native.build import load_packer
 from viquae_torch.ops import bm25 as bm25_lib
 from viquae_torch.ops import bm25_device, ivf, mips, mips_fused, packing
+from viquae_torch.ops import encoder_glue as glue
 from viquae_torch.ops import segment_attention as segattn
 from viquae_torch.ops import moe as moe_lib
 from viquae_torch.ops.bm25_device import DeviceBM25
@@ -1180,6 +1192,11 @@ def segment_attention_selection(dev) -> dict:
     return launches
 
 
+def glue_launch_count() -> int:
+    """The encoder block's glue kernels' launches so far, both kernels."""
+    return glue.bias_residual_layernorm.launches + glue.bias_gelu.launches
+
+
 def values_of(tree, key: str) -> list:
     """Every value stored under ``key`` in a tree of dicts and lists."""
     if isinstance(tree, dict):
@@ -1218,6 +1235,89 @@ def phase_segment_attention(dev, ptxas=None) -> dict:
           time.perf_counter() - t0, "selection": entry["selection"],
           "ptxas": ptxas})
     return entry
+
+
+def glue_case(dev, tokens: int, reps: int = 20) -> dict:
+    """The encoder block's glue kernels at a canvas of ``tokens`` slots,
+    BERT-base widths and bf16 parameters: against their twins (kernel A
+    within the order of the LayerNorm's sums, its bf16 copy its f32 output
+    rounded; kernel B one bf16 step at most, in at most one value in 10^3:
+    tests/test_torch_encoder_glue.py says why), and timed."""
+    import torch.nn.functional as F
+
+    width, inner, eps = DIM, 4 * DIM, 1e-12
+    gen = torch.Generator(device=dev).manual_seed(tokens)
+
+    def draw(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(shape, generator=gen, device=dev)
+
+    y, x, g = draw(tokens, width), draw(tokens, width), draw(tokens, inner,
+                                                             scale=1.5)
+    bias, weight, shift, bias_in = (t.to(torch.bfloat16) for t in (
+        draw(width, scale=0.02), draw(width, scale=0.1, base=1.0),
+        draw(width, scale=0.02), draw(inner, scale=0.02)))
+    launches = (glue.bias_residual_layernorm.launches,
+                glue.bias_gelu.launches)
+    out, low = glue.bias_residual_layernorm(y, bias, x, weight, shift, eps)
+    h = glue.bias_gelu(g, bias_in)
+    torch.cuda.synchronize()
+    check((glue.bias_residual_layernorm.launches, glue.bias_gelu.launches)
+          == (launches[0] + 1, launches[1] + 1),
+          "the glue kernels did not launch")
+    twin, _ = glue.bias_residual_layernorm_plain(y, bias, x, weight, shift,
+                                                 eps)
+    steps = (h.view(torch.int16).int()
+             - glue.bias_gelu_plain(g, bias_in).view(torch.int16).int()).abs()
+    err = {"a_max_abs_vs_twin": float((out - twin).abs().max()),
+           "a_bf16_is_its_f32_rounded": bool(torch.equal(
+               low, out.to(torch.bfloat16))),
+           "b_share_off_twin": float((steps > 0).float().mean()),
+           "b_max_bf16_steps": int(steps.max())}
+    check(err["a_max_abs_vs_twin"] <= 1e-4 and err["a_bf16_is_its_f32_rounded"]
+          and err["b_max_bf16_steps"] <= 1 and err["b_share_off_twin"] <= 1e-3,
+          f"the glue kernels are off their twins: {err}")
+    del out, low, h, twin, steps
+    t = x + (y + bias)
+    w32, s32 = weight.float(), shift.float()
+    gb = g + bias_in
+
+    def timed(name, moved, kernel, twin_fn, library):
+        bytes_ms = moved / PEAK_HBM_BYTES_PER_S * 1e3
+        kernel_ms = time_ms(kernel, reps, warmup=3)
+        return {"kernel": name, "bytes": moved, "bound_ms": bytes_ms,
+                "bound_by": "bytes", "kernel_ms": kernel_ms,
+                "fraction_of_bound": bytes_ms / kernel_ms,
+                "twin_ms": time_ms(twin_fn, reps, warmup=2),
+                "library_ms": time_ms(library, reps, warmup=2)}
+
+    return {"tokens": tokens, **err, "a": timed(
+        "bias_residual_layernorm", tokens * width * 14,
+        lambda: glue.bias_residual_layernorm(y, bias, x, weight, shift, eps),
+        lambda: glue.bias_residual_layernorm_plain(y, bias, x, weight, shift,
+                                                   eps),
+        lambda: F.layer_norm(t, (width,), w32, s32, eps)), "b": timed(
+        "bias_gelu", tokens * inner * 6, lambda: glue.bias_gelu(g, bias_in),
+        lambda: glue.bias_gelu_plain(g, bias_in), lambda: F.gelu(gb))}
+
+
+def encoder_glue_only() -> int:
+    """``python3 chip_smoke.py --encoder-glue-only``: the glue kernels
+    built (ptxas -v, no spill allowed), checked and timed at the reader's
+    and the retriever's canvases."""
+    phase_device()
+    logs = kbuild.build_all(["encoder_glue"], force=True, verbose=True)
+    ptxas = segment_attention_ptxas(logs["encoder_glue"])
+    emit({"phase": "build", "ptxas": ptxas})
+    check(not ptxas["faults"], f"ptxas reported {ptxas['faults']}")
+    dev = torch.device("cuda")
+    for name, seg in segment_canvases(np.random.default_rng(18)).items():
+        emit({"phase": f"encoder_glue_{name}", "rows": seg.shape[0],
+              "length": seg.shape[1], **glue_case(dev, seg.numel())})
+        torch.cuda.empty_cache()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 def segment_attention_only() -> int:
@@ -3620,6 +3720,7 @@ def timed_training(trainee, batch, opt_kw, questions, label,
                       TrainerConfig(max_steps=1, log_every=0))
     loss_before = trainer.evaluate([batch])["loss"]
     launches = segattn.segment_attention.launches
+    glue_launches = glue_launch_count()
     t0 = time.perf_counter()
     trainer.fit(lambda step: batch)
     torch.cuda.synchronize()
@@ -3638,9 +3739,13 @@ def timed_training(trainee, batch, opt_kw, questions, label,
     step_launches = segattn.segment_attention.launches - launches
     check(step_launches == 0, f"{label}: the training steps launched the "
           f"fused attention {step_launches} times")
+    glue_step_launches = glue_launch_count() - glue_launches
+    check(glue_step_launches == 0, f"{label}: the training steps launched "
+          f"the glue kernels {glue_step_launches} times")
     loss_after = trainer.evaluate([batch])["loss"]
     result = {"step_ms": step_ms, "first_step_s": first_step_s,
               "segment_attention_step_launches": step_launches,
+              "glue_step_launches": glue_step_launches,
               "host_wall_per_step_ms": wall_s * 1e3 / TRAIN_STEPS,
               "items_per_s": questions / (step_ms / 1e3),
               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -6680,6 +6785,8 @@ def main() -> int:
         return timed(sys.argv[2:])
     if sys.argv[1:] == ["--segment-attention-only"]:
         return segment_attention_only()
+    if sys.argv[1:] == ["--encoder-glue-only"]:
+        return encoder_glue_only()
     phase_device()
     build_logs = phase_build()
     dev = torch.device("cuda")
@@ -6712,16 +6819,24 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     shared = phase_reader_step(dev, main_path)
     segattn.segment_attention.launches = 0
+    glue.bias_residual_layernorm.launches = glue.bias_gelu.launches = 0
     launches_by_path.update({
         "exact_retrieval": main_path["launches"],
         "exact_retrieval_stream": main_path["stream_launches"],
         **phase_answer_path(dev, main_path, shared)})
     answer_path_launches = segattn.segment_attention.launches
+    glue_entry = {"kernel": "encoder_glue",
+                  "file": "viquae_torch/csrc/encoder_glue.cu",
+                  "launches_by_path": {"answer_path": {
+                      "bias_residual_layernorm":
+                          glue.bias_residual_layernorm.launches,
+                      "bias_gelu": glue.bias_gelu.launches}}}
+    emit({"phase": "encoder_glue_launches", **glue_entry})
     reader_peak = torch.cuda.max_memory_allocated()
     segment_entry = phase_segment_attention(
         dev, segment_attention_ptxas(build_logs["segment_attention"]))
     segment_entry["launches_by_path"] = {"answer_path": answer_path_launches}
-    kernels.append(segment_entry)
+    kernels += [segment_entry, glue_entry]
     # one scratch directory for the rest: phase 25's BM25 arrays and ranks,
     # the tokenizer, the CLI and training files
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
@@ -6766,6 +6881,8 @@ def main() -> int:
             "b2": mips_fused.fused_score_segmax.launches}
         segment_entry["launches_by_path"]["training_steps"] = sum(
             values_of(training, "segment_attention_step_launches"))
+        glue_entry["launches_by_path"]["training_steps"] = sum(
+            values_of(training, "glue_step_launches"))
         emit({"phase": "training_seconds",
               "seconds": time.perf_counter() - t0})
         # phase 22 reaches no kernel either: its counts are read to show it

@@ -74,7 +74,8 @@ def _kind(c_type: str) -> str:
     c_type = " ".join(c_type.split())
     if "*" in c_type:
         return "pointer"
-    return {"int64_t": "int64", "int": "int"}[c_type.replace("const ", "")]
+    return {"int64_t": "int64", "int": "int", "float": "float"}[
+        c_type.replace("const ", "")]
 
 
 def _c_entries():
@@ -93,7 +94,8 @@ def _c_entries():
 
 
 _CTYPES_KIND = {ctypes.c_void_p: "pointer", ctypes.c_char_p: "pointer",
-                ctypes.c_int64: "int64", ctypes.c_int: "int"}
+                ctypes.c_int64: "int64", ctypes.c_int: "int",
+                ctypes.c_float: "float"}
 
 
 def test_every_kernel_source_has_bound_entries():

@@ -58,6 +58,17 @@ _SIGNATURES = {
             ctypes.c_int),
         "segment_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "encoder_glue": {
+        "bias_residual_layernorm_launch": (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 2
+            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+            ctypes.c_int),
+        "bias_gelu_launch": (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+            + [ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+        "encoder_glue_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 
 

@@ -39,8 +39,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from viquae_torch.core import mesh as meshlib
+from viquae_torch.core import profiling
 from viquae_torch.core.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS
 from viquae_torch.models import layers as L
+from viquae_torch.ops import encoder_glue as glue
 from viquae_torch.ops import moe as moe_lib
 
 
@@ -202,14 +204,32 @@ def embed(
 def _layer_forward(layer: nn.ModuleDict, x, bias, cfg: BertConfig,
                    compute_dtype, seeds: Sequence[Optional[int]] = (
                        None, None, None), token_mask=None, seq_axis=None,
-                   segment_ids=None):
+                   segment_ids=None, x_low=None):
     """One post-LN transformer block; ``seeds`` = the dropout seeds of the
     attention probabilities, the attention output and the FFN output.
-    Returns (y, moe_aux): moe_aux is None for a dense FFN. ``token_mask``
-    (B, L) keeps padding tokens out of MoE routing. With ``seq_axis``,
-    ``x`` and the output are this rank's slice of L. ``segment_ids``: a
-    packed canvas's, for the attention (``layers.mha``)."""
+    Returns (y, moe_aux, y_low): moe_aux is None for a dense FFN.
+    ``token_mask`` (B, L) keeps padding tokens out of MoE routing. With
+    ``seq_axis``, ``x`` and the output are this rank's slice of L.
+    ``segment_ids``: a packed canvas's, for the attention
+    (``layers.mha``).
+
+    Where ``layers.takes_fused_glue`` holds, the block runs
+    :func:`_fused_block`; ``x_low`` is then ``x`` rounded to
+    ``compute_dtype`` if the previous block made it, and ``y_low`` is
+    ``y`` rounded, for the next block. Elsewhere ``y_low`` is None. Every
+    call adds one to the ``glue.fused_calls`` or ``glue.plain_calls``
+    counter (core/profiling.py) by the path it takes."""
     seed_a, seed_h, seed_b = seeds
+    fused = L.takes_fused_glue(
+        x, layer, compute_dtype, cfg.hidden_act,
+        ((cfg.attention_probs_dropout_prob, seed_a),
+         (cfg.hidden_dropout_prob, seed_h), (cfg.hidden_dropout_prob, seed_b)),
+        seq_axis)
+    profiling.count("glue.fused_calls" if fused else "glue.plain_calls")
+    if fused:
+        y, y_low = _fused_block(layer, x, x_low, bias, cfg, compute_dtype,
+                                segment_ids)
+        return y, None, y_low
     folds = (DATA_AXIS,) if seq_axis is None else (DATA_AXIS, seq_axis)
     eps = cfg.layer_norm_eps
     attn = L.mha(layer["attention"], x, bias=bias,
@@ -231,7 +251,35 @@ def _layer_forward(layer: nn.ModuleDict, x, bias, cfg: BertConfig,
     else:
         ff = L.mlp(layer["mlp"], x, cfg.hidden_act, compute_dtype, seq_axis)
     ff = L.dropout(ff, cfg.hidden_dropout_prob, seed_b, folds)
-    return L.layer_norm(layer["output_ln"], x + ff, eps, seq_axis), aux
+    return L.layer_norm(layer["output_ln"], x + ff, eps, seq_axis), aux, None
+
+
+def _fused_block(layer: nn.ModuleDict, x, x_low, bias, cfg: BertConfig,
+                 compute_dtype, segment_ids):
+    """:func:`_layer_forward`'s math with the glue between the GEMMs in
+    ops/encoder_glue.py's kernels: the o and ``mlp.out`` products leave
+    their GEMMs without bias, and kernel A adds it, the residual and the
+    LayerNorm, writing the f32 stream and its bf16 copy; kernel B adds
+    ``mlp.in``'s bias and applies GELU, writing bf16 only. The q, k, v and
+    ``mlp.in`` GEMMs read the bf16 copy, which the first block makes from
+    ``x`` in one cast. Returns (y, y rounded to ``compute_dtype``)."""
+    if x_low is None:
+        x = x.contiguous()
+        x_low = x.to(compute_dtype)
+    eps = cfg.layer_norm_eps
+    attn, mlp, a_ln, o_ln = (layer[name] for name in (
+        "attention", "mlp", "attention_ln", "output_ln"))
+    y = L.mha(attn, x_low, bias=bias, n_heads=cfg.num_attention_heads,
+              compute_dtype=compute_dtype, segment_ids=segment_ids,
+              out_bias=False)
+    x, x_low = glue.bias_residual_layernorm(y, attn["o"].bias, x,
+                                            a_ln.weight, a_ln.bias, eps)
+    h = glue.bias_gelu(L._matmul(mlp["in"], x_low, compute_dtype),
+                       mlp["in"].bias)
+    return glue.bias_residual_layernorm(L._matmul(mlp["out"], h,
+                                                  compute_dtype),
+                                        mlp["out"].bias, x, o_ln.weight,
+                                        o_ln.bias, eps)
 
 
 def _bias_when_needed(segment_ids):
@@ -318,18 +366,19 @@ def encode(
                                                            1)
     all_hidden = [hidden]
     moe_aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    x_low = None     # x rounded to compute_dtype, where a fused block made it
     for i, layer in enumerate(params.layers):
         layer_seeds = tuple(seeds[3 * i: 3 * i + 3])
         if remat_layers and torch.is_grad_enabled():
-            x, aux = checkpoint(_layer_under, meshlib.current(), layer, x,
-                                bias, cfg, compute_dtype, layer_seeds,
-                                token_mask, seq_axis, segment_ids,
-                                use_reentrant=False,
-                                preserve_rng_state=False)
+            x, aux, x_low = checkpoint(
+                _layer_under, meshlib.current(), layer, x, bias, cfg,
+                compute_dtype, layer_seeds, token_mask, seq_axis,
+                segment_ids, use_reentrant=False, preserve_rng_state=False)
         else:
-            x, aux = _layer_forward(layer, x, bias, cfg, compute_dtype,
-                                    layer_seeds, token_mask, seq_axis,
-                                    segment_ids)
+            x, aux, x_low = _layer_forward(layer, x, bias, cfg,
+                                           compute_dtype, layer_seeds,
+                                           token_mask, seq_axis,
+                                           segment_ids, x_low)
         if aux is not None:
             moe_aux = moe_aux + aux
         if output_hidden_states:
@@ -466,17 +515,19 @@ def encode_pipelined(
     def stage_fn(layers, x, c, offset):
         segs = c.get("segment_ids")
         bias = c["bias"] if segs is None else _bias_when_needed(segs)
+        x_low = None
         for j, layer in enumerate(layers):
             i = offset + j
             layer_seeds = tuple(c["seeds"][3 * i: 3 * i + 3])
             if remat_layers and torch.is_grad_enabled():
-                x, _ = checkpoint(_layer_under, meshlib.current(), layer, x,
-                                  bias, cfg, compute_dtype, layer_seeds,
-                                  None, None, segs, use_reentrant=False,
-                                  preserve_rng_state=False)
+                x, _, x_low = checkpoint(
+                    _layer_under, meshlib.current(), layer, x, bias, cfg,
+                    compute_dtype, layer_seeds, None, None, segs,
+                    use_reentrant=False, preserve_rng_state=False)
             else:
-                x, _ = _layer_forward(layer, x, bias, cfg, compute_dtype,
-                                      layer_seeds, segment_ids=segs)
+                x, _, x_low = _layer_forward(layer, x, bias, cfg,
+                                             compute_dtype, layer_seeds,
+                                             segment_ids=segs, x_low=x_low)
         return x
 
     with rows.scope():

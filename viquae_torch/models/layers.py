@@ -59,6 +59,7 @@ from torch import nn
 from viquae_torch.core import mesh as meshlib
 from viquae_torch.core import profiling
 from viquae_torch.core.mesh import DATA_AXIS, MODEL_AXIS
+from viquae_torch.ops import encoder_glue as glue
 from viquae_torch.ops import segment_attention as segattn
 
 _F32_MIN = torch.finfo(torch.float32).min
@@ -345,6 +346,7 @@ def mha(
     seed: Optional[int] = None,
     seq_axis: Optional[str] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    out_bias: bool = True,
 ) -> torch.Tensor:
     """Scaled dot-product attention of the queries of ``x`` over the keys
     and values of ``kv`` (default ``x``: self-attention).
@@ -364,6 +366,11 @@ def mha(
     :func:`plain_attention`. Every call adds one to the
     ``attention.fused_calls`` or ``attention.plain_calls`` counter
     (core/profiling.py) by the path it takes.
+
+    ``out_bias=False`` hands back the output projection's product before
+    its bias (the fused glue of ``bert._layer_forward`` adds it); it skips
+    ``_leave``'s reduction too, so it is for weights that are not split,
+    without ``seq_axis``.
     """
     axis = shard_axis(attn["o"])
     fused = takes_fused_attention(x, kv, segment_ids, n_heads, compute_dtype,
@@ -386,8 +393,41 @@ def mha(
             dense(attn["v"], kv, compute_dtype),
             bias() if callable(bias) else bias, x.shape[-1] // n_heads,
             compute_dtype, dropout_rate, seed, folds)
-    return _leave(_matmul(attn["o"], ctx, compute_dtype), attn["o"], axis,
-                  seq_axis)
+    out = _matmul(attn["o"], ctx, compute_dtype)
+    return _leave(out, attn["o"], axis, seq_axis) if out_bias else out
+
+
+# ---- the post-LN block's glue ----------------------------------------------
+def takes_fused_glue(x: torch.Tensor, block: nn.ModuleDict,
+                     compute_dtype: Optional[torch.dtype], act: str,
+                     dropout: Sequence[tuple], seq_axis: Optional[str]
+                     ) -> bool:
+    """Whether the post-LN encoder block ``block`` (``attention``,
+    ``attention_ln``, ``mlp``, ``output_ln``) of ``x`` (B, L, D) runs its
+    glue through ops/encoder_glue.py's kernels (``bert._layer_forward``):
+    CUDA tensors, bf16 ``compute_dtype``, nothing to differentiate (grad
+    mode off, or neither ``x`` nor any weight requires grad), no dropout
+    (each of ``dropout``'s (rate, seed) pairs without a seed or at rate
+    0), no ``seq_axis``, the ``o`` and ``mlp.out`` weights not split over
+    a mesh axis, a dense FFN with the exact GELU, widths the kernels take
+    and weights of one type, bf16 or f32. Every other call takes the
+    plain path."""
+    if "mlp" not in block or seq_axis is not None \
+            or compute_dtype != torch.bfloat16 \
+            or act not in ("gelu", "gelu_exact") or not x.is_cuda:
+        return False
+    if any(seed is not None and rate != 0.0 for rate, seed in dropout):
+        return False
+    if shard_axis(block["attention"]["o"]) is not None \
+            or shard_axis(block["mlp"]["out"]) is not None \
+            or not glue.takes(x.shape[-1], block["mlp"]["in"].out_features):
+        return False
+    weights = list(block.parameters())
+    if len({w.dtype for w in weights}) != 1 \
+            or weights[0].dtype not in (torch.bfloat16, torch.float32):
+        return False
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in weights)))
 
 
 # ---- MLP ------------------------------------------------------------------
